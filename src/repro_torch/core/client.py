@@ -1,0 +1,81 @@
+"""Client side: the whole-cohort local update for client-batched models.
+
+The port of ``repro.core.client.make_batched_local_update``.  The global
+params are broadcast to a client-stacked ``(K, ...)`` copy, and each local
+step is one autograd pass of the summed per-client losses
+(``Algorithm.batched_loss_fn``) followed by the optimizer update.  Inputs
+carry a step axis: ``xs`` (K, S, B, ...), with two masks:
+
+    ex_mask   (K, S, B)   zero weight for examples padded onto a ragged
+                          batch — they add nothing to loss or gradients
+    step_mask (K, S)      False for steps padded onto a client with fewer
+                          batches than the cohort's longest — the whole
+                          step leaves THAT client's params and optimizer
+                          state exactly as they were
+
+``aux`` is the per-step precompute dict (leaves (K, S, B, ...)) or ``()``
+when there is none; the loss then receives ``aux=None``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.optim import Optimizer, apply_updates
+from repro_torch.tree import tree_flatten, tree_map
+
+
+def _aux_or_none(aux: Any) -> Any:
+    """The executor convention: the empty tuple means no aux."""
+    return None if isinstance(aux, tuple) and len(aux) == 0 else aux
+
+
+def make_batched_local_update(batched_loss_fn: Callable,
+                              opt: Optimizer) -> Callable:
+    """Return ``local_update(global_params, payload, states, xs, ys,
+    ex_mask, aux, step_mask, lr) -> (params (K, ...), mean_loss (K,))``.
+
+    ``mean_loss[k]`` is client k's loss averaged over its live steps.
+    """
+
+    def step(params, opt_state, payload, states, x, y, m, aux_b, lr):
+        leaves, rebuild = tree_flatten(params)
+        live_leaves = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            total, per = batched_loss_fn(rebuild(live_leaves), payload,
+                                         states, x, y, m, _aux_or_none(aux_b))
+            grads = torch.autograd.grad(total, live_leaves)
+        with torch.no_grad():
+            updates, opt_state = opt.update(rebuild(list(grads)), opt_state,
+                                            params, lr)
+            return apply_updates(params, updates), opt_state, per.detach()
+
+    def local_update(global_params: Any, payload: Any, states: Any,
+                     xs: torch.Tensor, ys: torch.Tensor,
+                     ex_mask: torch.Tensor, aux: Any,
+                     step_mask: torch.Tensor, lr: float):
+        k, s = xs.shape[0], xs.shape[1]
+        params = tree_map(lambda l: l.detach().expand((k,) + tuple(l.shape))
+                          .clone(), global_params)
+        opt_state = opt.init(params, lead=(k,))
+        losses = []
+        for i in range(s):
+            aux_i = tree_map(lambda l: l[:, i], aux)
+            live = step_mask[:, i]
+            p2, o2, per = step(params, opt_state, payload, states, xs[:, i],
+                               ys[:, i], ex_mask[:, i], aux_i, lr)
+
+            def keep(new, old):
+                return torch.where(
+                    live.reshape((k,) + (1,) * (new.ndim - 1)), new, old)
+
+            params = tree_map(keep, p2, params)
+            opt_state = tree_map(keep, o2, opt_state)
+            losses.append(torch.where(live, per, torch.zeros_like(per)))
+        denom = torch.clamp(step_mask.to(torch.float32).sum(dim=1), min=1.0)
+        mean_loss = (torch.stack(losses).sum(dim=0) / denom if losses
+                     else torch.zeros(k, device=xs.device))
+        return params, mean_loss
+
+    return local_update

@@ -1,0 +1,251 @@
+"""Client execution: how one round's sampled clients are trained.
+
+The port of the client-batched route of ``repro.core.executor``'s
+``VmapExecutor``, the route ``executor="auto"`` takes for ResNet-8 with
+FedAvg and FedGKD.  Per round it
+
+  1. stacks each sampled client's FULL shard to (K, N_max, ...) and runs the
+     algorithm's ``precompute_aux`` once over it (FedGKD: the teacher's
+     logits), folding K into the batch axis, without autograd, in chunks;
+  2. draws every client's batch picks from the numpy generator in the
+     reference's order (``materialize_picks``) and stacks them to
+     (K, S, B, ...) with an example mask and a step mask;
+  3. gathers the precomputed rows per batch and runs the whole cohort's
+     local SGD as one client-stacked program
+     (``client.make_batched_local_update``).
+
+Ragged clients are exact, not approximate: every batch of a client has
+``min(B, n_k)`` examples, padded across clients to the cohort maximum
+behind a zero example mask, and a client with fewer steps gets whole
+padded steps that leave its params and optimizer state untouched.
+
+The sequential reference, the vmapped round body, shard_map and async
+execution are not ported yet; asking for them raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import client as client_lib
+from repro_torch.core.algorithms import Algorithm
+from repro_torch.core.modelzoo import ModelBundle
+from repro_torch.data.pipeline import ClientData
+from repro_torch.optim import Optimizer
+from repro_torch.tree import tree_map
+
+# rows per teacher-forward chunk of the precompute stage (K folded into N)
+PRECOMPUTE_CHUNK = 1024
+
+
+@dataclasses.dataclass
+class RoundContext:
+    """Everything fixed across rounds that an executor needs."""
+    algo: Algorithm
+    model: ModelBundle
+    opt: Optimizer
+    lr: float
+    batch_size: int
+    epochs: int
+    device: torch.device
+    max_batches: Optional[int] = None
+
+    def __post_init__(self):
+        bloss = (self.algo.batched_loss_fn(self.model)
+                 if self.model.client_batched else None)
+        self.batched_local_update = (
+            None if bloss is None
+            else client_lib.make_batched_local_update(bloss, self.opt))
+        self.has_precompute = (
+            type(self.algo).precompute_aux is not Algorithm.precompute_aux)
+        # which route and body ran: written by the executor, read by tests
+        self.telemetry: dict = {}
+
+
+@dataclasses.dataclass
+class RoundResult:
+    uploads: list[dict]
+    weights: list[float]
+    local_losses: list[float]
+    client_states: list[Any]
+
+
+# ---------------------------------------------------------------------------
+# batch materialization (numpy on the host, the reference's rng order)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MaterializedClient:
+    xs: np.ndarray      # (S_k, bs_k, ...)
+    ys: np.ndarray      # (S_k, bs_k)
+    n: int              # true example count (aggregation weight)
+    picks: np.ndarray   # (S_k, bs_k) int32 — shard-row index of each example
+
+
+def materialize_picks(rng: np.random.Generator, data: ClientData,
+                      batch_size: int, epochs: int,
+                      max_batches: Optional[int] = None) -> np.ndarray:
+    """The client's epoch batch INDICES, (S_k, bs_k) int32: one permutation
+    per started epoch, the final partial batch wrap-padded — the
+    reference's exact ``rng`` consumption."""
+    n = data.n
+    bs = min(batch_size, n)
+    picks: list[np.ndarray] = []
+    for _ in range(epochs):
+        order = rng.permutation(n)
+        for i in range(0, n, bs):
+            idx = order[i:i + bs]
+            if len(idx) < bs:               # wrap the final partial batch
+                idx = np.concatenate([idx, order[: bs - len(idx)]])
+            picks.append(idx)
+            if max_batches is not None and len(picks) >= max_batches:
+                break
+        if max_batches is not None and len(picks) >= max_batches:
+            break
+    return np.stack(picks).astype(np.int32)
+
+
+def materialize_client(rng: np.random.Generator, data: ClientData,
+                       batch_size: int, epochs: int,
+                       max_batches: Optional[int] = None) -> MaterializedClient:
+    """``materialize_picks`` plus the host-side row gather."""
+    sel = materialize_picks(rng, data, batch_size, epochs, max_batches)
+    return MaterializedClient(data.x[sel], data.y[sel], data.n, sel)
+
+
+def _pad_and_stack(mats: list[MaterializedClient], device):
+    """(K, S, B, ...) batches + example mask (K, S, B) + picks (K, S, B) +
+    step mask (K, S), on ``device``.  Padded picks point at row 0; the
+    example mask zero-weights whatever they gather."""
+    S = max(m.xs.shape[0] for m in mats)
+    B = max(m.xs.shape[1] for m in mats)
+    k = len(mats)
+    feat = mats[0].xs.shape[2:]
+    xs = np.zeros((k, S, B) + feat, mats[0].xs.dtype)
+    ys = np.zeros((k, S, B), np.int64)
+    ex_mask = np.zeros((k, S, B), np.float32)
+    picks = np.zeros((k, S, B), np.int64)
+    step_mask = np.zeros((k, S), bool)
+    for i, m in enumerate(mats):
+        s, b = m.xs.shape[:2]
+        xs[i, :s, :b] = m.xs
+        ys[i, :s, :b] = m.ys
+        ex_mask[i, :s, :b] = 1.0
+        picks[i, :s, :b] = m.picks
+        step_mask[i, :s] = True
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (xs, ys, ex_mask, picks, step_mask))
+
+
+def _pad_full_data(client_data: list[ClientData], device):
+    """Each client's FULL shard stacked to (K, N_max, ...) + labels + mask,
+    on ``device``; pad rows are zeros behind a zero mask."""
+    n_max = max(d.n for d in client_data)
+    k = len(client_data)
+    feat = client_data[0].x.shape[1:]
+    xs = np.zeros((k, n_max) + feat, client_data[0].x.dtype)
+    ys = np.zeros((k, n_max), np.int64)
+    mask = np.zeros((k, n_max), np.float32)
+    for i, d in enumerate(client_data):
+        xs[i, :d.n] = d.x
+        ys[i, :d.n] = d.y
+        mask[i, :d.n] = 1.0
+    return tuple(torch.from_numpy(a).to(device) for a in (xs, ys, mask))
+
+
+# ---------------------------------------------------------------------------
+# executors
+# ---------------------------------------------------------------------------
+
+class VmapExecutor:
+    """The reference's batched executor, on its client-batched route: one
+    client-stacked program trains the whole cohort."""
+
+    name = "vmap"
+
+    @staticmethod
+    def _precompute(ctx: RoundContext, payload, fx, fy, fmask):
+        """``precompute_aux`` over (K, N_max) shards with K folded into the
+        batch axis, PRECOMPUTE_CHUNK rows at a time, without autograd:
+        leaves (K, N_max, ...)."""
+        k, n = fx.shape[0], fx.shape[1]
+        flat = [t.reshape((k * n,) + tuple(t.shape[2:])) for t in (fx, fy, fmask)]
+        chunks = []
+        with torch.no_grad():
+            for lo in range(0, k * n, PRECOMPUTE_CHUNK):
+                sl = slice(lo, lo + PRECOMPUTE_CHUNK)
+                chunks.append(ctx.algo.precompute_aux(
+                    ctx.model, payload, flat[0][sl], flat[1][sl], flat[2][sl]))
+        return tree_map(lambda *parts: torch.cat(parts).reshape(
+            (k, n) + tuple(parts[0].shape[1:])), *chunks)
+
+    def run_round(self, ctx: RoundContext, global_params, payload,
+                  client_states, client_data, rng: np.random.Generator,
+                  client_ids=None) -> RoundResult:
+        ctx.telemetry["route"] = "vmap"
+        if ctx.batched_local_update is None:
+            raise NotImplementedError(
+                "the vmapped round body (models or algorithms without a "
+                "client-batched form) is not ported yet (ROADMAP A8b)")
+        ctx.telemetry["round_body"] = "client_batched"
+        k = len(client_data)
+        aux_full = None
+        if ctx.has_precompute:
+            # the teacher forward needs no batch picks: it goes first, as in
+            # the reference, so the device works while the host pads below
+            aux_full = self._precompute(ctx, payload,
+                                        *_pad_full_data(client_data, ctx.device))
+        mats = [materialize_client(rng, d, ctx.batch_size, ctx.epochs,
+                                   ctx.max_batches) for d in client_data]
+        xs, ys, ex_mask, picks, step_mask = _pad_and_stack(mats, ctx.device)
+        states = tuple(client_states)
+        aux = ()
+        if ctx.has_precompute:
+            rows = torch.arange(k, device=ctx.device)[:, None, None]
+            aux = tree_map(lambda l: l[rows, picks], aux_full)
+        params_stacked, mloss = ctx.batched_local_update(
+            global_params, payload, states, xs, ys, ex_mask, aux, step_mask,
+            ctx.lr)
+        uploads = [{"params": tree_map(lambda l, i=i: l[i], params_stacked)}
+                   for i in range(k)]
+        return RoundResult(uploads, [float(m.n) for m in mats],
+                           mloss.cpu().tolist(), list(client_states))
+
+
+_NOT_PORTED = {
+    "sequential": "ROADMAP A8b",
+    "shard_map": "ROADMAP A8b and A13",
+    "async": "ROADMAP A10",
+}
+
+
+def available() -> list[str]:
+    return ["auto", "vmap"]
+
+
+def get_executor(spec, algo: Algorithm, n_sample: int,
+                 model: Optional[ModelBundle] = None) -> VmapExecutor:
+    """Resolve an executor spec.  ``"auto"`` picks the batched route when
+    more than one client is sampled and the model + algorithm have a
+    client-batched form, as the reference does; where the reference would
+    pick the sequential executor instead, this raises (not ported)."""
+    if not isinstance(spec, str):
+        return spec
+    if spec == "auto":
+        batched_ok = (n_sample > 1 and model is not None
+                      and model.client_batched
+                      and algo.batched_loss_fn(model) is not None)
+        if not batched_ok:
+            raise NotImplementedError(
+                "executor='auto' resolves to the sequential executor here, "
+                "which is not ported yet (ROADMAP A8b)")
+        spec = "vmap"
+    if spec == "vmap":
+        return VmapExecutor()
+    if spec in _NOT_PORTED:
+        raise NotImplementedError(
+            f"executor {spec!r} is not ported yet ({_NOT_PORTED[spec]})")
+    raise ValueError(f"unknown executor {spec!r}; available: {available()}")

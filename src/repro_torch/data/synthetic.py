@@ -1,0 +1,68 @@
+"""Synthetic image dataset (offline stand-in for CIFAR), numpy only.
+
+A copy of the image generator of ``repro.data.synthetic``: the same seed
+gives byte-identical arrays.  Each class has a low-frequency template
+(random Fourier features); a sample is the template times a random
+contrast, plus a per-class channel bias, Gaussian noise and a random
+circular shift.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.configs.paper import PaperTask
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticImageTask:
+    num_classes: int
+    hw: int = 32
+    channels: int = 3
+    noise: float = 0.8
+    seed: int = 0
+
+    def generate(self, n: int, seed: int | None = None):
+        rng = np.random.default_rng(self.seed if seed is None else seed)
+        c, hwd = self.num_classes, self.hw
+        # low-frequency class templates
+        yy, xx = np.meshgrid(np.linspace(0, 1, hwd), np.linspace(0, 1, hwd),
+                             indexing="ij")
+        templates = np.zeros((c, hwd, hwd, self.channels), np.float32)
+        for k in range(c):
+            for ch in range(self.channels):
+                for _ in range(3):
+                    fx, fy = rng.uniform(0.5, 3.0, 2)
+                    ph = rng.uniform(0, 2 * np.pi)
+                    templates[k, :, :, ch] += np.sin(
+                        2 * np.pi * (fx * xx + fy * yy) + ph)
+        templates /= np.sqrt((templates ** 2).mean((1, 2, 3), keepdims=True) + 1e-8)
+
+        # shift-invariant per-class channel bias (keeps the task learnable
+        # under the circular-shift nuisance below)
+        chan_bias = rng.normal(0, 0.5, size=(c, 1, 1, self.channels)).astype(
+            np.float32)
+
+        labels = rng.integers(0, c, size=n)
+        contrast = rng.uniform(0.6, 1.4, size=(n, 1, 1, 1)).astype(np.float32)
+        x = templates[labels] * contrast
+        # random circular shifts (nuisance)
+        sh = rng.integers(-2, 3, size=(n, 2))
+        for i in range(n):
+            x[i] = np.roll(x[i], tuple(sh[i]), axis=(0, 1))
+        x += chan_bias[labels]
+        x += rng.normal(0, self.noise, x.shape).astype(np.float32)
+        return x.astype(np.float32), labels.astype(np.int64)
+
+
+def make_task_data(task: PaperTask, n_train: int, n_test: int, seed: int = 0):
+    """Generate (train_x, train_y, test_x, test_y) for an image task."""
+    if task.kind != "image":
+        raise NotImplementedError(
+            f"{task.kind!r} task data is not ported yet (ROADMAP A8b/A9); "
+            f"the port generates image tasks only")
+    gen = SyntheticImageTask(task.num_classes, hw=task.image_hw, seed=seed)
+    xtr, ytr = gen.generate(n_train, seed=seed)
+    xte, yte = gen.generate(n_test, seed=seed + 10_000)
+    return xtr, ytr, xte, yte

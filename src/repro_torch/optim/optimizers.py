@@ -1,0 +1,99 @@
+"""Minimal functional optimizers over nested dicts of tensors.
+
+The port of ``repro.optim.optimizers``.  An ``Optimizer`` is (init, update):
+
+    state = opt.init(params, lead=())
+    updates, state = opt.update(grads, state, params, lr)
+    params = apply_updates(params, updates)
+
+Updates are NEGATIVE steps (add them to params).  ``lead`` is the shape of
+the leading client axis of client-stacked params: every per-client scalar
+of the state (Adam's step count) gets that shape, so a masked step can
+keep one client's state while the others move.
+
+Weight decay follows the reference's CODE, not its docstrings: ``sgd``
+adds ``wd·p`` to the gradient (coupled L2); ``adam`` adds ``wd·p`` to the
+step after bias correction.  Call ``update`` with autograd off.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+
+class Optimizer(NamedTuple):
+    init: Callable
+    update: Callable  # (grads, state, params, lr) -> (updates, state)
+
+
+def apply_updates(params, updates):
+    return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+
+
+def sgd(momentum: float = 0.0, weight_decay: float = 0.0,
+        nesterov: bool = False) -> Optimizer:
+    """SGD with optional heavy-ball momentum and coupled L2 weight decay —
+    the paper's CV optimizer (momentum 0.9, wd 1e-5)."""
+
+    def init(params, lead=()):
+        if momentum == 0.0:
+            return ()
+        return tree_map(torch.zeros_like, params)
+
+    def update(grads, state, params, lr):
+        if weight_decay:
+            grads = tree_map(lambda g, p: g + weight_decay * p.to(g.dtype),
+                             grads, params)
+        if momentum == 0.0:
+            return tree_map(lambda g: -lr * g, grads), ()
+        new_m = tree_map(lambda m, g: momentum * m.to(g.dtype) + g, state, grads)
+        if nesterov:
+            step = tree_map(lambda g, m: g + momentum * m, grads, new_m)
+        else:
+            step = new_m
+        new_m = tree_map(lambda m, s: m.to(s.dtype), new_m, state)
+        return tree_map(lambda s: -lr * s, step), new_m
+
+    return Optimizer(init, update)
+
+
+class AdamState(NamedTuple):
+    mu: object
+    nu: object
+    count: torch.Tensor
+
+
+def _lead_view(c: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Broadcast a per-client scalar ``lead``-shaped tensor over a leaf."""
+    return c.reshape(c.shape + (1,) * (like.ndim - c.ndim))
+
+
+def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         weight_decay: float = 0.0) -> Optimizer:
+    """Adam — the paper's NLP optimizer (lr 1e-5, wd 0).  State in fp32."""
+
+    def init(params, lead=()):
+        z = lambda p: torch.zeros_like(p, dtype=torch.float32)
+        device = tree_leaves(params)[0].device
+        return AdamState(tree_map(z, params), tree_map(z, params),
+                         torch.zeros(lead, dtype=torch.int32, device=device))
+
+    def update(grads, state, params, lr):
+        count = state.count + 1
+        gf = tree_map(lambda g: g.to(torch.float32), grads)
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, gf)
+        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g),
+                      state.nu, gf)
+        c1 = 1 - b1 ** count.to(torch.float32)
+        c2 = 1 - b2 ** count.to(torch.float32)
+        step = tree_map(lambda m, v: (m / _lead_view(c1, m))
+                        / (torch.sqrt(v / _lead_view(c2, v)) + eps), mu, nu)
+        if weight_decay:
+            step = tree_map(lambda s, p: s + weight_decay * p.to(s.dtype),
+                            step, params)
+        return tree_map(lambda s: -lr * s, step), AdamState(mu, nu, count)
+
+    return Optimizer(init, update)
