@@ -11,24 +11,41 @@ and nothing of JAX or of the JAX package, and
   2. builds the port's CUDA kernels from ``src/repro_torch/csrc`` and prints
      the build's seconds and the compiler's register report;
   3. holds every kernel against its plain PyTorch version on the card at
-     the main path's shapes — KD-KL forward and backward at (256, 10),
-     (256, 100), (256, 200) and a ragged (1000, 37); the client-batched conv
-     at all 9 ResNet-8 layers at K=4, N=64, at K=1, N=256 and at K=1 with
-     the teacher precompute's chunk sizes (1024 rows and the ragged rest)
-     — to 1e-5 of the plain version's largest magnitude (fp32, TF32 off),
-     and times the kernel, the plain version and, where one exists, one
-     library call (cuDNN's grouped ``conv2d``; ``kl_div`` of
-     ``log_softmax``) on the device: CUDA-graph replays between CUDA
-     events, so the host's enqueue cost is left out;
-  4. drives the main path, ``run_federated`` with FedGKD on ResNet-8 at full
-     width (16; 32x32x3 inputs, batch 64, 20 clients at C=0.2 so K=4, 10
-     classes), with only depth cut (train size, one local epoch, 5 batches
-     per client, 3 rounds), with every launch count set to 0 just before
-     and read just after; then one FedAvg round;
-  5. profiles one steady-state FedGKD round (``torch.profiler``): host wall
-     time, the device's busy time and idle share, device time by kernel;
-  6. re-runs FedGKD's first round on the CPU from the same init and holds
-     the card's parameters after that round to 1e-4 of the CPU's.
+     the two paths' shapes — KD-KL forward and backward at (256, 10),
+     (256, 100), (256, 200), a ragged (1000, 37) and the text path's
+     (64, 4) and (64, 5); the client-batched conv at all 9 ResNet-8 layers
+     at K=4, N=64, at K=1, N=256 and at K=1 with the teacher precompute's
+     chunk sizes (1024 rows and the ragged rest); flash attention at the
+     text path's (B, S, Hq, Hkv, D) = (64, 64, 4, 4, 32) of a local step,
+     (256, ...) of an evaluation batch and the teacher precompute's row
+     counts, causal, and for coverage at GQA with a window, non-causal
+     ragged S = 100 at D = 128, and S = 1 — to 1e-5 of the plain version's
+     largest magnitude (fp32, TF32 off), and times the kernel, the plain
+     version and, where one exists, one library call (cuDNN's grouped
+     ``conv2d``; ``kl_div`` of ``log_softmax``;
+     ``scaled_dot_product_attention``) on the device: CUDA-graph replays
+     between CUDA events, so the host's enqueue cost is left out;
+  4. drives two paths of ``run_federated``, each with every launch count
+     set to 0 just before and read just after, and fails if a kernel of
+     the path was not launched:
+     a. ResNet-8 (client-batched vmap executor): FedGKD at full width (16;
+        32x32x3 inputs, batch 64, 20 clients at C=0.2 so K=4, 10 classes),
+        with only depth cut (train size, one local epoch, 5 batches per
+        client, 3 rounds);
+     b. text (sequential executor): FedGKD on AG News with the
+        DistilBERT-class encoder at the repo's full width (4 layers,
+        d_model 128, 4 heads, sequence 64, vocab 2000; batch 64, 20
+        clients at C=0.2 so K=4, Adam at lr 1e-5), depth cut to 3,000
+        examples, 5 batches per client and 3 rounds;
+     then one FedAvg round of each;
+  5. profiles one steady-state FedGKD round of each path
+     (``torch.profiler``): host wall time, the device's busy time and idle
+     share, device time by kernel;
+  6. runs each path's first FedGKD round on the card and on the CPU from
+     the same init and holds the card's parameters after that round to
+     1e-4 of the CPU's, where the round must have moved them by at least
+     1e-3 (the text path at Adam lr 1e-3 for this check: at its lr 1e-5 a
+     round moves a parameter by about 5e-5, so no check at 1e-4 could fail).
 
 It exits non-zero on any failure.  The last lines of its output are the
 kernels' JSON record, the ``nvidia-smi`` line and
@@ -36,6 +53,7 @@ kernels' JSON record, the ``nvidia-smi`` line and
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -51,6 +69,11 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 KERNEL_TOL = 1e-5          # of max |plain|, fp32 with TF32 off
 ROUND_TOL = 1e-4           # card vs CPU params after one round, fp32
+MIN_MOVE = 10              # round 1 must move the params >= this x ROUND_TOL
+# the text path trains under Adam at lr 1e-5, which moves a parameter by
+# about lr per step: 5 steps stay below ROUND_TOL, so its card-vs-CPU round
+# runs at the CPU tests' lr instead
+TEXT_CHECK_LR = 1e-3
 # ResNet-8 convs at width 16 on 32x32 inputs: (name, H, Cin, Cout, k, stride)
 RESNET8_CONVS = [
     ("stem", 32, 3, 16, 3, 1),
@@ -63,7 +86,11 @@ RESNET8_CONVS = [
     ("block3.conv2", 8, 64, 64, 3, 1),
     ("block3.proj", 16, 32, 64, 1, 2),
 ]
-KD_SHAPES = [(256, 10), (256, 100), (256, 200), (1000, 37)]
+KD_SHAPES = [(256, 10), (256, 100), (256, 200), (1000, 37), (64, 4), (64, 5)]
+# flash attention (B, S, Hq, Hkv, D, causal, window) beyond the text path's
+# own: GQA with a window, non-causal ragged at D = 128, one token
+FLASH_COVERAGE = [(4, 128, 8, 2, 64, True, 32), (8, 100, 4, 4, 128, False, None),
+                  (64, 1, 4, 4, 32, True, None)]
 
 
 def log(msg: str) -> None:
@@ -241,6 +268,60 @@ def check_conv(dev, teacher_ns: list[int]) -> dict:
                 bound_ms=b, bound_by=by)
 
 
+def check_flash(dev, teacher_ns: list[int]) -> dict:
+    """Flash attention at the text path's shapes — (64, 64, 4, 4, 32)
+    causal for a local step, (256, ...) for an evaluation batch and
+    (n, ...) for ``teacher_ns``, the teacher precompute's row counts — and
+    at ``FLASH_COVERAGE``.  The record's times are the local step's."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    path = [(n, 64, 4, 4, 32, True, None)
+            for n in dict.fromkeys([64, 256] + teacher_ns)]
+    rec = dict(max_abs_err=0.0)
+    for b, s, hq, hkv, d, causal, window in path + FLASH_COVERAGE:
+        q = torch.randn(b, s, hq, d, device=dev, generator=gen)
+        k = torch.randn(b, s, hkv, d, device=dev, generator=gen)
+        v = torch.randn(b, s, hkv, d, device=dev, generator=gen)
+        shape = f"(B={b}, S={s}, Hq={hq}, Hkv={hkv}, D={d}, causal={causal}, window={window})"
+        want = ref.attention_ref(q, k, v, causal=causal, window=window)
+        err = compare(f"flash_attention_fwd {shape}",
+                      ops.flash_attention_fwd(q, k, v, causal, window), want)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if (b, s) not in ((64, 64), (256, 64)) or window is not None:
+            log(f"  flash {shape} err {err:.2e}")
+            continue
+        # the library yardstick on (B, H, S, D) copies made outside the
+        # timed region; the port never calls it
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        compare(f"library sdpa {shape}", library().transpose(1, 2), want)
+        t = dict(ms=time_ms(lambda: ops.flash_attention_fwd(q, k, v, causal)),
+                 plain_ms=time_ms(lambda: ref.attention_ref(q, k, v,
+                                                            causal=causal)),
+                 library_ms=time_ms(library))
+        # bytes: q, k, v read once (k, v at Hkv heads), o written once;
+        # operations: 4·D per unmasked (query, key) pair and query head
+        pairs = int(ref.causal_mask(s, s, device=dev).sum()) if causal else s * s
+        nbytes = 4 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 4 * d * pairs * b * hq)
+        log(f"  flash {shape} err {err:.2e} kernel {t['ms']:.4f} ms plain "
+            f"{t['plain_ms']:.4f} ms library {t['library_ms']:.4f} ms bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
+        if b == 64:                            # one local step's attention
+            rec.update(t)
+    return dict(name="flash_attention_fwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:28",
+                **rec)
+
+
 def all_finite(tree) -> bool:
     import torch
 
@@ -249,7 +330,7 @@ def all_finite(tree) -> bool:
     return all(bool(torch.isfinite(t).all()) for t in tree_leaves(tree))
 
 
-def profile_round(dev, task, data, kw, make_algo) -> None:
+def profile_round(dev, label, task, data, kw, make_algo) -> None:
     """Where a steady-state FedGKD round's time goes: round 2 of a 2-round
     run under ``torch.profiler``, its host wall time, the device's busy
     time (the union of its kernels' and copies' intervals), and the device
@@ -278,8 +359,9 @@ def profile_round(dev, task, data, kw, make_algo) -> None:
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
-        log(f"profile (FedGKD round 2): wall {wall['ms']:.3f} ms; device "
-            f"busy time not measured (the profiler saw no device activity)")
+        log(f"profile ({label}, FedGKD round 2): wall {wall['ms']:.3f} ms; "
+            f"device busy time not measured (the profiler saw no device "
+            f"activity)")
         return
     busy_us, end, by_name = 0.0, -math.inf, {}
     for lo, hi, name in spans:
@@ -287,15 +369,15 @@ def profile_round(dev, task, data, kw, make_algo) -> None:
         end = max(end, hi)
         t, n = by_name.get(name, (0.0, 0))
         by_name[name] = (t + hi - lo, n + 1)
-    log(f"profile (FedGKD round 2): wall {wall['ms']:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / 1e3 / wall['ms']:.4f}, "
-        f"{len(spans)} device ops")
+    log(f"profile ({label}, FedGKD round 2): wall {wall['ms']:.3f} ms, device "
+        f"busy {busy_us / 1e3:.3f} ms, idle share "
+        f"{1 - busy_us / 1e3 / wall['ms']:.4f}, {len(spans)} device ops")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"  {t / 1e3:8.3f} ms {n:5d}x  {name[:90]}")
 
 
-def main_path_setup():
-    """The main path's task, data and ``run_federated`` arguments: full
+def resnet_setup():
+    """The ResNet-8 path's task, data and ``run_federated`` arguments: full
     width; depth cut to 4,500 examples, 1 local epoch, 5 batches per
     client, 3 rounds (the paper: 45,000, 20 epochs, 100 rounds)."""
     from repro_torch.configs.paper import CIFAR10, scaled
@@ -306,32 +388,79 @@ def main_path_setup():
     return task, data, dict(seed=0, max_batches_per_client=5, width=16)
 
 
-def teacher_chunks(task, data, seed: int) -> list[int]:
-    """The row counts of round 1's teacher-precompute conv calls: the
-    cohort's K·N_max rows in chunks of ``PRECOMPUTE_CHUNK`` (the full
-    chunk and the ragged remainder), from the cohort that ``seed`` draws."""
+def text_setup():
+    """The text path's task, data and ``run_federated`` arguments: the
+    encoder at the repo's full width; depth cut to 3,000 examples, 5
+    batches per client, 3 rounds (the paper: 60,000 and 10 rounds)."""
+    from repro_torch.configs.paper import AG_NEWS, scaled
+    from repro_torch.core import fl_loop
+
+    task = scaled(AG_NEWS, 0.05, rounds=3)
+    data = fl_loop.make_federated_data(task, alpha=0.5, seed=0)
+    return task, data, dict(seed=0, max_batches_per_client=5)
+
+
+def teacher_chunks(task, data, kw, stacked: bool) -> list[int]:
+    """The row counts of round 1's teacher-precompute calls, in chunks of
+    ``PRECOMPUTE_CHUNK`` (full chunks and ragged remainders), for the
+    cohort that ``kw["seed"]`` draws: one call over its K·N_max rows when the
+    executor stacks the cohort (``stacked``), one per client's shard
+    otherwise."""
     import numpy as np
 
     from repro_torch.core.executor import PRECOMPUTE_CHUNK
 
     k = max(1, int(round(task.participation * data.n_clients)))
-    cohort = data.sample_cohort(np.random.default_rng(seed), k)
-    rows = k * max(data.clients[int(c)].n for c in cohort)
-    return sorted({min(PRECOMPUTE_CHUNK, rows), rows % PRECOMPUTE_CHUNK} - {0},
-                  reverse=True)
+    cohort = data.sample_cohort(np.random.default_rng(kw["seed"]), k)
+    ns = [data.clients[int(c)].n for c in cohort]
+    rows = [k * max(ns)] if stacked else ns
+    sizes = {min(PRECOMPUTE_CHUNK, r) for r in rows} | {
+        r % PRECOMPUTE_CHUNK for r in rows}
+    return sorted(sizes - {0}, reverse=True)
 
 
-def run_main_path(dev, task, data, kw) -> tuple[dict, object]:
+def first_round_check(dev, label, task, data, kw, make_algo) -> None:
+    """Round 1 of FedGKD on the card and on the CPU from the same init: the
+    parameters must agree to ``ROUND_TOL`` while the round moved them by at
+    least ``MIN_MOVE`` times that, so a card that trained wrongly, or not
+    at all, fails."""
     from repro_torch.bridge import params_to_numpy
-    from repro_torch.core import algorithms, fl_loop
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.core import fl_loop
     from repro_torch.tree import tree_leaves
 
-    first_round = {}
+    def params(device, rounds):
+        hist = fl_loop.run_federated(task, make_algo(), data, device=device,
+                                     rounds=rounds, **kw)
+        return tree_leaves(params_to_numpy(hist.final_params))
 
-    def keep_first(rnd, server, model):
-        if rnd == 1:
-            first_round["params"] = params_to_numpy(server["global"])
+    def max_diff(xs, ys):
+        return max(float(abs(a - b).max()) for a, b in zip(xs, ys, strict=True))
+
+    init, card = params("cpu", 0), params(dev, 1)
+    t0 = time.perf_counter()
+    cpu = params("cpu", 1)
+    diff, moved = max_diff(cpu, card), max_diff(card, init)
+    log(f"{label}: first round at lr {task.lr:g}, card vs CPU "
+        f"({time.perf_counter() - t0:.1f} s on the CPU): max abs param diff "
+        f"{diff:.3e} (limit {ROUND_TOL}); the round moved them by up to "
+        f"{moved:.3e} (at least {MIN_MOVE * ROUND_TOL:g} required)")
+    if not moved >= MIN_MOVE * ROUND_TOL:
+        raise AssertionError(f"{label}: round 1 moved the params only {moved}, "
+                             f"too little for the card-vs-CPU check")
+    if not diff < ROUND_TOL:
+        raise AssertionError(f"{label}: card and CPU disagree after one round: "
+                             f"{diff}")
+
+
+def run_path(dev, label, task, data, kw, kernels: list[str],
+             check_lr=None) -> dict:
+    """FedGKD for ``task.rounds`` rounds with the launch counts set to 0
+    just before and read just after (every name in ``kernels`` must have
+    launched), one FedAvg round, a profiled round, and round 1 on the card
+    against the CPU's (at ``check_lr`` where given).  Returns the launch
+    counts."""
+    from repro_torch.core import algorithms, fl_loop
+    from repro_torch.kernels import LAUNCHES, reset_launches
 
     def fedgkd():
         return algorithms.make("fedgkd", gamma=task.gamma,
@@ -339,10 +468,9 @@ def run_main_path(dev, task, data, kw) -> tuple[dict, object]:
 
     reset_launches()
     t0 = time.perf_counter()
-    hist = fl_loop.run_federated(task, fedgkd(), data, device=dev,
-                                 round_callback=keep_first, **kw)
+    hist = fl_loop.run_federated(task, fedgkd(), data, device=dev, **kw)
     launches = dict(LAUNCHES)
-    log(f"main path: FedGKD ResNet-8 width 16, K=4, B=64, "
+    log(f"{label}: FedGKD, {hist.telemetry}, "
         f"{time.perf_counter() - t0:.2f} s, launches {launches}")
     for r in hist.records:
         log(f"  round {r.round}: {r.seconds:.3f} s test_acc {r.test_acc:.4f} "
@@ -350,31 +478,23 @@ def run_main_path(dev, task, data, kw) -> tuple[dict, object]:
             f"cohort {list(r.sampled)}")
     losses = [v for r in hist.records for v in (r.test_loss, r.mean_local_loss)]
     if not (all(map(math.isfinite, losses)) and all_finite(hist.final_params)):
-        raise AssertionError(f"FedGKD: non-finite loss or params {losses}")
-    missing = [k for k, v in launches.items() if v == 0]
+        raise AssertionError(f"{label} FedGKD: non-finite loss or params {losses}")
+    missing = [k for k in kernels if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on the {label} path: {missing}")
 
     h_avg = fl_loop.run_federated(task, algorithms.make("fedavg"), data,
                                   device=dev, rounds=1, **kw)
     r = h_avg.records[0]
-    log(f"FedAvg: round 1 {r.seconds:.3f} s test_acc {r.test_acc:.4f} "
+    log(f"{label}: FedAvg round 1 {r.seconds:.3f} s test_acc {r.test_acc:.4f} "
         f"local_loss {r.mean_local_loss:.4f}")
     if not (math.isfinite(r.mean_local_loss) and all_finite(h_avg.final_params)):
-        raise AssertionError("FedAvg: non-finite loss or params")
-    profile_round(dev, task, data, kw, fedgkd)
-
-    t0 = time.perf_counter()
-    h_cpu = fl_loop.run_federated(task, fedgkd(), data, device="cpu",
-                                  rounds=1, **kw)
-    cpu = tree_leaves(params_to_numpy(h_cpu.final_params))
-    card = tree_leaves(first_round["params"])
-    diff = max(float(abs(a - b).max()) for a, b in zip(cpu, card, strict=True))
-    log(f"first round card vs CPU ({time.perf_counter() - t0:.1f} s on the "
-        f"CPU): max abs param diff {diff:.3e} (limit {ROUND_TOL})")
-    if not diff < ROUND_TOL:
-        raise AssertionError(f"card and CPU disagree after one round: {diff}")
-    return launches, hist
+        raise AssertionError(f"{label} FedAvg: non-finite loss or params")
+    profile_round(dev, label, task, data, kw, fedgkd)
+    check_task = (task if check_lr is None
+                  else dataclasses.replace(task, lr=check_lr))
+    first_round_check(dev, label, check_task, data, kw, fedgkd)
+    return launches
 
 
 def main() -> int:
@@ -411,14 +531,22 @@ def main() -> int:
         if "Used" in line or line.startswith("=="):
             log("  " + line.strip())
 
-    task, data, kw = main_path_setup()
-    chunks = teacher_chunks(task, data, kw["seed"])
+    resnet = resnet_setup()
+    text = text_setup()
+    conv_chunks = teacher_chunks(*resnet, stacked=True)
+    text_chunks = teacher_chunks(*text, stacked=False)
     log(f"kernels against their plain versions (fp32, TF32 off; device "
-        f"time of CUDA-graph replays); teacher chunks of round 1: {chunks}")
-    kernels = check_kd_kl(dev) + [check_conv(dev, chunks)]
-    launches, _ = run_main_path(dev, task, data, kw)
+        f"time of CUDA-graph replays); teacher chunks of round 1: ResNet-8 "
+        f"{conv_chunks}, text {text_chunks}")
+    kernels = (check_kd_kl(dev) + [check_conv(dev, conv_chunks),
+                                   check_flash(dev, text_chunks)])
+    launches = run_path(dev, "ResNet-8", *resnet,
+                        ["kd_kl_fwd", "kd_kl_bwd", "grouped_conv_fwd"])
+    text_launches = run_path(dev, "AG News text", *text,
+                             ["flash_attention_fwd", "kd_kl_fwd", "kd_kl_bwd"],
+                             check_lr=TEXT_CHECK_LR)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = launches[k["name"]] + text_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

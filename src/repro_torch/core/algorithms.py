@@ -27,6 +27,7 @@ class Algorithm:
 
     name = "fedavg"
     needs_projection_head = False
+    supports_vmap = True      # False would force the sequential executor
 
     def __init__(self, **kw):
         self.hp = kw

@@ -1,9 +1,13 @@
-"""Client side: the whole-cohort local update for client-batched models.
+"""Client side: one local step, and the whole-cohort local update.
 
-The port of ``repro.core.client.make_batched_local_update``.  The global
-params are broadcast to a client-stacked ``(K, ...)`` copy, and each local
-step is one autograd pass of the summed per-client losses
-(``Algorithm.batched_loss_fn``) followed by the optimizer update.  Inputs
+The port of ``repro.core.client``'s ``make_step`` and
+``make_batched_local_update``.  ``make_step`` is one autograd pass of an
+algorithm's loss followed by the optimizer update; the sequential executor
+runs one per batch of one client (``mask=None``: every example counts).
+
+For client-batched models the global params are broadcast to a
+client-stacked ``(K, ...)`` copy, and each local step is one such step on
+the summed per-client losses (``Algorithm.batched_loss_fn``).  Inputs
 carry a step axis: ``xs`` (K, S, B, ...), with two masks:
 
     ex_mask   (K, S, B)   zero weight for examples padded onto a ragged
@@ -31,6 +35,30 @@ def _aux_or_none(aux: Any) -> Any:
     return None if isinstance(aux, tuple) and len(aux) == 0 else aux
 
 
+def make_step(loss_fn: Callable, opt: Optimizer) -> Callable:
+    """One step: ``step(params, opt_state, payload, client_state, x, y,
+    mask, aux, lr) -> (params, opt_state, loss, metrics)``, where
+    ``loss_fn(params, payload, client_state, x, y, mask, aux) -> (loss,
+    metrics)``.  Pass ``aux=()`` when there is no precompute.  The loss
+    and metrics come back detached, on the params' device."""
+
+    def step(params, opt_state, payload, client_state, x, y, mask, aux, lr):
+        leaves, rebuild = tree_flatten(params)
+        live_leaves = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss, metrics = loss_fn(rebuild(live_leaves), payload,
+                                    client_state, x, y, mask,
+                                    _aux_or_none(aux))
+            grads = torch.autograd.grad(loss, live_leaves)
+        with torch.no_grad():
+            updates, opt_state = opt.update(rebuild(list(grads)), opt_state,
+                                            params, lr)
+            return (apply_updates(params, updates), opt_state, loss.detach(),
+                    tree_map(torch.Tensor.detach, metrics))
+
+    return step
+
+
 def make_batched_local_update(batched_loss_fn: Callable,
                               opt: Optimizer) -> Callable:
     """Return ``local_update(global_params, payload, states, xs, ys,
@@ -38,18 +66,7 @@ def make_batched_local_update(batched_loss_fn: Callable,
 
     ``mean_loss[k]`` is client k's loss averaged over its live steps.
     """
-
-    def step(params, opt_state, payload, states, x, y, m, aux_b, lr):
-        leaves, rebuild = tree_flatten(params)
-        live_leaves = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            total, per = batched_loss_fn(rebuild(live_leaves), payload,
-                                         states, x, y, m, _aux_or_none(aux_b))
-            grads = torch.autograd.grad(total, live_leaves)
-        with torch.no_grad():
-            updates, opt_state = opt.update(rebuild(list(grads)), opt_state,
-                                            params, lr)
-            return apply_updates(params, updates), opt_state, per.detach()
+    step = make_step(batched_loss_fn, opt)      # metrics: per-client losses
 
     def local_update(global_params: Any, payload: Any, states: Any,
                      xs: torch.Tensor, ys: torch.Tensor,
@@ -63,8 +80,8 @@ def make_batched_local_update(batched_loss_fn: Callable,
         for i in range(s):
             aux_i = tree_map(lambda l: l[:, i], aux)
             live = step_mask[:, i]
-            p2, o2, per = step(params, opt_state, payload, states, xs[:, i],
-                               ys[:, i], ex_mask[:, i], aux_i, lr)
+            p2, o2, _, per = step(params, opt_state, payload, states,
+                                  xs[:, i], ys[:, i], ex_mask[:, i], aux_i, lr)
 
             def keep(new, old):
                 return torch.where(

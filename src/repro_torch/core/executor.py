@@ -1,12 +1,21 @@
 """Client execution: how one round's sampled clients are trained.
 
-The port of the client-batched route of ``repro.core.executor``'s
-``VmapExecutor``, the route ``executor="auto"`` takes for ResNet-8 with
-FedAvg and FedGKD.  Per round it
+Two of the reference's executors (``repro.core.executor``):
+
+``SequentialExecutor`` — the reference loop, clients one at a time in
+cohort order, one ``client.make_step`` per batch, no padding and no masks.
+When the algorithm has a precompute stage (FedGKD: the teacher's logits),
+the teacher runs once over the client's whole shard, without autograd and
+in chunks, and is gathered by the batch picks to (S, B, ...).
+``executor="auto"`` picks it for the text encoder (no client-batched form)
+and for a cohort of one.
+
+``VmapExecutor`` on its client-batched route, which ``"auto"`` picks for
+ResNet-8 with FedAvg and FedGKD.  Per round it
 
   1. stacks each sampled client's FULL shard to (K, N_max, ...) and runs the
-     algorithm's ``precompute_aux`` once over it (FedGKD: the teacher's
-     logits), folding K into the batch axis, without autograd, in chunks;
+     algorithm's ``precompute_aux`` once over it, folding K into the batch
+     axis, without autograd, in chunks;
   2. draws every client's batch picks from the numpy generator in the
      reference's order (``materialize_picks``) and stacks them to
      (K, S, B, ...) with an example mask and a step mask;
@@ -19,8 +28,8 @@ Ragged clients are exact, not approximate: every batch of a client has
 behind a zero example mask, and a client with fewer steps gets whole
 padded steps that leave its params and optimizer state untouched.
 
-The sequential reference, the vmapped round body, shard_map and async
-execution are not ported yet; asking for them raises.
+The vmapped round body (models without a client-batched form), shard_map
+and async execution are not ported yet; asking for them raises.
 """
 from __future__ import annotations
 
@@ -54,6 +63,8 @@ class RoundContext:
     max_batches: Optional[int] = None
 
     def __post_init__(self):
+        self.step = client_lib.make_step(self.algo.loss_fn(self.model),
+                                         self.opt)
         bloss = (self.algo.batched_loss_fn(self.model)
                  if self.model.client_batched else None)
         self.batched_local_update = (
@@ -160,6 +171,58 @@ def _pad_full_data(client_data: list[ClientData], device):
 # executors
 # ---------------------------------------------------------------------------
 
+def _precompute_rows(ctx: RoundContext, payload, x, y, mask):
+    """``precompute_aux`` over the rows of ``x`` (N, ...),
+    PRECOMPUTE_CHUNK rows at a time, without autograd: leaves (N, ...)."""
+    chunks = []
+    with torch.no_grad():
+        for lo in range(0, x.shape[0], PRECOMPUTE_CHUNK):
+            sl = slice(lo, lo + PRECOMPUTE_CHUNK)
+            chunks.append(ctx.algo.precompute_aux(ctx.model, payload, x[sl],
+                                                  y[sl], mask[sl]))
+    return tree_map(lambda *parts: torch.cat(parts), *chunks)
+
+
+class SequentialExecutor:
+    """The reference implementation: clients one at a time, one step per
+    batch."""
+
+    name = "sequential"
+
+    def run_round(self, ctx: RoundContext, global_params, payload,
+                  client_states, client_data, rng: np.random.Generator,
+                  client_ids=None) -> RoundResult:
+        ctx.telemetry["route"] = "sequential"
+        dev = ctx.device
+        uploads, weights, losses = [], [], []
+        for state, cdata in zip(client_states, client_data):
+            mat = materialize_client(rng, cdata, ctx.batch_size, ctx.epochs,
+                                     ctx.max_batches)
+            xs, ys = (torch.from_numpy(a).to(dev) for a in (mat.xs, mat.ys))
+            aux_steps = ()
+            if ctx.has_precompute:
+                aux_full = _precompute_rows(
+                    ctx, payload, torch.from_numpy(cdata.x).to(dev),
+                    torch.from_numpy(cdata.y).to(dev),
+                    torch.ones(cdata.n, device=dev))
+                picks = torch.from_numpy(mat.picks).to(dev).long()
+                aux_steps = tree_map(lambda l: l[picks], aux_full)
+            params, opt_state = global_params, ctx.opt.init(global_params)
+            step_losses = []
+            for s in range(xs.shape[0]):
+                params, opt_state, loss, _ = ctx.step(
+                    params, opt_state, payload, state, xs[s], ys[s], None,
+                    tree_map(lambda l: l[s], aux_steps), ctx.lr)
+                step_losses.append(loss)
+            uploads.append({"params": params})
+            weights.append(float(mat.n))
+            # one device->host copy per client; the mean in float64 over
+            # the fp32 step losses, as the reference's np.mean of floats
+            losses.append(float(np.mean(torch.stack(step_losses).tolist()))
+                          if step_losses else 0.0)
+        return RoundResult(uploads, weights, losses, list(client_states))
+
+
 class VmapExecutor:
     """The reference's batched executor, on its client-batched route: one
     client-stacked program trains the whole cohort."""
@@ -169,18 +232,11 @@ class VmapExecutor:
     @staticmethod
     def _precompute(ctx: RoundContext, payload, fx, fy, fmask):
         """``precompute_aux`` over (K, N_max) shards with K folded into the
-        batch axis, PRECOMPUTE_CHUNK rows at a time, without autograd:
-        leaves (K, N_max, ...)."""
+        batch axis: leaves (K, N_max, ...)."""
         k, n = fx.shape[0], fx.shape[1]
         flat = [t.reshape((k * n,) + tuple(t.shape[2:])) for t in (fx, fy, fmask)]
-        chunks = []
-        with torch.no_grad():
-            for lo in range(0, k * n, PRECOMPUTE_CHUNK):
-                sl = slice(lo, lo + PRECOMPUTE_CHUNK)
-                chunks.append(ctx.algo.precompute_aux(
-                    ctx.model, payload, flat[0][sl], flat[1][sl], flat[2][sl]))
-        return tree_map(lambda *parts: torch.cat(parts).reshape(
-            (k, n) + tuple(parts[0].shape[1:])), *chunks)
+        return tree_map(lambda l: l.reshape((k, n) + tuple(l.shape[1:])),
+                        _precompute_rows(ctx, payload, *flat))
 
     def run_round(self, ctx: RoundContext, global_params, payload,
                   client_states, client_data, rng: np.random.Generator,
@@ -215,36 +271,32 @@ class VmapExecutor:
                            mloss.cpu().tolist(), list(client_states))
 
 
+_EXECUTORS = {"sequential": SequentialExecutor, "vmap": VmapExecutor}
 _NOT_PORTED = {
-    "sequential": "ROADMAP A8b",
     "shard_map": "ROADMAP A8b and A13",
     "async": "ROADMAP A10",
 }
 
 
 def available() -> list[str]:
-    return ["auto", "vmap"]
+    return sorted(_EXECUTORS) + ["auto"]
 
 
-def get_executor(spec, algo: Algorithm, n_sample: int,
-                 model: Optional[ModelBundle] = None) -> VmapExecutor:
-    """Resolve an executor spec.  ``"auto"`` picks the batched route when
-    more than one client is sampled and the model + algorithm have a
-    client-batched form, as the reference does; where the reference would
-    pick the sequential executor instead, this raises (not ported)."""
+def get_executor(spec, algo: Algorithm, n_sample: int, model: ModelBundle):
+    """Resolve an executor spec.  ``"auto"`` picks the vmap executor's
+    client-batched route when the algorithm ``supports_vmap``, more than
+    one client is sampled and the model is ``client_batched`` with an
+    algorithm that has ``batched_loss_fn``; the sequential executor
+    otherwise.  Instances pass through."""
     if not isinstance(spec, str):
         return spec
     if spec == "auto":
-        batched_ok = (n_sample > 1 and model is not None
+        batched_ok = (algo.supports_vmap and n_sample > 1
                       and model.client_batched
                       and algo.batched_loss_fn(model) is not None)
-        if not batched_ok:
-            raise NotImplementedError(
-                "executor='auto' resolves to the sequential executor here, "
-                "which is not ported yet (ROADMAP A8b)")
-        spec = "vmap"
-    if spec == "vmap":
-        return VmapExecutor()
+        spec = "vmap" if batched_ok else "sequential"
+    if spec in _EXECUTORS:
+        return _EXECUTORS[spec]()
     if spec in _NOT_PORTED:
         raise NotImplementedError(
             f"executor {spec!r} is not ported yet ({_NOT_PORTED[spec]})")

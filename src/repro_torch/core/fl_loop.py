@@ -98,10 +98,12 @@ def run_federated(task: PaperTask, algo: Algorithm,
                   device=None) -> History:
     """Run T communication rounds of ``algo`` on the partitioned data.
 
-    The arguments mean what they mean in the reference.  The options the
-    port does not have yet raise ``NotImplementedError``: ``population=``
-    (ROADMAP A12), ``faults=`` (A10), ``checkpoint_dir=`` (A11), ``dp=``
-    (A14) and executors other than the client-batched route (A8b, A10,
+    The arguments mean what they mean in the reference; ``data`` holds
+    images or int32 token sequences, and ``width`` is ResNet-8's (the text
+    encoder takes its width from the task).  The options the port does
+    not have yet raise ``NotImplementedError``: ``population=`` (ROADMAP
+    A12), ``faults=`` (A10), ``checkpoint_dir=`` (A11), ``dp=`` (A14), the
+    vmapped round body and the shard_map and async executors (A8b, A10,
     A13).  ``device`` defaults to ``"cuda"``.
     """
     for arg, value, item in (("population", population, "A12"),

@@ -1,17 +1,21 @@
-"""Classifier bundles for the paper's tasks (the port: ResNet-8 only).
+"""Classifier bundles for the paper's tasks: ResNet-8 (CIFAR) and the
+DistilBERT-class text encoder (AG News, SST5).
 
 A ``ModelBundle`` exposes init/apply/features so the FL algorithms can
 drive a backbone.  ``client_batched`` says apply/features consume
 client-stacked params natively, which unlocks the executor's
-client-batched round body.
+client-batched round body (the text encoder has none, so it trains
+through the sequential executor).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
-from repro_torch.configs.paper import PaperTask
-from repro_torch.models import resnet
+import torch
+
+from repro_torch.configs.paper import PaperTask, distilbert_class_config
+from repro_torch.models import layers, resnet, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,9 +28,30 @@ class ModelBundle:
     client_batched: bool = False
 
 
+def _text_classifier(task: PaperTask) -> ModelBundle:
+    """The encoder's final-normed hidden states, mean-pooled over all
+    tokens, then a dense layer to the classes."""
+    cfg = distilbert_class_config(task)
+
+    def init(generator):
+        return {"backbone": transformer.init(generator, cfg),
+                "fc": layers.dense_bias_init(generator, cfg.d_model,
+                                             task.num_classes)}
+
+    def features(params, x):
+        h, _ = transformer.hidden_states(params["backbone"], cfg, x)
+        return torch.mean(h, dim=1)
+
+    def apply(params, x):
+        return layers.dense(params["fc"], features(params, x))
+
+    return ModelBundle(f"distilbert-{task.name}", init, apply, features)
+
+
 def make_model(task: PaperTask, projection_head: bool = False,
                width: int = 16) -> ModelBundle:
-    """Build the paper's backbone for a task."""
+    """Build the paper's backbone for a task (``width`` is ResNet-8's; the
+    text encoder takes its width from the task)."""
     if projection_head:
         raise NotImplementedError(
             "the projection head (MOON / FedGKD+) is not ported yet "
@@ -37,6 +62,8 @@ def make_model(task: PaperTask, projection_head: bool = False,
             lambda gen: resnet.resnet8_init(gen, task.num_classes, width=width),
             resnet.resnet8_apply, resnet.resnet8_features,
             client_batched=True)
+    if task.model == "distilbert":
+        return _text_classifier(task)
     raise NotImplementedError(
-        f"model {task.model!r} is not ported yet (ROADMAP A8b/A9); the port "
-        f"has resnet8 only")
+        f"model {task.model!r} is not ported yet (ROADMAP A8b); the port "
+        f"has resnet8 and distilbert")

@@ -1,10 +1,11 @@
-"""Synthetic image dataset (offline stand-in for CIFAR), numpy only.
+"""Synthetic image and text datasets (offline stand-ins), numpy only.
 
-A copy of the image generator of ``repro.data.synthetic``: the same seed
-gives byte-identical arrays.  Each class has a low-frequency template
-(random Fourier features); a sample is the template times a random
-contrast, plus a per-class channel bias, Gaussian noise and a random
-circular shift.
+A copy of the image and text generators of ``repro.data.synthetic``: the
+same seed gives byte-identical arrays.  Image (CIFAR): each class has a
+low-frequency template (random Fourier features); a sample is the template
+times a random contrast, plus a per-class channel bias, Gaussian noise and
+a random circular shift.  Text (AG News, SST5): int32 token sequences from
+a Zipfian background with class-indicative keywords mixed in.
 """
 from __future__ import annotations
 
@@ -56,13 +57,43 @@ class SyntheticImageTask:
         return x.astype(np.float32), labels.astype(np.int64)
 
 
+@dataclasses.dataclass(frozen=True)
+class SyntheticTextTask:
+    num_classes: int
+    vocab_size: int = 2000
+    seq_len: int = 64
+    n_keywords: int = 12     # class-indicative tokens per class
+    keyword_rate: float = 0.12
+    seed: int = 0
+
+    def generate(self, n: int, seed: int | None = None):
+        rng = np.random.default_rng(self.seed if seed is None else seed)
+        v, c, s = self.vocab_size, self.num_classes, self.seq_len
+        base = 1.0 / (np.arange(v) + 10.0)   # Zipfian background
+        base /= base.sum()
+        keywords = rng.choice(np.arange(16, v), size=(c, self.n_keywords),
+                              replace=False if c * self.n_keywords <= v - 16 else True)
+        labels = rng.integers(0, c, size=n)
+        toks = rng.choice(v, size=(n, s), p=base)
+        kw_mask = rng.random((n, s)) < self.keyword_rate
+        kw_pick = keywords[labels][np.arange(n)[:, None],
+                                   rng.integers(0, self.n_keywords, (n, s))]
+        toks = np.where(kw_mask, kw_pick, toks)
+        return toks.astype(np.int32), labels.astype(np.int64)
+
+
 def make_task_data(task: PaperTask, n_train: int, n_test: int, seed: int = 0):
-    """Generate (train_x, train_y, test_x, test_y) for an image task."""
-    if task.kind != "image":
+    """Generate (train_x, train_y, test_x, test_y) for an image or text
+    task; tabular data (the TOY task) is not ported yet (ROADMAP A8b)."""
+    if task.kind == "image":
+        gen = SyntheticImageTask(task.num_classes, hw=task.image_hw, seed=seed)
+    elif task.kind == "text":
+        gen = SyntheticTextTask(task.num_classes, vocab_size=task.vocab_size,
+                                seq_len=task.seq_len, seed=seed)
+    else:
         raise NotImplementedError(
-            f"{task.kind!r} task data is not ported yet (ROADMAP A8b/A9); "
-            f"the port generates image tasks only")
-    gen = SyntheticImageTask(task.num_classes, hw=task.image_hw, seed=seed)
+            f"{task.kind!r} task data is not ported yet (ROADMAP A8b); the "
+            f"port generates image and text tasks")
     xtr, ytr = gen.generate(n_train, seed=seed)
     xte, yte = gen.generate(n_test, seed=seed + 10_000)
     return xtr, ytr, xte, yte

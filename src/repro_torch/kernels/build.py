@@ -38,6 +38,10 @@ SIGNATURES = {
     "grouped_conv_fwd_f32": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                              _I64, _I64, _I64, _I32, _I32, _I32, _I32, _I32,
                              _P],
+    # q, k, v, o; B, Sq, Skv, Hq, Hkv, D; the (batch, seq, head) strides of
+    # q, k, v and o; causal, window; scale; stream
+    "flash_attention_fwd_f32": [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
+                               + [_I64, _I64, _F32, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,0 +1,127 @@
+"""Flash attention: the CUDA forward kernel with an autograd rule.
+
+``flash_attention_gqa(q, k, v, causal=True, window=None)`` takes the
+reference's layout, q (B, Sq, Hq, D) and k/v (B, Skv, Hkv, D) with Hq a
+multiple of Hkv, and returns (B, Sq, Hq, D).  A ``window`` takes effect
+with ``causal`` only, as in the reference's ``attention_ref``.
+
+Forward: on a CUDA tensor ``flash_attention_fwd`` launches the kernel of
+``csrc/flash_attention.cu`` (built at first use; a failed launch raises)
+and counts the launch; on a CPU tensor it takes ``ref.attention_ref``.
+Nothing falls back from one to the other.  The kernel reads the inputs
+through their strides and copies nothing unless the last axis is strided.
+
+Backward: attention recomputed with PyTorch matmuls on either device
+(``attention_bwd``), as the reference's custom VJP recomputes through the
+plain attention outside Pallas: P from q and k, dV = Pᵀ·dO,
+dP = dO·Vᵀ, dS = P∘(dP − rowsum(dO∘O)), dQ = scale·dS·K, dK = scale·dSᵀ·Q,
+with dK and dV summed over each GQA group.  A backward kernel is later
+work.
+
+One difference from the plain version, on no shape the port runs: a
+query row that sees no key (causal with a window, Sq > Skv + window − 1)
+gets 0 from the kernel, as from the TPU kernel, and the mean of v from the
+plain version's finite mask value.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels.flash_attention import ref
+
+MAX_HEAD_DIM = 128
+BLOCK_Q = 32            # query rows per thread block (csrc kBlockQ)
+
+
+def _validate(q, k, v, window) -> None:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash attention wants q (B, Sq, Hq, D) and k, v "
+                         f"(B, Skv, Hkv, D); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, _, hq, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or hq % k.shape[2] != 0:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree "
+                         f"on batch or head_dim, or Hq is not a multiple of Hkv")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """The forward: kernel on CUDA tensors, plain version on CPU tensors."""
+    _validate(q, k, v, window)
+    if not q.is_cuda:
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if any(t.dtype != torch.float32 for t in (q, k, v)):
+        raise TypeError(f"the flash attention kernel takes float32, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM}: the kernel keeps "
+                         f"a row of the output in one warp's registers")
+    if -(-sq // BLOCK_Q) >= 2 ** 16 or b * hq >= 2 ** 31:
+        raise ValueError(f"grid too large for q {tuple(q.shape)}")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    o = torch.empty((b, sq, hq, d), device=q.device, dtype=q.dtype)
+    rc = build.library().flash_attention_fwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        b, sq, skv, hq, hkv, d, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *o.stride()[:3], int(causal),
+        int(window) if (causal and window is not None) else 0,
+        1.0 / math.sqrt(d), build.stream_of(q))
+    build.check(rc, "flash_attention_fwd")
+    LAUNCHES["flash_attention_fwd"] += 1
+    return o
+
+
+def attention_bwd(q, k, v, o, do, causal: bool, window: Optional[int]):
+    """(dq, dk, dv) of the attention ``o`` at output gradient ``do``,
+    recomputing P in fp32 with the plain version's mask."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    mask = (ref.causal_mask(sq, skv, window=window, device=q.device)
+            if causal else None)
+    p = ref.attention_probs(q, k, mask, scale)             # (b, hkv, g, q, k)
+    qg = q.to(torch.float32).reshape(b, sq, hkv, g, d)
+    dog = do.to(torch.float32).reshape(b, sq, hkv, g, d)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.to(torch.float32))
+    delta = (do.to(torch.float32) * o.to(torch.float32)).sum(-1)
+    delta = delta.reshape(b, sq, hkv, g).permute(0, 2, 3, 1)[..., None]
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.to(torch.float32)) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        o = flash_attention_fwd(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, o, do, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Attention over grouped-query heads, one kernel launch forward."""
+    return _FlashAttention.apply(q, k, v, bool(causal), window)

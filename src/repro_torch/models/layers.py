@@ -1,9 +1,11 @@
-"""Core layers over plain-dict params: initializers, dense, GroupNorm.
+"""Core layers over plain-dict params: initializers, dense, norms,
+embeddings, rotary position embeddings and the GELU MLP.
 
-The port of the parts of ``repro.models.layers`` that ResNet-8 uses.
-Dense weights are ``(in, out)`` and applied as ``x @ w``; client-stacked
-params (``w`` (K, in, out), ``b`` (K, out)) against ``x`` (K, B, in) ride
-the same line as a K-batched matmul.
+The port of the parts of ``repro.models.layers`` that ResNet-8 and the
+DistilBERT-class text encoder use.  Dense weights are ``(in, out)`` and
+applied as ``x @ w``; client-stacked params (``w`` (K, in, out), ``b``
+(K, out)) against ``x`` (K, B, in) ride the same line as a K-batched
+matmul.
 """
 from __future__ import annotations
 
@@ -26,11 +28,15 @@ def trunc_normal(generator: torch.Generator, shape: Sequence[int],
     return t
 
 
+def dense_init(generator: torch.Generator, d_in: int, d_out: int) -> Params:
+    """A bias-free dense layer, trunc-normal at std 1/sqrt(d_in)."""
+    return {"w": trunc_normal(generator, (d_in, d_out),
+                              std=1.0 / math.sqrt(d_in))}
+
+
 def dense_bias_init(generator: torch.Generator, d_in: int,
                     d_out: int) -> Params:
-    return {"w": trunc_normal(generator, (d_in, d_out),
-                              std=1.0 / math.sqrt(d_in)),
-            "b": torch.zeros((d_out,))}
+    return {**dense_init(generator, d_in, d_out), "b": torch.zeros((d_out,))}
 
 
 def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -66,3 +72,63 @@ def groupnorm(params: Params, x: torch.Tensor, num_groups: int,
         scale = scale[:, None, None, None, :]
         bias = bias[:, None, None, None, :]
     return (x * scale + bias).to(dtype)
+
+
+def layernorm_init(d: int) -> Params:
+    return {"scale": torch.ones((d,)), "bias": torch.zeros((d,))}
+
+
+def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, fp32, population variance."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, correction=0, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    y = (y * params["scale"].to(torch.float32)
+         + params["bias"].to(torch.float32))
+    return y.to(dtype)
+
+
+def embedding_init(generator: torch.Generator, vocab: int, d: int) -> Params:
+    return {"table": trunc_normal(generator, (vocab, d), std=1.0)}
+
+
+def embed(params: Params, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of the table at ``ids`` (int32 or int64), ``ids.shape + (d,)``."""
+    return torch.nn.functional.embedding(ids, params["table"])
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     device=None) -> torch.Tensor:
+    """Made where they are used: a host tensor copied to the card would
+    stop the host until the card caught up, at every attention layer."""
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """RoPE by split-half rotation.  x (..., seq, heads, head_dim),
+    positions (..., seq)."""
+    head_dim = x.shape[-1]
+    freqs = rope_frequencies(head_dim, theta, x.device)        # (hd/2,)
+    angles = positions[..., :, None].to(torch.float32) * freqs  # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]                   # (..., seq, 1, hd/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def gelu_mlp_init(generator: torch.Generator, d_model: int,
+                  d_ff: int) -> Params:
+    return {"up": dense_bias_init(generator, d_model, d_ff),
+            "down": dense_bias_init(generator, d_ff, d_model)}
+
+
+def gelu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """``down(gelu(up(x)))`` with the tanh approximation, which is
+    ``jax.nn.gelu``'s default."""
+    return dense(params["down"], torch.nn.functional.gelu(
+        dense(params["up"], x), approximate="tanh"))

@@ -162,6 +162,25 @@ def test_fedgkd_single_client_loss_matches_reference(setup):
     assert abs(float(ta.detach()) - float(tl.detach())) < TOL
 
 
+def test_auto_sequential_cohort_of_one_matches_reference(setup, monkeypatch):
+    """A cohort of 1 takes the sequential executor in both packages
+    (``executor="auto"``); 2 FedGKD rounds agree as the batched ones do."""
+    jtask, jdata, task, data, init = setup
+    jtask, task = (dataclasses.replace(t, participation=1 / len(SIZES))
+                   for t in (jtask, task))
+    hj = jax_fl.run_federated(jtask, jax_algorithms.make("fedgkd"), jdata,
+                              seed=0, width=8)
+    ht = _run_port(monkeypatch, task, data, init, "fedgkd")
+    assert hj.telemetry["route"] == ht.telemetry["route"] == "sequential"
+    assert [r.sampled for r in ht.records] == [r.sampled for r in hj.records]
+    assert len(ht.records[0].sampled) == 1
+    assert _max_diff(bridge.params_to_numpy(ht.final_params),
+                     hj.final_params) < TOL
+    for rt, rj in zip(ht.records, hj.records, strict=True):
+        assert abs(rt.mean_local_loss - rj.mean_local_loss) < TOL
+        assert abs(rt.test_acc - rj.test_acc) < TOL
+
+
 def test_model_buffer_contract():
     from repro_torch.core.server import ModelBuffer
     buf = ModelBuffer(2)
@@ -180,7 +199,7 @@ def test_model_buffer_contract():
                                     dict(faults=object()),
                                     dict(checkpoint_dir="ckpt"),
                                     dict(dp=object()),
-                                    dict(executor="sequential"),
+                                    dict(executor="shard_map"),
                                     dict(executor="async")])
 def test_unported_options_raise(setup, kwargs):
     _, _, task, data, _ = setup

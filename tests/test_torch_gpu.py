@@ -18,8 +18,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import algorithms, fl_loop  # noqa: E402
-from repro_torch.configs.paper import CIFAR10, scaled  # noqa: E402
+from repro_torch.configs.paper import AG_NEWS, CIFAR10, scaled  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.grouped_conv import ops as conv_ops  # noqa: E402
 from repro_torch.kernels.grouped_conv import ref as conv_ref  # noqa: E402
 from repro_torch.kernels.kd_kl import ops as kd_ops  # noqa: E402
@@ -95,10 +97,60 @@ def test_grouped_conv_kernel_matches_plain(cuda, case):
 
 
 def test_short_fedgkd_run_launches_every_kernel(cuda):
+    """The ResNet-8 path launches every kernel of its path."""
     task = scaled(CIFAR10, 0.02, rounds=1, local_epochs=1)
     data = fl_loop.make_federated_data(task, alpha=0.5, seed=0, n_test=64)
     reset_launches()
     hist = fl_loop.run_federated(task, algorithms.make("fedgkd"), data,
                                  max_batches_per_client=2)
-    assert all(v > 0 for v in LAUNCHES.values()), LAUNCHES
+    for name in ("kd_kl_fwd", "kd_kl_bwd", "grouped_conv_fwd"):
+        assert LAUNCHES[name] > 0, LAUNCHES
+    assert math.isfinite(hist.records[0].mean_local_loss)
+
+
+# (B, S, Hq, Hkv, D, window): the text path's local step, GQA with a window
+FLASH = [(64, 64, 4, 4, 32, None), (3, 128, 8, 2, 64, 32)]
+
+
+@pytest.mark.parametrize("case", FLASH, ids=str)
+def test_flash_attention_kernel_matches_plain(cuda, case):
+    b, s, hq, hkv, d, window = case
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q = torch.randn(b, s, hq, d, device=cuda, generator=gen)
+    k, v = (torch.randn(b, s, hkv, d, device=cuda, generator=gen)
+            for _ in range(2))
+    before = LAUNCHES["flash_attention_fwd"]
+    got = fa_ops.flash_attention_fwd(q, k, v, True, window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_fwd"] == before + 1
+    _close(got, fa_ref.attention_ref(q, k, v, window=window))
+
+
+def test_flash_attention_autograd_on_card(cuda):
+    """Gradients through the op on the card (kernel forward, matmul
+    backward) against autograd through the plain version on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(4, 64, 8, 32, device=cuda, generator=gen)
+    k, v = (torch.randn(4, 64, 2, 32, device=cuda, generator=gen)
+            for _ in range(2))
+    g = torch.randn(4, 64, 8, 32, device=cuda, generator=gen)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    (fa_ops.flash_attention_gqa(*ins, window=16) * g).sum().backward()
+    (fa_ref.attention_ref(*plain, window=16) * g).sum().backward()
+    for a, b in zip(ins, plain):
+        _close(a.grad, b.grad)
+
+
+def test_short_text_fedgkd_run_launches_its_kernels(cuda):
+    """AG News with the full-width encoder, through the sequential
+    executor, launches flash attention and both KD-KL kernels."""
+    task = scaled(AG_NEWS, 0.01, rounds=1)
+    data = fl_loop.make_federated_data(task, alpha=0.5, seed=0, n_test=64)
+    reset_launches()
+    hist = fl_loop.run_federated(task, algorithms.make("fedgkd"), data,
+                                 max_batches_per_client=2)
+    assert hist.telemetry["route"] == "sequential"
+    for name in ("flash_attention_fwd", "kd_kl_fwd", "kd_kl_bwd"):
+        assert LAUNCHES[name] > 0, LAUNCHES
     assert math.isfinite(hist.records[0].mean_local_loss)

@@ -31,7 +31,10 @@ def _port_modules() -> list[str]:
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _port_modules()
-    assert "repro_torch.core.fl_loop" in mods
+    assert {"repro_torch.core.fl_loop", "repro_torch.models.config",
+            "repro_torch.models.attention", "repro_torch.models.transformer",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.flash_attention.ref"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -79,10 +82,13 @@ def test_run_federated_defaults_to_cuda_and_raises_without_it(monkeypatch):
 def test_kernel_wrappers_take_plain_versions_only_on_cpu_tensors():
     """A CPU tensor takes the plain version and counts no launch."""
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
     from repro_torch.kernels.grouped_conv.ops import client_batched_conv
     from repro_torch.kernels.kd_kl.ops import kd_kl_loss
 
     reset_launches()
     kd_kl_loss(torch.randn(4, 10), torch.randn(4, 10))
     client_batched_conv(torch.randn(1, 2, 8, 8, 3), torch.randn(1, 3, 3, 3, 4))
+    flash_attention_gqa(torch.randn(1, 5, 2, 8), torch.randn(1, 5, 1, 8),
+                        torch.randn(1, 5, 1, 8))
     assert set(LAUNCHES.values()) == {0}

@@ -1,0 +1,215 @@
+"""The port's text path against the JAX package, on the CPU.
+
+A small SST5 (``dataclasses.replace(SST5, d_model=32, seq_len=16,
+vocab_size=200, ...)``: the DistilBERT-class encoder's 4 layers and 4
+heads at head_dim 8), from the reference's initialisation loaded through
+the bridge.  Checked, each within 1e-5 max-abs (fp32, different summation
+orders): the synthetic text data byte for byte; LayerNorm, RoPE, the
+tanh-GELU MLP, one dense layer, the classifier's logits, and the FedGKD
+loss with its gradient; 2-round FedAvg and FedGKD trajectories through
+the sequential executor (identical cohorts, final params, local losses,
+test accuracy and loss).  The trajectories run Adam at lr 1e-3, not the
+paper's 1e-5, at which 6 steps move no parameter by more than the
+tolerance itself; at 1e-3 they move by up to 6e-3.  Adam normalises each
+step by the gradient's running magnitude, so an error that is tiny in
+absolute terms but large relative to a near-zero gradient component comes
+through at lr scale: in FedGKD one wk entry of layer 1 (gradients agree
+to 1.2e-8 absolute, but to 0.5% relative on such components) ends 1.82e-5
+apart after 2 rounds.  So the final params are held to TRAJ_TOL = 3e-5,
+just above that; losses and accuracy to 1e-5.  Batches of 8 and at most 3
+per client keep the reference's per-shape compilations and the run short.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.configs.paper import SST5 as JAX_SST5  # noqa: E402
+from repro.configs.paper import distilbert_class_config as jax_cfg_of  # noqa: E402
+from repro.core import algorithms as jax_algorithms  # noqa: E402
+from repro.core import fl_loop as jax_fl  # noqa: E402
+from repro.core.modelzoo import make_model as jax_make_model  # noqa: E402
+from repro.data.synthetic import SyntheticTextTask as JaxTextTask  # noqa: E402
+from repro.models import layers as jax_layers  # noqa: E402
+from repro.models import transformer as jax_transformer  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs.paper import SST5, distilbert_class_config  # noqa: E402
+from repro_torch.core import algorithms, executor, fl_loop, modelzoo  # noqa: E402
+from repro_torch.data.synthetic import SyntheticTextTask  # noqa: E402
+from repro_torch.models import layers, transformer  # noqa: E402
+from repro_torch.tree import tree_paths  # noqa: E402
+
+SMALL = dict(d_model=32, seq_len=16, vocab_size=200, train_size=240,
+             batch_size=8, lr=1e-3)
+TOL = 1e-5
+TRAJ_TOL = 3e-5     # final params of 2 Adam rounds (docstring)
+
+
+def _np(a, seed=0):
+    return np.random.default_rng(seed).standard_normal(a).astype(np.float32)
+
+
+def _max_diff(a, b):
+    la, lb = jax.tree_util.tree_leaves(a), jax.tree_util.tree_leaves(b)
+    assert len(la) == len(lb)
+    return max(float(np.max(np.abs(np.asarray(x) - np.asarray(y))))
+               for x, y in zip(la, lb))
+
+
+@pytest.fixture(scope="module")
+def small():
+    jtask = dataclasses.replace(JAX_SST5, **SMALL)
+    task = dataclasses.replace(SST5, **SMALL)
+    init = jax.tree_util.tree_map(np.asarray, jax.jit(
+        jax_make_model(jtask).init)(jax.random.PRNGKey(1)))
+    return jtask, task, init
+
+
+@pytest.mark.parametrize("classes,seed", [(4, 0), (5, 3)])
+def test_synthetic_text_byte_identical(classes, seed):
+    want = JaxTextTask(classes, vocab_size=300, seq_len=24).generate(50, seed)
+    got = SyntheticTextTask(classes, vocab_size=300, seq_len=24).generate(
+        50, seed)
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+    assert got[0].dtype == np.int32 and got[1].dtype == np.int64
+
+
+def test_layernorm_rope_and_gelu_mlp_match_reference():
+    x = _np((3, 7, 4, 16), seed=1) * 3 + 1
+    p = {"scale": _np((16,), 2), "bias": _np((16,), 3)}
+    np.testing.assert_allclose(
+        layers.layernorm(bridge.params_from_numpy(p), torch.from_numpy(x)),
+        jax_layers.layernorm(p, x), rtol=0, atol=TOL)
+    pos = np.repeat(np.arange(7)[None], 3, axis=0)
+    np.testing.assert_allclose(
+        layers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos)),
+        jax_layers.apply_rope(x, jnp.asarray(pos)), rtol=0, atol=TOL)
+    mlp = {"up": {"w": _np((16, 64), 4) / 4, "b": _np((64,), 5)},
+           "down": {"w": _np((64, 16), 6) / 8, "b": _np((16,), 7)}}
+    np.testing.assert_allclose(
+        layers.gelu_mlp(bridge.params_from_numpy(mlp), torch.from_numpy(x)),
+        jax_layers.gelu_mlp(mlp, x), rtol=0, atol=TOL)
+
+
+def test_port_init_has_the_reference_keys_and_shapes(small):
+    _, task, init = small
+    mine = modelzoo.make_model(task).init(torch.Generator().manual_seed(0))
+    assert ([(p, tuple(t.shape)) for p, t in tree_paths(mine)]
+            == [(p, tuple(a.shape)) for p, a in tree_paths(init)])
+    assert mine["backbone"]["seg0"]["attn"]["wq"]["w"].shape == (4, 32, 32)
+
+
+def test_dense_layer_matches_reference(small):
+    jtask, task, init = small
+    p = jax.tree_util.tree_map(lambda a: a[1], init["backbone"]["seg0"])
+    h = _np((2, 16, 32), seed=8)
+    pos = np.repeat(np.arange(16)[None], 2, axis=0)
+    want = jax.jit(lambda p, h: jax_transformer._dense_layer(
+        jax_cfg_of(jtask), p, h, jnp.asarray(pos))[0])(p, h)
+    got = transformer._dense_layer(distilbert_class_config(task),
+                                   bridge.params_from_numpy(p),
+                                   torch.from_numpy(h), torch.from_numpy(pos))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=TOL)
+
+
+def test_classifier_logits_match_reference(small):
+    jtask, task, init = small
+    x, _ = SyntheticTextTask(5, vocab_size=200, seq_len=16).generate(12, 4)
+    want = jax.jit(jax_make_model(jtask).apply)(init, x)
+    with torch.no_grad():
+        got = modelzoo.make_model(task).apply(bridge.params_from_numpy(init),
+                                              torch.from_numpy(x))
+    assert got.shape == (12, 5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=TOL)
+
+
+def test_fedgkd_loss_and_gradient_match_reference(small):
+    """``FedGKD.loss_fn`` through the encoder (teacher inline), value and
+    gradient of every parameter: the backward through the flash-attention
+    op, LayerNorm, RoPE and the embedding."""
+    jtask, task, init = small
+    x, y = SyntheticTextTask(5, vocab_size=200, seq_len=16).generate(8, 5)
+    teacher = jax.tree_util.tree_map(lambda a: a + 0.05 * _np(a.shape, 9),
+                                     init)
+    jloss = jax_algorithms.make("fedgkd").loss_fn(jax_make_model(jtask))
+    (jl, _), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        init, {"teacher": teacher}, (), x, y, None)
+    params = bridge.params_from_numpy(init)
+    for leaf in jax.tree_util.tree_leaves(params):
+        leaf.requires_grad_(True)
+    loss = algorithms.make("fedgkd").loss_fn(modelzoo.make_model(task))
+    tl, _ = loss(params, {"teacher": bridge.params_from_numpy(teacher)}, (),
+                 torch.from_numpy(x), torch.from_numpy(y))
+    tl.backward()
+    assert abs(float(tl.detach()) - float(jl)) < TOL
+    assert _max_diff(jax.tree_util.tree_map(lambda p: p.grad.numpy(), params),
+                     jg) < TOL
+
+
+@pytest.fixture(scope="module")
+def federated(small):
+    jtask, task, init = small
+    jdata = jax_fl.make_federated_data(jtask, alpha=0.5, seed=0, n_test=64)
+    data = fl_loop.make_federated_data(task, alpha=0.5, seed=0, n_test=64)
+    for c, jc in zip(data.clients, jdata.clients, strict=True):
+        assert c.x.tobytes() == jc.x.tobytes()
+        assert c.y.tobytes() == jc.y.tobytes()
+    assert data.test_x.tobytes() == jdata.test_x.tobytes()
+    return jtask, jdata, task, data, init
+
+
+@pytest.mark.parametrize("name", ["fedavg", "fedgkd"])
+def test_trajectory_matches_reference(federated, monkeypatch, name):
+    jtask, jdata, task, data, init = federated
+    kw = dict(gamma=task.gamma, buffer_m=task.buffer_m) if name == "fedgkd" \
+        else {}
+    hj = jax_fl.run_federated(jtask, jax_algorithms.make(name, **kw), jdata,
+                              rounds=2, seed=0, max_batches_per_client=3)
+    real = modelzoo.make_model
+    monkeypatch.setattr(fl_loop, "make_model", lambda *a, **k: dataclasses.replace(
+        real(*a, **k), init=lambda gen: bridge.params_from_numpy(init)))
+    ht = fl_loop.run_federated(task, algorithms.make(name, **kw), data,
+                               rounds=2, seed=0, max_batches_per_client=3,
+                               device="cpu")
+    assert hj.telemetry["route"] == ht.telemetry["route"] == "sequential"
+    assert [r.sampled for r in ht.records] == [r.sampled for r in hj.records]
+    assert len(ht.records[0].sampled) == 4
+    final = bridge.params_to_numpy(ht.final_params)
+    assert _max_diff(final, hj.final_params) < TRAJ_TOL
+    assert _max_diff(final, init) > 100 * TOL    # the params did move
+    for rt, rj in zip(ht.records, hj.records, strict=True):
+        assert abs(rt.mean_local_loss - rj.mean_local_loss) < TOL
+        assert abs(rt.test_acc - rj.test_acc) < TOL
+        assert abs(rt.test_loss - rj.test_loss) < TOL
+
+
+def test_auto_executor_choice():
+    """``"auto"`` follows the reference: the batched route only for a
+    cohort of more than one on a model that batches; sequential otherwise
+    (a ResNet-8 cohort of 1, the text encoder at any cohort)."""
+    from repro_torch.configs.paper import CIFAR10
+
+    fedgkd = algorithms.make("fedgkd")
+    resnet = modelzoo.make_model(CIFAR10, width=8)
+    text = modelzoo.make_model(dataclasses.replace(SST5, **SMALL))
+    pick = executor.get_executor
+    assert isinstance(pick("auto", fedgkd, 1, resnet),
+                      executor.SequentialExecutor)
+    assert isinstance(pick("auto", fedgkd, 4, resnet), executor.VmapExecutor)
+    assert isinstance(pick("auto", fedgkd, 4, text),
+                      executor.SequentialExecutor)
+    assert isinstance(pick("sequential", fedgkd, 4, resnet),
+                      executor.SequentialExecutor)
+    no_vmap = algorithms.make("fedavg")
+    no_vmap.supports_vmap = False
+    assert isinstance(pick("auto", no_vmap, 4, resnet),
+                      executor.SequentialExecutor)
+    assert executor.available() == ["sequential", "vmap", "auto"]
