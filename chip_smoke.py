@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port on one CUDA card: kernels and main path.
+"""Smoke test of the PyTorch port on one CUDA card: kernels and main paths.
 
     python3 chip_smoke.py
 
@@ -11,32 +11,45 @@ and nothing of JAX or of the JAX package, and
   2. builds the port's CUDA kernels from ``src/repro_torch/csrc`` and prints
      the build's seconds and the compiler's register report;
   3. holds every kernel against its plain PyTorch version on the card at
-     the two paths' shapes — KD-KL forward and backward at (256, 10),
-     (256, 100), (256, 200), a ragged (1000, 37) and the text path's
-     (64, 4) and (64, 5); the client-batched conv at all 9 ResNet-8 layers
-     at K=4, N=64, at K=1, N=256 and at K=1 with the teacher precompute's
-     chunk sizes (1024 rows and the ragged rest); flash attention at the
-     text path's (B, S, Hq, Hkv, D) = (64, 64, 4, 4, 32) of a local step,
+     the paths' shapes — KD-KL forward and backward at (256, 10),
+     (256, 100), (256, 200), a ragged (1000, 37), the text path's (64, 4)
+     and (64, 5) and the LM path's (4092, 50280); the client-batched conv
+     at all 9 ResNet-8 layers at K=4, N=64, at K=1, N=256 and at K=1 with
+     the teacher precompute's chunk sizes; flash attention at the text
+     path's (B, S, Hq, Hkv, D) = (64, 64, 4, 4, 32) of a local step,
      (256, ...) of an evaluation batch and the teacher precompute's row
-     counts, causal, and for coverage at GQA with a window, non-causal
-     ragged S = 100 at D = 128, and S = 1 — to 1e-5 of the plain version's
-     largest magnitude (fp32, TF32 off), and times the kernel, the plain
-     version and, where one exists, one library call (cuDNN's grouped
-     ``conv2d``; ``kl_div`` of ``log_softmax``;
-     ``scaled_dot_product_attention``) on the device: CUDA-graph replays
-     between CUDA events, so the host's enqueue cost is left out;
-  4. drives two paths of ``run_federated``, each with every launch count
-     set to 0 just before and read just after, and fails if a kernel of
-     the path was not launched:
-     a. ResNet-8 (client-batched vmap executor): FedGKD at full width (16;
-        32x32x3 inputs, batch 64, 20 clients at C=0.2 so K=4, 10 classes),
-        with only depth cut (train size, one local epoch, 5 batches per
-        client, 3 rounds);
-     b. text (sequential executor): FedGKD on AG News with the
-        DistilBERT-class encoder at the repo's full width (4 layers,
-        d_model 128, 4 heads, sequence 64, vocab 2000; batch 64, 20
-        clients at C=0.2 so K=4, Adam at lr 1e-5), depth cut to 3,000
+     counts, and for coverage at GQA with a window, non-causal ragged
+     S = 100 at D = 128, and S = 1; the SSD scan at the LM path's
+     (B, L, H, P, G, N, chunk) = (4, 1023, 80, 64, 1, 128, 256) of a step,
+     (8, ...) of an evaluation and (1, 512, ...) of the round check, and
+     for coverage at the smoke config's layer, two groups at a ragged
+     length and L = 1; the row logsumexp at (4092, 50280), (8184, 50280),
+     one and two rows and ragged shapes — to 1e-5 of the plain version's
+     largest magnitude (fp32, TF32 off; for the SSD scan, where its fp32
+     plain version is itself further than that from float64, to being no
+     further from float64 than the plain version), and times the kernel,
+     the plain version and, where one exists, one library call (cuDNN's
+     grouped ``conv2d``; ``kl_div`` of ``log_softmax``;
+     ``scaled_dot_product_attention``; ``torch.logsumexp``) on the device:
+     CUDA-graph replays between CUDA events, so the host's enqueue cost is
+     left out;
+  4. drives three paths, each with every launch count set to 0 just before
+     and read just after, and fails if a kernel of the path was not
+     launched:
+     a. ResNet-8 (``run_federated``, client-batched vmap executor): FedGKD
+        at full width (16; 32x32x3 inputs, batch 64, 20 clients at C=0.2
+        so K=4, 10 classes), with only depth cut (train size, one local
+        epoch, 5 batches per client, 3 rounds);
+     b. text (``run_federated``, sequential executor): FedGKD on AG News
+        with the DistilBERT-class encoder at the repo's full width (4
+        layers, d_model 128, 4 heads, sequence 64, vocab 2000; batch 64,
+        20 clients at C=0.2 so K=4, Adam at lr 1e-5), depth cut to 3,000
         examples, 5 batches per client and 3 rounds;
+     c. LM (``launch.train.run_serial``): FedGKD on mamba2-2.7b at its
+        published width (d_model 2560, 80 heads of 64, state 128, chunk
+        256, vocab 50,280), depth cut to 4 layers and fp32, 4 clients x 2
+        batches of 4 sequences of 1,024 tokens, 3 rounds (SGD momentum
+        0.9, lr 0.1, gamma 0.2, M = 3);
      then one FedAvg round of each;
   5. profiles one steady-state FedGKD round of each path
      (``torch.profiler``): host wall time, the device's busy time and idle
@@ -45,7 +58,9 @@ and nothing of JAX or of the JAX package, and
      the same init and holds the card's parameters after that round to
      1e-4 of the CPU's, where the round must have moved them by at least
      1e-3 (the text path at Adam lr 1e-3 for this check: at its lr 1e-5 a
-     round moves a parameter by about 5e-5, so no check at 1e-4 could fail).
+     round moves them by about 5e-5, so no check at 1e-4 could fail; the
+     LM path at full width with 1 layer, 2 clients x 1 batch of one
+     513-token sequence, which the CPU runs in reasonable time).
 
 It exits non-zero on any failure.  The last lines of its output are the
 kernels' JSON record, the ``nvidia-smi`` line and
@@ -86,7 +101,33 @@ RESNET8_CONVS = [
     ("block3.conv2", 8, 64, 64, 3, 1),
     ("block3.proj", 16, 32, 64, 1, 2),
 ]
-KD_SHAPES = [(256, 10), (256, 100), (256, 200), (1000, 37), (64, 4), (64, 5)]
+KD_SHAPES = [(256, 10), (256, 100), (256, 200), (1000, 37), (64, 4), (64, 5),
+             (4092, 50280)]
+# the LM path (mamba2-2.7b at full width, 4 layers): batch 4 of 1,024-token
+# sequences, so 1,023 positions a step; evaluation on 8 such sequences
+LM_BATCH, LM_SEQ, LM_EVAL_BATCH = 4, 1024, 8
+LM_VOCAB = 50280
+# SSD scan (B, L, H, P, G, N, chunk) for coverage beyond the LM path's own:
+# the smoke config's, two B/C groups at a ragged length, one token
+SSD_COVERAGE = [(2, 39, 16, 16, 1, 16, 16), (1, 300, 8, 64, 2, 64, 128),
+                (2, 1, 8, 64, 1, 128, 1)]
+SSD_SWEEP_BATCHES = [1, 2, 3, 4, 5, 8]     # B5's time against its grid
+# row logsumexp (T, V) beyond the LM path's: one and two rows, ragged
+ROW_LSE_COVERAGE = [(1, 50280), (2, 50280), (300, 1100), (1, 7)]
+# the LM path: run_serial's FedGKD on mamba2-2.7b, depth 64 -> 4 layers,
+# 3 rounds of 4 clients x 2 batches (the CLI's defaults otherwise: SGD
+# momentum 0.9, lr 0.1, gamma 0.2, M = 3)
+LM_ARCH, LM_LAYERS, LM_ROUNDS = "mamba2-2.7b", 4, 3
+LM_RUN = dict(n_clients=4, batches_per_round=2, batch=LM_BATCH, seq=LM_SEQ,
+              gamma=0.2, buffer_m=3, lr=0.1, seed=0)
+# its card-vs-CPU round check: 1 layer, 2 clients x 2 batches of 1 sequence
+# of 513 tokens (512 positions: two chunks), 1 round, on both devices.  The
+# second step's teacher (the initial model) differs from its student, yet
+# at this width round 1's KD term comes out exactly 0 on both devices, and
+# a second round is not reproducible to ROUND_TOL in fp32 (PERF.md §6):
+# the KD term is gated on the main run instead, and B1/B2 at its shape
+LM_CHECK = dict(LM_RUN, n_clients=2, batch=1, seq=513)
+LM_KERNELS = ["ssd_scan_fwd", "row_logsumexp", "kd_kl_fwd", "kd_kl_bwd"]
 # flash attention (B, S, Hq, Hkv, D, causal, window) beyond the text path's
 # own: GQA with a window, non-causal ragged at D = 128, one token
 FLASH_COVERAGE = [(4, 128, 8, 2, 64, True, 32), (8, 100, 4, 4, 128, False, None),
@@ -196,8 +237,9 @@ def check_kd_kl(dev) -> list[dict]:
         bwd["bound_ms"], bwd["bound_by"] = bound_ms(12 * n + 12 * rows, 8 * n)
         log(f"  kd_kl ({rows:4d},{vocab:3d}) fwd err {err_f:.2e} "
             f"kernel {fwd['ms']:.4f} ms plain {fwd['plain_ms']:.4f} ms "
-            f"library {fwd['library_ms']:.4f} ms | bwd err {err_b:.2e} "
-            f"kernel {bwd['ms']:.4f} ms plain {bwd['plain_ms']:.4f} ms")
+            f"library {fwd['library_ms']:.4f} ms bound {fwd['bound_ms']:.5f} "
+            f"ms | bwd err {err_b:.2e} kernel {bwd['ms']:.4f} ms plain "
+            f"{bwd['plain_ms']:.4f} ms bound {bwd['bound_ms']:.5f} ms")
         if (rows, vocab) == (256, 10):          # the CIFAR-10 main path
             rec["kd_kl_fwd"].update(fwd)
             rec["kd_kl_bwd"].update(bwd)
@@ -322,6 +364,158 @@ def check_flash(dev, teacher_ns: list[int]) -> dict:
                 **rec)
 
 
+def ssd_inputs(dev, gen, b, l, h, p, g, n):
+    """SSD scan inputs drawn as the Mamba-2 layer makes them at init:
+    A = -(1..H); dt = softplus(z + dt_bias) with z ~ N(0, 1) and
+    softplus(dt_bias) log-uniform on [1e-3, 1e-1]; x, B, C ~ N(0, 1),
+    sliced from one (B, L, H·P + 2·G·N) tensor as ``mamba2_forward`` slices
+    them from the conv output, so the kernel reads them at the path's
+    strides."""
+    import torch
+    import torch.nn.functional as F
+
+    dt0 = torch.exp(torch.rand(h, device=dev, generator=gen)
+                    * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    dt = F.softplus(torch.randn(b, l, h, device=dev, generator=gen) + dt_bias)
+    a = -torch.arange(1, h + 1, device=dev, dtype=torch.float32)
+    xbc = torch.randn(b, l, h * p + 2 * g * n, device=dev, generator=gen)
+    x = xbc[..., :h * p].reshape(b, l, h, p)
+    bm = xbc[..., h * p:h * p + g * n].reshape(b, l, g, n)
+    cm = xbc[..., h * p + g * n:].reshape(b, l, g, n)
+    return x, dt, a, bm, cm
+
+
+def ssd_cost(b, l, h, p, g, n, q) -> tuple[float, float]:
+    """(bytes, FLOP) of one SSD scan: x, y, dt, A, B, C and the final state
+    once each; per (batch·head, chunk of r rows) 2·pairs·N for C·Bᵀ and
+    2·pairs·P for the weighted x over the r(r+1)/2 pairs i >= j, plus
+    2·r·N·P each for C·Sᵀ and the state update."""
+    nbytes = 4 * (2 * b * l * h * p + b * l * h + h + 2 * b * l * g * n
+                  + b * h * p * n)
+    flops = 0.0
+    for c0 in range(0, l, q):
+        r = min(q, l - c0)
+        pairs = r * (r + 1) // 2
+        flops += 2 * pairs * (n + p) + 4 * r * n * p
+    return nbytes, flops * b * h
+
+
+def check_ssd(dev, round_check_len: int) -> dict:
+    """B5 against its plain version at the LM path's shapes (a step's batch,
+    the evaluation batch, the card-vs-CPU round check's one sequence) and
+    at ``SSD_COVERAGE``: y and the final state.  At each shape the gate is
+    ``KERNEL_TOL`` of max|plain|; where that fails the plain version runs in
+    float64 as well, and the kernel must then be no further from float64
+    than the fp32 plain version is.  The record's times are a step's."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h, p, g, n, q = 80, 64, 1, 128, 256
+    path = [(LM_BATCH, LM_SEQ - 1, h, p, g, n, q),
+            (LM_EVAL_BATCH, LM_SEQ - 1, h, p, g, n, q),
+            (1, round_check_len, h, p, g, n, min(q, round_check_len))]
+    rec = dict(max_abs_err=0.0)
+    for shape in path + SSD_COVERAGE:
+        b, l, h_, p_, g_, n_, q_ = shape
+        args = ssd_inputs(dev, gen, b, l, h_, p_, g_, n_)
+        got = ops.ssd_scan_fwd(*args, q_)
+        want = ref.ssd_scan_ref(*args, q_)
+        errs, gate = [], "plain"
+        for name, a, w in zip(("y", "state"), got, want):
+            err = float((a - w).abs().max())
+            scale = float(w.abs().max())
+            if not err <= KERNEL_TOL * max(scale, 1e-30):
+                gate = "float64"
+            errs.append(err)
+        line = (f"  ssd {shape} err y {errs[0]:.3e} state {errs[1]:.3e} "
+                f"(max|plain| {float(want[0].abs().max()):.3e}, "
+                f"{float(want[1].abs().max()):.3e})")
+        if gate == "float64" or shape in path[:1]:
+            exact = ref.ssd_chunked(*(t.double() for t in args), chunk=q_)
+            for name, a, w, e in zip(("y", "state"), got, want, exact):
+                ek = float((a.double() - e).abs().max())
+                ep = float((w.double() - e).abs().max())
+                line += f"; {name} vs float64: kernel {ek:.3e} plain {ep:.3e}"
+                if gate == "float64" and not ek <= ep:
+                    raise AssertionError(
+                        f"ssd_scan_fwd {shape}: {name} exceeds {KERNEL_TOL} x "
+                        f"max|plain| and is further from float64 ({ek:.3e}) "
+                        f"than the fp32 plain version ({ep:.3e})")
+            line += f"; gate {gate}"
+        rec["max_abs_err"] = max(rec["max_abs_err"], *errs)
+        if shape == path[0]:
+            t = dict(ms=time_ms(lambda: ops.ssd_scan_fwd(*args, q_), reps=5,
+                                replays=4),
+                     plain_ms=time_ms(lambda: ref.ssd_scan_ref(*args, q_),
+                                      reps=5, replays=4),
+                     library_ms=None)
+            t["bound_ms"], t["bound_by"] = bound_ms(*ssd_cost(*shape))
+            line += (f"; kernel {t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms"
+                     f" bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+            rec.update(t)
+        log(line)
+    # one block per (batch, head): the kernel's time against its block
+    # count shows how the blocks fill the card's SMs
+    sweep = []
+    for b in SSD_SWEEP_BATCHES:
+        args = ssd_inputs(dev, gen, b, LM_SEQ - 1, h, p, g, n)
+        ms = time_ms(lambda: ops.ssd_scan_fwd(*args, q), reps=5, replays=4)
+        sweep.append(f"{b * h} blocks {ms:.4f} ms")
+    log(f"  ssd time against batch at (B, 1023, 80, 64, 1, 128, 256): "
+        + ", ".join(sweep))
+    return dict(name="ssd_scan_fwd", route="cuda",
+                source="src/repro_torch/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan/kernel.py:25", **rec)
+
+
+def check_row_lse(dev) -> dict:
+    """B6 against its plain version at the LM path's (4092, V) of a step and
+    (8184, V) of an evaluation, V = 50,280, and at ``ROW_LSE_COVERAGE``;
+    times the kernel, the plain version and ``torch.logsumexp(l / T, -1)``
+    at the step's shape."""
+    import torch
+
+    from repro_torch.kernels.kd_kl import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = LM_BATCH * (LM_SEQ - 1)
+    path = [(rows, LM_VOCAB), (2 * rows, LM_VOCAB)]
+    rec = dict(max_abs_err=0.0)
+    for t_rows, vocab in path + ROW_LSE_COVERAGE:
+        for temp in (1.0, 2.0):
+            logits = torch.randn(t_rows, vocab, device=dev, generator=gen) * 3
+            want = ref.row_logsumexp_ref(logits, temp)
+            err = compare(f"row_logsumexp ({t_rows}, {vocab}) T={temp}",
+                          ops.row_lse_fwd(logits, temp), want)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if (t_rows, vocab) != path[0] or temp != 1.0:
+                log(f"  row_lse ({t_rows}, {vocab}) T={temp} err {err:.2e}")
+                continue
+
+            def library():
+                return torch.logsumexp(logits / temp, -1)
+
+            compare("library logsumexp", library(), want)
+            t = dict(ms=time_ms(lambda: ops.row_lse_fwd(logits, temp)),
+                     plain_ms=time_ms(lambda: ref.row_logsumexp_ref(logits, temp)),
+                     library_ms=time_ms(library))
+            # bytes: the logits read once, the row vector written; operations:
+            # ~4 per element (scale, compare, exp, add)
+            t["bound_ms"], t["bound_by"] = bound_ms(
+                4 * t_rows * vocab + 4 * t_rows, 4 * t_rows * vocab)
+            log(f"  row_lse ({t_rows}, {vocab}) T={temp} err {err:.2e} kernel "
+                f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms library "
+                f"{t['library_ms']:.4f} ms bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']})")
+            rec.update(t)
+    return dict(name="row_logsumexp", route="cuda",
+                source="src/repro_torch/csrc/kd_kl.cu",
+                replaces="src/repro/kernels/kd_kl/kernel.py:148", **rec)
+
+
 def all_finite(tree) -> bool:
     import torch
 
@@ -330,21 +524,20 @@ def all_finite(tree) -> bool:
     return all(bool(torch.isfinite(t).all()) for t in tree_leaves(tree))
 
 
-def profile_round(dev, label, task, data, kw, make_algo) -> None:
+def profile_round(dev, label, run) -> None:
     """Where a steady-state FedGKD round's time goes: round 2 of a 2-round
     run under ``torch.profiler``, its host wall time, the device's busy
     time (the union of its kernels' and copies' intervals), and the device
-    time by kernel name.  Prints "not measured" where the profiler saw no
-    device activity."""
+    time by kernel name.  ``run(round_callback)`` drives the 2 rounds and
+    calls ``round_callback(round, ...)`` after each round's synchronize.
+    Prints "not measured" where the profiler saw no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core import fl_loop
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     wall = {}
 
-    def window(rnd, server, model):    # called after the round's synchronize
+    def window(rnd, *_):
         if rnd == 1:
             prof.start()
             wall["t0"] = time.perf_counter()
@@ -353,8 +546,7 @@ def profile_round(dev, label, task, data, kw, make_algo) -> None:
             wall["ms"] = (time.perf_counter() - wall["t0"]) * 1e3
             prof.stop()
 
-    fl_loop.run_federated(task, make_algo(), data, device=dev, rounds=2,
-                          round_callback=window, **kw)
+    run(window)
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -419,28 +611,21 @@ def teacher_chunks(task, data, kw, stacked: bool) -> list[int]:
     return sorted(sizes - {0}, reverse=True)
 
 
-def first_round_check(dev, label, task, data, kw, make_algo) -> None:
+def first_round_check(dev, label, lr, params_after) -> None:
     """Round 1 of FedGKD on the card and on the CPU from the same init: the
     parameters must agree to ``ROUND_TOL`` while the round moved them by at
     least ``MIN_MOVE`` times that, so a card that trained wrongly, or not
-    at all, fails."""
-    from repro_torch.bridge import params_to_numpy
-    from repro_torch.core import fl_loop
-    from repro_torch.tree import tree_leaves
-
-    def params(device, rounds):
-        hist = fl_loop.run_federated(task, make_algo(), data, device=device,
-                                     rounds=rounds, **kw)
-        return tree_leaves(params_to_numpy(hist.final_params))
+    at all, fails.  ``params_after(device, rounds)`` runs that many rounds
+    from the seed's init and returns the parameters as numpy leaves."""
 
     def max_diff(xs, ys):
         return max(float(abs(a - b).max()) for a, b in zip(xs, ys, strict=True))
 
-    init, card = params("cpu", 0), params(dev, 1)
+    init, card = params_after("cpu", 0), params_after(dev, 1)
     t0 = time.perf_counter()
-    cpu = params("cpu", 1)
+    cpu = params_after("cpu", 1)
     diff, moved = max_diff(cpu, card), max_diff(card, init)
-    log(f"{label}: first round at lr {task.lr:g}, card vs CPU "
+    log(f"{label}: first round at lr {lr:g}, card vs CPU "
         f"({time.perf_counter() - t0:.1f} s on the CPU): max abs param diff "
         f"{diff:.3e} (limit {ROUND_TOL}); the round moved them by up to "
         f"{moved:.3e} (at least {MIN_MOVE * ROUND_TOL:g} required)")
@@ -459,8 +644,10 @@ def run_path(dev, label, task, data, kw, kernels: list[str],
     launched), one FedAvg round, a profiled round, and round 1 on the card
     against the CPU's (at ``check_lr`` where given).  Returns the launch
     counts."""
+    from repro_torch.bridge import params_to_numpy
     from repro_torch.core import algorithms, fl_loop
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.tree import tree_leaves
 
     def fedgkd():
         return algorithms.make("fedgkd", gamma=task.gamma,
@@ -490,10 +677,103 @@ def run_path(dev, label, task, data, kw, kernels: list[str],
         f"local_loss {r.mean_local_loss:.4f}")
     if not (math.isfinite(r.mean_local_loss) and all_finite(h_avg.final_params)):
         raise AssertionError(f"{label} FedAvg: non-finite loss or params")
-    profile_round(dev, label, task, data, kw, fedgkd)
+    profile_round(dev, label, lambda cb: fl_loop.run_federated(
+        task, fedgkd(), data, device=dev, rounds=2, round_callback=cb, **kw))
     check_task = (task if check_lr is None
                   else dataclasses.replace(task, lr=check_lr))
-    first_round_check(dev, label, check_task, data, kw, fedgkd)
+
+    def params_after(device, rounds):
+        hist = fl_loop.run_federated(check_task, fedgkd(), data,
+                                     device=device, rounds=rounds, **kw)
+        return tree_leaves(params_to_numpy(hist.final_params))
+
+    first_round_check(dev, label, check_task.lr, params_after)
+    return launches
+
+
+def lm_config(n_layers: int):
+    """mamba2-2.7b at its published width, depth cut to ``n_layers``, in
+    fp32 (the port's kernels are fp32; bf16 is later work)."""
+    from repro_torch.configs import get_config
+
+    return get_config(LM_ARCH).replace(n_layers=n_layers,
+                                       param_dtype="float32",
+                                       activation_dtype="float32")
+
+
+def run_lm_path(dev) -> dict:
+    """The federated LM trainer (``launch.train.run_serial``) on mamba2-2.7b
+    at full width: FedGKD for ``LM_ROUNDS`` rounds with the launch counts
+    set to 0 just before and read just after (every kernel of the path must
+    have launched, and the teacher's KD term must be non-zero in some
+    round), one FedAvg round, a profiled round, and round 1 on the card
+    against the CPU's at ``LM_CHECK``'s size.  Returns the launch
+    counts."""
+    import torch
+
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import run_serial
+    from repro_torch.tree import tree_leaves
+
+    cfg = lm_config(LM_LAYERS)
+    label = f"{LM_ARCH} LM"
+    log(f"{label}: d_model {cfg.d_model}, {cfg.n_layers} layers, vocab "
+        f"{cfg.vocab_size}, {tuple(cfg.ssm)}, remat {cfg.remat}, "
+        f"{cfg.param_count():,} params; {LM_RUN}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_serial(cfg, rounds=LM_ROUNDS, algo="fedgkd", device=dev,
+                     verbose=False, **LM_RUN)
+    launches = dict(LAUNCHES)
+    log(f"{label}: FedGKD, {time.perf_counter() - t0:.2f} s, launches "
+        f"{launches}, peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    for r in out["history"]:
+        log(f"  round {r['round']}: {r['seconds']:.3f} s ppl {r['ppl']:.6g} "
+            f"(eval CE {math.log(r['ppl']):.6f}) loss {r['loss']:.6f} "
+            f"kd {r['kd']:.6e}")
+    values = [v for r in out["history"] for v in (r["ppl"], r["loss"], r["kd"])]
+    if not (all(map(math.isfinite, values)) and all_finite(out["params"])):
+        raise AssertionError(f"{label} FedGKD: non-finite ppl, loss or params "
+                             f"{values}")
+    missing = [k for k in LM_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {label} path: {missing}")
+    if not any(r["kd"] > 0 for r in out["history"]):
+        raise AssertionError(f"{label} FedGKD: the KD term is 0 in every round, "
+                             f"so the teacher never entered the loss")
+    del out
+
+    avg = run_serial(cfg, rounds=1, algo="fedavg", device=dev, verbose=False,
+                     **LM_RUN)
+    r = avg["history"][0]
+    log(f"{label}: FedAvg round 1 {r['seconds']:.3f} s ppl {r['ppl']:.6g} "
+        f"loss {r['loss']:.6f}")
+    if not (math.isfinite(r["ppl"]) and math.isfinite(r["loss"])
+            and all_finite(avg["params"])):
+        raise AssertionError(f"{label} FedAvg: non-finite ppl, loss or params")
+    del avg
+    profile_round(dev, label, lambda cb: run_serial(
+        cfg, rounds=2, algo="fedgkd", device=dev, verbose=False,
+        round_callback=cb, **LM_RUN))
+
+    check_cfg = lm_config(1)
+
+    def params_after(device, rounds):
+        out = run_serial(check_cfg, rounds=rounds, algo="fedgkd",
+                         device=device, verbose=False, **LM_CHECK)
+        for r in out["history"]:
+            log(f"  round check, {device}: round {r['round']} loss "
+                f"{r['loss']:.6f} kd {r['kd']:.6e}")
+        return tree_leaves(params_to_numpy(out["params"]))
+
+    first_round_check(dev, f"{label} (1 layer, {LM_CHECK['n_clients']} "
+                      f"clients x {LM_CHECK['batches_per_round']} batches of "
+                      f"{LM_CHECK['batch']} x {LM_CHECK['seq']} tokens)",
+                      LM_CHECK["lr"], params_after)
     return launches
 
 
@@ -539,14 +819,18 @@ def main() -> int:
         f"time of CUDA-graph replays); teacher chunks of round 1: ResNet-8 "
         f"{conv_chunks}, text {text_chunks}")
     kernels = (check_kd_kl(dev) + [check_conv(dev, conv_chunks),
-                                   check_flash(dev, text_chunks)])
-    launches = run_path(dev, "ResNet-8", *resnet,
-                        ["kd_kl_fwd", "kd_kl_bwd", "grouped_conv_fwd"])
-    text_launches = run_path(dev, "AG News text", *text,
-                             ["flash_attention_fwd", "kd_kl_fwd", "kd_kl_bwd"],
-                             check_lr=TEXT_CHECK_LR)
+                                   check_flash(dev, text_chunks),
+                                   check_ssd(dev, LM_CHECK["seq"] - 1),
+                                   check_row_lse(dev)])
+    launches = [
+        run_path(dev, "ResNet-8", *resnet,
+                 ["kd_kl_fwd", "kd_kl_bwd", "grouped_conv_fwd"]),
+        run_path(dev, "AG News text", *text,
+                 ["flash_attention_fwd", "kd_kl_fwd", "kd_kl_bwd"],
+                 check_lr=TEXT_CHECK_LR),
+        run_lm_path(dev)]
     for k in kernels:
-        k["launches"] = launches[k["name"]] + text_launches[k["name"]]
+        k["launches"] = sum(counts[k["name"]] for counts in launches)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

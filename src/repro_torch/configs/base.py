@@ -1,0 +1,86 @@
+"""The architecture registry, the input shapes and the smoke reduction.
+
+The port of ``repro.configs.base`` without JAX: ``InputShape``,
+``SHAPES``, the registry (``register``, ``get_config``,
+``get_smoke_config``, ``list_archs``) and ``reduce_for_smoke``, which sets
+the fields the port's ``ModelConfig`` has.  Only ``mamba2-2.7b`` is
+registered; any other name of the reference's ``ALL_ARCHS`` raises
+``NotImplementedError`` naming ROADMAP A15.  The reference's
+``train_input_specs``, ``decode_input_specs`` and ``input_specs`` build
+``jax.ShapeDtypeStruct``s for the dry-run tooling and stay with A16.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+from repro_torch.models.config import ModelConfig
+
+
+class InputShape(NamedTuple):
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str               # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+_REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
+_SMOKE: dict[str, Callable[[], ModelConfig]] = {}
+
+ALL_ARCHS = [
+    "seamless-m4t-large-v2", "minitron-4b", "granite-34b", "mixtral-8x7b",
+    "phi4-mini-3.8b", "internlm2-20b", "mamba2-2.7b", "deepseek-v3-671b",
+    "zamba2-1.2b", "llava-next-34b",
+]
+
+
+def register(name: str, full: Callable[[], ModelConfig],
+             smoke: Callable[[], ModelConfig]) -> None:
+    _REGISTRY[name] = full
+    _SMOKE[name] = smoke
+
+
+def _lookup(table: dict, name: str) -> ModelConfig:
+    if name not in table and name in ALL_ARCHS:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet (ROADMAP A15); the "
+            f"port has {sorted(table)}")
+    return table[name]()
+
+
+def get_config(name: str) -> ModelConfig:
+    return _lookup(_REGISTRY, name)
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _lookup(_SMOKE, name)
+
+
+def list_archs() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """Shrink a full config to the same-family smoke variant: 2 layers,
+    d_model 128, small vocab, fp32 (the reference's values for the fields
+    the port has)."""
+    kw: dict = dict(
+        n_layers=2, d_model=128, n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads > 1 else 1,
+        head_dim=32, d_ff=256, vocab_size=503,  # odd-ish to catch padding bugs
+        param_dtype="float32", activation_dtype="float32",
+        remat=False,
+        attn_window=min(cfg.attn_window, 8) if cfg.attn_window else None,
+    )
+    if cfg.ssm is not None:
+        kw["ssm"] = cfg.ssm._replace(d_model=128, d_state=16, head_dim=16,
+                                     chunk=16)
+    kw.update(overrides)
+    return dataclasses.replace(cfg, **kw)

@@ -1,7 +1,8 @@
-"""Synthetic image and text datasets (offline stand-ins), numpy only.
+"""Synthetic image and text datasets and LM token streams (offline
+stand-ins), numpy only.
 
-A copy of the image and text generators of ``repro.data.synthetic``: the
-same seed gives byte-identical arrays.  Image (CIFAR): each class has a
+A copy of the image and text generators and of ``lm_token_batches`` of
+``repro.data.synthetic``: the same seed gives byte-identical arrays.  Image (CIFAR): each class has a
 low-frequency template (random Fourier features); a sample is the template
 times a random contrast, plus a per-class channel bias, Gaussian noise and
 a random circular shift.  Text (AG News, SST5): int32 token sequences from
@@ -97,3 +98,20 @@ def make_task_data(task: PaperTask, n_train: int, n_test: int, seed: int = 0):
     xtr, ytr = gen.generate(n_train, seed=seed)
     xte, yte = gen.generate(n_test, seed=seed + 10_000)
     return xtr, ytr, xte, yte
+
+
+def lm_token_batches(rng: np.random.Generator, batch: int, seq: int,
+                     vocab: int) -> np.ndarray:
+    """(batch, seq) int32 Markov-chain token stream for LM training: a
+    shared bigram backbone with random jumps."""
+    state = rng.integers(0, vocab, size=batch)
+    stride = max(1, vocab // 17)
+    out = np.empty((batch, seq), np.int32)
+    for t in range(seq):
+        jump = rng.random(batch) < 0.15
+        nxt = np.where(jump, rng.integers(0, vocab, batch),
+                       (state * 31 + 7) % max(1, vocab - stride)
+                       + rng.integers(0, stride, batch))
+        out[:, t] = nxt
+        state = nxt
+    return out

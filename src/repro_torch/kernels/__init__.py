@@ -8,7 +8,7 @@ went through the kernels.
 from __future__ import annotations
 
 LAUNCHES = {"kd_kl_fwd": 0, "kd_kl_bwd": 0, "grouped_conv_fwd": 0,
-            "flash_attention_fwd": 0}
+            "flash_attention_fwd": 0, "ssd_scan_fwd": 0, "row_logsumexp": 0}
 
 
 def reset_launches() -> None:

@@ -42,6 +42,11 @@ SIGNATURES = {
     # q, k, v and o; causal, window; scale; stream
     "flash_attention_fwd_f32": [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
                                + [_I64, _I64, _F32, _P],
+    # logits, out; rows, vocab; 1 / temperature; stream
+    "row_lse_f32": [_P, _P, _I64, _I64, _F32, _P],
+    # x, dt, A, B, C, y, state; batch, L, H, P, G, N, chunk; the strides of
+    # x (4), dt (3), A (1), B (4) and C (4); stream
+    "ssd_scan_fwd_f32": [_P] * 7 + [_I64] * 7 + [_I64] * 16 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

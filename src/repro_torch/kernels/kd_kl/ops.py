@@ -5,6 +5,11 @@
 leading dims kept.  Gradients flow to the student only (the FedGKD teacher
 is a frozen ensemble, Eq. 4): the backward returns no teacher gradient.
 
+``row_logsumexp(logits, temperature=1.0)`` maps (T, V) to the (T,) fp32
+logsumexp(l / T), for every T and V (the reference's Pallas kernel covers
+whole blocks only); its backward is elementwise PyTorch,
+g·softmax(l / T) / T.
+
 On a CUDA tensor the wrappers launch the kernels of ``csrc/kd_kl.cu``
 (built at first use) and raise if a launch fails; on a CPU tensor they take
 the plain versions in ``ref.py``.  Nothing falls back from one to the other.
@@ -95,3 +100,42 @@ def kd_kl_loss(teacher_logits: torch.Tensor, student_logits: torch.Tensor,
     lt = teacher_logits.detach().reshape(-1, shape[-1])
     ls = student_logits.reshape(-1, shape[-1])
     return _KdKlRows.apply(lt, ls, float(temperature)).reshape(shape[:-1])
+
+
+def row_lse_fwd(logits: torch.Tensor, temperature: float) -> torch.Tensor:
+    """(T, V) -> (T,) logsumexp(l / temperature), fp32."""
+    if logits.ndim != 2:
+        raise ValueError(f"row_logsumexp wants (T, V), got {tuple(logits.shape)}")
+    if not logits.is_cuda:
+        return ref.row_logsumexp_ref(logits, temperature)
+    logits = _check(logits, "logits")
+    rows, vocab = logits.shape
+    out = torch.empty(rows, device=logits.device)
+    rc = build.library().row_lse_f32(logits.data_ptr(), out.data_ptr(), rows,
+                                     vocab, 1.0 / temperature,
+                                     build.stream_of(logits))
+    build.check(rc, "row_logsumexp")
+    LAUNCHES["row_logsumexp"] += 1
+    return out
+
+
+class _RowLogsumexp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, temperature: float):
+        lse = row_lse_fwd(logits, temperature)
+        ctx.save_for_backward(logits, lse)
+        ctx.temperature = temperature
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse = ctx.saved_tensors
+        t = ctx.temperature
+        # in place after the first op: one (T, V) temporary, not four
+        grad = (logits.to(torch.float32) / t).sub_(lse[:, None]).exp_()
+        return grad.mul_((g / t)[:, None]).to(logits.dtype), None
+
+
+def row_logsumexp(logits: torch.Tensor, *, temperature: float = 1.0) -> torch.Tensor:
+    """Row logsumexp of ``logits / temperature``: (T, V) -> (T,), fp32."""
+    return _RowLogsumexp.apply(logits, float(temperature))

@@ -1,9 +1,9 @@
-"""Plain PyTorch versions of the fused KD-KL kernels.
+"""Plain PyTorch versions of the fused KD-KL kernels and the row logsumexp.
 
 The same functions as ``csrc/kd_kl.cu``, written with ordinary tensor ops:
-the CPU path of ``ops.kd_kl_loss`` and the yardstick the card compares the
-kernels with.  They materialise both probability tensors, which the kernels
-never do.
+the CPU path of ``ops.kd_kl_loss`` and ``ops.row_logsumexp`` and the
+yardstick the card compares the kernels with.  They materialise both
+probability tensors (and the scaled logits), which the kernels never do.
 """
 from __future__ import annotations
 
@@ -26,3 +26,8 @@ def kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g, temperature: float) -> torch.Tensor:
     p_t = torch.exp(lt.to(torch.float32) / temperature - lse_t[:, None])
     p_s = torch.exp(ls.to(torch.float32) / temperature - lse_s[:, None])
     return g[:, None] * (p_s - p_t) * temperature
+
+
+def row_logsumexp_ref(logits: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
+    """(T, V) -> (T,) logsumexp(l / temperature) in fp32, any T and V."""
+    return torch.logsumexp(logits.to(torch.float32) / temperature, dim=-1)

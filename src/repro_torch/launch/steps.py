@@ -1,0 +1,119 @@
+"""The LM train step: the FedGKD local objective on a causal LM.
+
+The port of the training parts of ``repro.launch.steps``.  A client's local
+step minimises (paper Eq. 4)
+
+    L = CE(student(x), y) + aux + (γ/2)·KL(teacher ‖ student)
+
+with kd_mode "none" (the FedAvg local step) or "teacher" (a full teacher
+forward each step, under ``torch.no_grad``).  The next-token CE takes its
+row logsumexp from ``kernels.kd_kl.ops.row_logsumexp`` (B6) and the KL
+goes through ``core.distillation.kl_divergence`` (B1/B2): the CUDA
+kernels on a card, their plain versions on the CPU.
+
+Not ported yet (ROADMAP A15): kd_mode "cached_topk", MTP, frontends and
+encoder-decoder inputs, and the serve, prefill and aggregate steps.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import distillation as D
+from repro_torch.kernels.kd_kl.ops import row_logsumexp
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import Optimizer, apply_updates, sgd
+from repro_torch.tree import tree_flatten, tree_map
+
+KD_MODES = ("none", "teacher")
+
+
+def lm_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Next-token CE: the mean over labels other than -1 of
+    lse(logits) − logits[label].  logits (B, S, V); labels (B, S).
+
+    The function the reference computes through ``log_softmax``
+    (``core.distillation.cross_entropy`` with ``ignore_index=-1``), with
+    the row logsumexp taken by ``row_logsumexp`` so that no (B·S, V)
+    log-probability tensor is written.  (The reference's ``text_offset``
+    serves frontend prefixes, which are not ported: ROADMAP A15.)"""
+    v = logits.shape[-1]
+    flat = logits.reshape(-1, v)
+    labels = labels.reshape(-1).to(torch.int64)
+    valid = labels != -1
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    at_label = torch.gather(flat, 1, safe[:, None])[:, 0].to(torch.float32)
+    nll = (row_logsumexp(flat) - at_label) * valid.to(torch.float32)
+    return nll.sum() / torch.clamp(valid.to(torch.float32).sum(), min=1.0)
+
+
+def _unported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP A15)")
+
+
+def _forward(params, cfg: ModelConfig, batch: dict):
+    return transformer.forward(params, cfg, batch["tokens"])
+
+
+def make_loss_fn(cfg: ModelConfig, *, kd_mode: str = "teacher",
+                 gamma: float = 0.2, kd_temperature: float = 1.0):
+    """loss(params, teacher_params, batch) -> (loss, metrics)."""
+    if kd_mode == "cached_topk":
+        _unported("kd_mode='cached_topk'")
+    if kd_mode not in KD_MODES:
+        raise ValueError(f"kd_mode {kd_mode!r} not in {KD_MODES}")
+
+    def loss_fn(params, teacher_params, batch):
+        logits, aux = _forward(params, cfg, batch)
+        ce = lm_cross_entropy(logits, batch["labels"])
+        loss = ce + aux
+        metrics = {"ce": ce, "aux": aux}
+        if kd_mode == "teacher":
+            with torch.no_grad():
+                t_logits, _ = _forward(teacher_params, cfg, batch)
+            kl = D.kl_divergence(t_logits, logits, kd_temperature)
+            kd = 0.5 * gamma * torch.mean(kl)
+            loss = loss + kd
+            metrics["kd"] = kd
+        return loss, metrics
+
+    return loss_fn
+
+
+def make_train_step(cfg: ModelConfig, opt: Optional[Optimizer] = None, *,
+                    kd_mode: str = "teacher", gamma: float = 0.2,
+                    kd_temperature: float = 1.0, lr: float = 0.05):
+    """step(params, teacher_params, opt_state, batch) -> (params, opt_state,
+    metrics); ``teacher_params=()`` when kd_mode is "none".  The metrics
+    come back detached, on the params' device."""
+    opt = opt or sgd(momentum=0.9, weight_decay=1e-5)
+    loss_fn = make_loss_fn(cfg, kd_mode=kd_mode, gamma=gamma,
+                           kd_temperature=kd_temperature)
+
+    def step(params, teacher_params, opt_state, batch):
+        leaves, rebuild = tree_flatten(params)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss, metrics = loss_fn(rebuild(live), teacher_params, batch)
+            grads = torch.autograd.grad(loss, live)
+        with torch.no_grad():
+            updates, opt_state = opt.update(rebuild(list(grads)), opt_state,
+                                            params, lr)
+            metrics = tree_map(torch.Tensor.detach, {**metrics, "loss": loss})
+            return apply_updates(params, updates), opt_state, metrics
+
+    return step
+
+
+def make_serve_step(cfg: ModelConfig, *, sample: bool = False):
+    _unported("make_serve_step (the decode path)")
+
+
+def make_prefill_step(cfg: ModelConfig, *, last_only: bool = False):
+    _unported("make_prefill_step")
+
+
+def make_aggregate_step(axis: str = "pod"):
+    _unported("make_aggregate_step (the sharded round)")

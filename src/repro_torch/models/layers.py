@@ -1,11 +1,11 @@
 """Core layers over plain-dict params: initializers, dense, norms,
 embeddings, rotary position embeddings and the GELU MLP.
 
-The port of the parts of ``repro.models.layers`` that ResNet-8 and the
-DistilBERT-class text encoder use.  Dense weights are ``(in, out)`` and
-applied as ``x @ w``; client-stacked params (``w`` (K, in, out), ``b``
-(K, out)) against ``x`` (K, B, in) ride the same line as a K-batched
-matmul.
+The port of the parts of ``repro.models.layers`` that ResNet-8, the
+DistilBERT-class text encoder and the Mamba-2 LM use.  Dense weights are
+``(in, out)`` and applied as ``x @ w``; client-stacked params (``w``
+(K, in, out), ``b`` (K, out)) against ``x`` (K, B, in) ride the same line
+as a K-batched matmul.
 """
 from __future__ import annotations
 
@@ -90,6 +90,19 @@ def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     return y.to(dtype)
 
 
+def rmsnorm_init(d: int) -> Params:
+    return {"scale": torch.ones((d,))}
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, computed in fp32."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)).to(dtype)
+
+
 def embedding_init(generator: torch.Generator, vocab: int, d: int) -> Params:
     return {"table": trunc_normal(generator, (vocab, d), std=1.0)}
 
@@ -97,6 +110,11 @@ def embedding_init(generator: torch.Generator, vocab: int, d: int) -> Params:
 def embed(params: Params, ids: torch.Tensor) -> torch.Tensor:
     """Rows of the table at ``ids`` (int32 or int64), ``ids.shape + (d,)``."""
     return torch.nn.functional.embedding(ids, params["table"])
+
+
+def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Tied output projection: ``x @ table.T`` -> logits."""
+    return x @ params["table"].to(x.dtype).T
 
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0,

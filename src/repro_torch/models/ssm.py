@@ -1,0 +1,111 @@
+"""The Mamba-2 (SSD, state-space duality) block over plain-dict params.
+
+The port of the training and prefill parts of ``repro.models.ssm``: the
+config, the initializer (the reference's keys and shapes) and
+``mamba2_forward``.  The chunked SSD scan goes through
+``kernels.ssd_scan.ops.ssd_scan``: the CUDA kernel on a card, its plain
+version (``kernels.ssd_scan.ref.ssd_chunked``, the reference's jnp form)
+on the CPU.  The reference's ``mamba2_forward`` runs the jnp
+``ssd_chunked``, the same function as its Pallas kernel; here the device
+picks, as it does for the port's other kernels.
+
+The decode path (``SSMCache``, ``ssm_cache_init``, ``mamba2_decode_step``)
+and a forward from a given initial state belong to the serve slice
+(ROADMAP A15).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.models import layers
+from repro_torch.models.layers import Params, dense_init
+
+
+class SSMConfig(NamedTuple):
+    d_model: int
+    d_state: int = 128          # N
+    head_dim: int = 64          # P
+    expand: int = 2
+    d_conv: int = 4
+    chunk: int = 256
+    n_groups: int = 1           # B/C groups (ngroups)
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+
+def mamba2_init(generator: torch.Generator, cfg: SSMConfig) -> Params:
+    """Parameters on the CPU, fp32, with the reference's keys and shapes."""
+    di, n, h = cfg.d_inner, cfg.d_state, cfg.n_heads
+    g = cfg.n_groups
+    d_in_proj = 2 * di + 2 * g * n + h     # z, x, B, C, dt
+    conv_dim = di + 2 * g * n              # conv over x, B, C
+    # dt bias initialised so that softplus(dt_bias) spans [1e-3, 1e-1]
+    dt = torch.exp(torch.rand((h,), generator=generator)
+                   * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    return {
+        "in_proj": dense_init(generator, cfg.d_model, d_in_proj),
+        "conv_w": layers.trunc_normal(generator, (cfg.d_conv, conv_dim),
+                                      std=1.0 / math.sqrt(cfg.d_conv)),
+        "conv_b": torch.zeros((conv_dim,)),
+        "dt_bias": dt_bias,
+        "A_log": torch.log(torch.arange(1, h + 1, dtype=torch.float32)),
+        "D": torch.ones((h,)),
+        "norm": layers.rmsnorm_init(di),
+        "out_proj": dense_init(generator, di, cfg.d_model),
+    }
+
+
+def _split_in_proj(z_x_b_c_dt: torch.Tensor, cfg: SSMConfig):
+    di, g, n = cfg.d_inner, cfg.n_groups, cfg.d_state
+    z = z_x_b_c_dt[..., :di]
+    xbc = z_x_b_c_dt[..., di:di + di + 2 * g * n]
+    dt = z_x_b_c_dt[..., di + di + 2 * g * n:]
+    return z, xbc, dt
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d, then SiLU.  xbc (B, L, C), w (K, C): the
+    sum of K shifted products, as the reference writes it."""
+    k, length = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = sum(pad[:, i:i + length, :] * w[i][None, None, :] for i in range(k))
+    return F.silu(out + b[None, None, :])
+
+
+def mamba2_forward(params: Params, x: torch.Tensor, cfg: SSMConfig,
+                   init_state: Optional[torch.Tensor] = None):
+    """x (B, L, D) -> (y (B, L, D), final SSM state (B, H, P, N))."""
+    if init_state is not None:
+        raise NotImplementedError(
+            "mamba2_forward from an initial state belongs to the serve path "
+            "(ROADMAP A15)")
+    b, l, _ = x.shape
+    proj = layers.dense(params["in_proj"], x)
+    z, xbc, dt = _split_in_proj(proj, cfg)
+    xbc = _causal_conv(xbc, params["conv_w"].to(x.dtype),
+                       params["conv_b"].to(x.dtype))
+    di, g, n = cfg.d_inner, cfg.n_groups, cfg.d_state
+    xs = xbc[..., :di].reshape(b, l, cfg.n_heads, cfg.head_dim)
+    B = xbc[..., di:di + g * n].reshape(b, l, g, n)
+    C = xbc[..., di + g * n:].reshape(b, l, g, n)
+    dt = F.softplus(dt.to(torch.float32) + params["dt_bias"][None, None, :])
+    A = -torch.exp(params["A_log"])
+    y, final = ssd_scan(xs.to(torch.float32), dt, A, B.to(torch.float32),
+                        C.to(torch.float32), chunk=min(cfg.chunk, l))
+    y = y + xs.to(torch.float32) * params["D"][None, None, :, None]
+    y = y.reshape(b, l, di).to(x.dtype)
+    y = layers.rmsnorm(params["norm"], y * F.silu(z))
+    return layers.dense(params["out_proj"], y), final

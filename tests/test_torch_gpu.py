@@ -10,6 +10,10 @@ each test.  Tolerance: 1e-5 of the plain version's largest magnitude, and
 of no less than 1 (fp32, different summation orders): with one class the
 KL is exactly 0 in the plain version, while the kernel forms it as a
 difference of O(|logit|) terms and keeps a rounding residue of ~1e-7.
+The SSD scan at the LM path's width is held to that, or, where the fp32
+plain version is itself further than that from the float64 result (its
+in-chunk decays reach ~-2000, and it forms them as differences of fp32
+cumsums), to being no further from float64 than the plain version is.
 """
 import math
 
@@ -26,6 +30,8 @@ from repro_torch.kernels.grouped_conv import ops as conv_ops  # noqa: E402
 from repro_torch.kernels.grouped_conv import ref as conv_ref  # noqa: E402
 from repro_torch.kernels.kd_kl import ops as kd_ops  # noqa: E402
 from repro_torch.kernels.kd_kl import ref as kd_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-5
@@ -154,3 +160,122 @@ def test_short_text_fedgkd_run_launches_its_kernels(cuda):
     for name in ("flash_attention_fwd", "kd_kl_fwd", "kd_kl_bwd"):
         assert LAUNCHES[name] > 0, LAUNCHES
     assert math.isfinite(hist.records[0].mean_local_loss)
+
+
+def _ssd_inputs(dev, shape, seed):
+    """As the Mamba-2 layer makes them at init: A = -(1..H), dt a softplus
+    around softplus(dt_bias) in [1e-3, 1e-1]."""
+    b, l, h, p, g, n, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt0 = torch.exp(torch.rand(h, device=dev, generator=gen)
+                    * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, l, h, device=dev, generator=gen)
+        + dt0 + torch.log(-torch.expm1(-dt0)))
+    A = -torch.arange(1, h + 1, device=dev, dtype=torch.float32)
+    x = torch.randn(b, l, h, p, device=dev, generator=gen)
+    B, C = (torch.randn(b, l, g, n, device=dev, generator=gen)
+            for _ in range(2))
+    return x, dt, A, B, C
+
+
+def _ssd_close(got, want, exact):
+    """Within TOL of the plain version, or no further from float64."""
+    err = float((got - want).abs().max())
+    if err <= TOL * max(1.0, float(want.abs().max())):
+        return
+    assert (float((got.double() - exact).abs().max())
+            <= float((want.double() - exact).abs().max())), err
+
+
+# (B, L, H, P, G, N, chunk): the LM path's step, the smoke config's layer,
+# two groups at a ragged length, one token
+SSD = [(4, 1023, 80, 64, 1, 128, 256), (2, 39, 16, 16, 1, 16, 16),
+       (1, 300, 8, 64, 2, 64, 128), (2, 1, 8, 64, 1, 128, 1)]
+
+
+@pytest.mark.parametrize("case", SSD, ids=str)
+def test_ssd_scan_kernel_matches_plain(cuda, case):
+    args = _ssd_inputs(cuda, case, seed=sum(case))
+    chunk = case[-1]
+    before = LAUNCHES["ssd_scan_fwd"]
+    y, state = ssd_ops.ssd_scan_fwd(*args, chunk)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan_fwd"] == before + 1
+    want = ssd_ref.ssd_scan_ref(*args, chunk)
+    exact = ssd_ref.ssd_chunked(*(t.double() for t in args), chunk=chunk)
+    for got, w, e in zip((y, state), want, exact):
+        _ssd_close(got, w, e)
+
+
+def test_ssd_scan_autograd_on_card(cuda):
+    """Gradients through the op on the card (kernel forward, the plain
+    chunked form's autograd backward) against autograd through the plain
+    version on the card."""
+    shape = (2, 100, 8, 32, 2, 32, 32)
+    args = _ssd_inputs(cuda, shape, seed=9)
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    wy = torch.randn(shape[:3] + shape[3:4], device=cuda, generator=gen)
+    ws = torch.randn(2, 8, 32, 32, device=cuda, generator=gen)
+    ins = [t.clone().requires_grad_(True) for t in args]
+    plain = [t.clone().requires_grad_(True) for t in args]
+    y, s = ssd_ops.ssd_scan(*ins, chunk=32)
+    ((y * wy).sum() + (s * ws).sum()).backward()
+    y, s = ssd_ref.ssd_chunked(*plain, chunk=32)
+    ((y * wy).sum() + (s * ws).sum()).backward()
+    for a, b in zip(ins, plain):
+        _close(a.grad, b.grad)
+
+
+@pytest.mark.parametrize("t,v", [(4092, 50280), (300, 1100), (1, 7)])
+def test_row_logsumexp_kernel_and_backward(cuda, t, v):
+    gen = torch.Generator(device=cuda).manual_seed(v)
+    logits = torch.randn(t, v, device=cuda, generator=gen) * 3
+    g = torch.randn(t, device=cuda, generator=gen)
+    before = LAUNCHES["row_logsumexp"]
+    live = logits.clone().requires_grad_(True)
+    out = kd_ops.row_logsumexp(live, temperature=2.0)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert LAUNCHES["row_logsumexp"] == before + 1
+    plain = logits.clone().requires_grad_(True)
+    want = kd_ref.row_logsumexp_ref(plain, 2.0)
+    (want * g).sum().backward()
+    _close(out, want)
+    _close(live.grad, plain.grad)
+
+
+def test_lm_train_step_on_card_matches_cpu(cuda):
+    """One FedGKD step of the smoke mamba2 LM on the card and on the CPU
+    from the same params: loss and params after."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import lm_token_batches
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves, tree_map
+
+    import numpy as np
+
+    cfg = get_smoke_config("mamba2-2.7b")
+    params = transformer.init(torch.Generator().manual_seed(0), cfg)
+    teacher = tree_map(lambda t: t * 0.9, params)
+    toks = torch.from_numpy(lm_token_batches(np.random.default_rng(1), 2, 40,
+                                             cfg.vocab_size))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = sgd(momentum=0.9)
+    step = steps.make_train_step(cfg, opt, kd_mode="teacher", lr=0.1)
+    out = {}
+    for dev in ("cpu", cuda):
+        on = lambda tree: tree_map(lambda t: t.to(dev), tree)  # noqa: E731
+        p = on(params)
+        reset_launches()
+        new, _, m = step(p, on(teacher), opt.init(p), on(batch))
+        out[str(dev)] = (tree_leaves(tree_map(torch.Tensor.cpu, new)),
+                         float(m["loss"]), dict(LAUNCHES))
+    (cpu, loss_cpu, _), (card, loss_card, launched) = out.values()
+    for name in ("ssd_scan_fwd", "row_logsumexp", "kd_kl_fwd", "kd_kl_bwd"):
+        assert launched[name] > 0, launched
+    assert abs(loss_card - loss_cpu) < TOL * max(1.0, abs(loss_cpu))
+    for a, b in zip(card, cpu, strict=True):
+        _close(a, b)

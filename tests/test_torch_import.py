@@ -34,7 +34,11 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.core.fl_loop", "repro_torch.models.config",
             "repro_torch.models.attention", "repro_torch.models.transformer",
             "repro_torch.kernels.flash_attention.ops",
-            "repro_torch.kernels.flash_attention.ref"} <= set(mods)
+            "repro_torch.kernels.flash_attention.ref",
+            "repro_torch.kernels.ssd_scan.ops",
+            "repro_torch.kernels.ssd_scan.ref", "repro_torch.models.ssm",
+            "repro_torch.configs.base", "repro_torch.configs.mamba2_2_7b",
+            "repro_torch.launch.steps", "repro_torch.launch.train"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -84,10 +88,14 @@ def test_kernel_wrappers_take_plain_versions_only_on_cpu_tensors():
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
     from repro_torch.kernels.grouped_conv.ops import client_batched_conv
-    from repro_torch.kernels.kd_kl.ops import kd_kl_loss
+    from repro_torch.kernels.kd_kl.ops import kd_kl_loss, row_logsumexp
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     reset_launches()
     kd_kl_loss(torch.randn(4, 10), torch.randn(4, 10))
+    row_logsumexp(torch.randn(4, 10))
+    ssd_scan(torch.randn(1, 5, 2, 4), torch.rand(1, 5, 2), -torch.ones(2),
+             torch.randn(1, 5, 1, 4), torch.randn(1, 5, 1, 4), chunk=4)
     client_batched_conv(torch.randn(1, 2, 8, 8, 3), torch.randn(1, 3, 3, 3, 4))
     flash_attention_gqa(torch.randn(1, 5, 2, 8), torch.randn(1, 5, 1, 8),
                         torch.randn(1, 5, 1, 8))
