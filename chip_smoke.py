@@ -32,7 +32,10 @@ and nothing of JAX or of the JAX package, and
      grouped ``conv2d``; ``kl_div`` of ``log_softmax``;
      ``scaled_dot_product_attention``; ``torch.logsumexp``) on the device:
      CUDA-graph replays between CUDA events, so the host's enqueue cost is
-     left out;
+     left out.  The conv is totalled per group (K=4 step, K=1 eval, K=1
+     teacher) against cuDNN, with the shapes where cuDNN is faster; the
+     conv's and flash attention's bounds count their 3xTF32 arithmetic,
+     with the fp32 CUDA-core bound beside them;
   4. drives three paths, each with every launch count set to 0 just before
      and read just after, and fails if a kernel of the path was not
      launched:
@@ -79,9 +82,13 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parent / "src"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s outside the
-# tensor cores.  The kernels here are fp32 on the CUDA cores.
+# tensor cores, dense TF32 FLOP/s on them.  B1, B2, B5 and B6 are fp32 on
+# the CUDA cores; B3 and B4 run their products in 3xTF32 on the tensor
+# cores, three TF32 products for each fp32 one, so their bound counts
+# 3 x FLOP at the TF32 peak (the fp32 CUDA-core bound is printed beside it)
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 KERNEL_TOL = 1e-5          # of max |plain|, fp32 with TF32 off
 ROUND_TOL = 1e-4           # card vs CPU params after one round, fp32
 MIN_MOVE = 10              # round 1 must move the params >= this x ROUND_TOL
@@ -175,9 +182,20 @@ def taps_in_bounds(size: int, k: int, stride: int, out: int, lo: int) -> int:
                if 0 <= o * stride - lo + i < size)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+def bound_ms(nbytes: float, ops: float,
+             peak: float = PEAK_FP32) -> tuple[float, str]:
+    """The least time of the work on the card: the larger of its bytes at
+    the memory rate and its operations at ``peak``."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tf32x3_bound_ms(nbytes: float, flops: float) -> dict:
+    """B3's and B4's bounds: in 3xTF32 (3 x FLOP at the TF32 peak), the
+    arithmetic they use, with the fp32 CUDA-core bound beside it."""
+    b, by = bound_ms(nbytes, 3 * flops, PEAK_TF32)
+    return dict(bound_ms=b, bound_by=by,
+                fp32_bound_ms=bound_ms(nbytes, flops)[0])
 
 
 def compare(name: str, got, want) -> float:
@@ -252,62 +270,83 @@ def check_kd_kl(dev) -> list[dict]:
 
 
 def check_conv(dev, teacher_ns: list[int]) -> dict:
-    """The conv at every ResNet-8 layer: K=4, N=64 (a local step), K=1,
-    N=256 (an evaluation batch) and K=1 at ``teacher_ns`` (the teacher
-    precompute's chunks)."""
+    """The conv at every ResNet-8 layer in three groups: K=4, N=64 (a local
+    step), K=1, N=256 (an evaluation batch) and K=1 at ``teacher_ns`` (the
+    teacher precompute's chunks).  Per group it prints the kernel's,
+    cuDNN's and the bound's total ms and the shapes where cuDNN is faster;
+    the record's times are the local step's, with the groups beside them."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.grouped_conv import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                  nbytes=0.0, ops=0.0)
-    max_err = 0.0
-    for k, n in [(4, 64), (1, 256)] + [(1, n) for n in teacher_ns]:
-        for name, h, cin, cout, kk, s in RESNET8_CONVS:
-            x = torch.randn(k, n, h, h, cin, device=dev, generator=gen)
-            w = torch.randn(k, kk, kk, cin, cout, device=dev,
-                            generator=gen) / math.sqrt(kk * kk * cin)
-            oh, lo, hi = ref.same_pads(h, kk, s)
-            err = compare(f"grouped_conv K={k} {name}",
-                          ops.grouped_conv_fwd(x, w, s, "SAME"),
-                          ref.grouped_conv_ref(x, w, s, "SAME"))
-            max_err = max(max_err, err)
-            # the library yardstick: cuDNN's grouped conv2d on the inputs
-            # packed channel-wise (client k's channels are group k) and
-            # padded as JAX pads SAME; the packing is not timed
-            xg = F.pad(x.permute(1, 0, 4, 2, 3).reshape(n, k * cin, h, h),
-                       (lo, hi, lo, hi))
-            wg = w.permute(0, 4, 3, 1, 2).reshape(k * cout, cin, kk, kk)
-            lib = F.conv2d(xg, wg, stride=s, groups=k)
-            compare(f"library conv2d K={k} {name}",
-                    lib.reshape(n, k, cout, oh, oh).permute(1, 0, 3, 4, 2),
-                    ref.grouped_conv_ref(x, w, s, "SAME"))
-            t = dict(ms=time_ms(lambda: ops.grouped_conv_fwd(x, w, s, "SAME")),
-                     plain_ms=time_ms(lambda: ref.grouped_conv_ref(x, w, s, "SAME")),
-                     library_ms=time_ms(lambda: F.conv2d(xg, wg, stride=s,
-                                                         groups=k)))
-            nbytes = 4 * (x.numel() + w.numel() + k * n * oh * oh * cout)
-            # multiply-adds of the taps inside the input only
-            flops = (2 * k * n * cout * cin
-                     * taps_in_bounds(h, kk, s, oh, lo) ** 2)
-            b, by = bound_ms(nbytes, flops)
-            log(f"  conv K={k} N={n:3d} {name:13s} err {err:.2e} kernel "
-                f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms library "
-                f"{t['library_ms']:.4f} ms bound {b:.4f} ms ({by})")
-            if k == 4:                         # one local step's forward
+    groups = {"K=4 step": [(4, 64)], "K=1 eval": [(1, 256)],
+              "K=1 teacher": [(1, n) for n in teacher_ns]}
+    rec = dict(max_abs_err=0.0, groups={})
+    for group, calls in groups.items():
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0,
+                   flops=0.0, slower=[])
+        for k, n in calls:
+            for name, h, cin, cout, kk, s in RESNET8_CONVS:
+                x = torch.randn(k, n, h, h, cin, device=dev, generator=gen)
+                w = torch.randn(k, kk, kk, cin, cout, device=dev,
+                                generator=gen) / math.sqrt(kk * kk * cin)
+                oh, lo, hi = ref.same_pads(h, kk, s)
+                want = ref.grouped_conv_ref(x, w, s, "SAME")
+                err = compare(f"grouped_conv K={k} N={n} {name}",
+                              ops.grouped_conv_fwd(x, w, s, "SAME"), want)
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                # the library yardstick: cuDNN's grouped conv2d on the
+                # inputs packed channel-wise (client k's channels are group
+                # k) and padded as JAX pads SAME; the packing is not timed
+                xg = F.pad(x.permute(1, 0, 4, 2, 3).reshape(n, k * cin, h, h),
+                           (lo, hi, lo, hi))
+                wg = w.permute(0, 4, 3, 1, 2).reshape(k * cout, cin, kk, kk)
+                lib = F.conv2d(xg, wg, stride=s, groups=k)
+                compare(f"library conv2d K={k} N={n} {name}",
+                        lib.reshape(n, k, cout, oh, oh).permute(1, 0, 3, 4, 2),
+                        want)
+                t = dict(ms=time_ms(lambda: ops.grouped_conv_fwd(x, w, s, "SAME")),
+                         plain_ms=time_ms(lambda: ref.grouped_conv_ref(x, w, s, "SAME")),
+                         library_ms=time_ms(lambda: F.conv2d(xg, wg, stride=s,
+                                                             groups=k)))
+                nbytes = 4 * (x.numel() + w.numel() + k * n * oh * oh * cout)
+                # multiply-adds of the taps inside the input only
+                flops = (2 * k * n * cout * cin
+                         * taps_in_bounds(h, kk, s, oh, lo) ** 2)
+                t.update(tf32x3_bound_ms(nbytes, flops))
+                plan = ops.conv_plan(k, n, h, h, cin, cout, kk, kk, s, "SAME")
+                log(f"  conv K={k} N={n:4d} {name:13s} err {err:.2e} kernel "
+                    f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms library "
+                    f"{t['library_ms']:.4f} ms bound {t['bound_ms']:.4f} ms "
+                    f"({t['bound_by']}; fp32 {t['fp32_bound_ms']:.4f}) tile "
+                    f"{plan.tile_imgs}x{plan.tile_rows}x{plan.tile_cols} "
+                    f"chunk {plan.chunk} bn {plan.bn} stages {plan.stages} "
+                    f"smem {plan.smem_bytes} grid {plan.grid}")
                 for key in ("ms", "plain_ms", "library_ms"):
-                    totals[key] += t[key]
-                totals["nbytes"] += nbytes
-                totals["ops"] += flops
-    b, by = bound_ms(totals["nbytes"], totals["ops"])
+                    tot[key] += t[key]
+                tot["nbytes"] += nbytes
+                tot["flops"] += flops
+                if t["ms"] > t["library_ms"]:
+                    tot["slower"].append(f"N={n} {name}")
+        # the group's bound: its bytes and FLOP summed, then bounded
+        bound = tf32x3_bound_ms(tot["nbytes"], tot["flops"])
+        log(f"  conv group {group}: kernel {tot['ms']:.4f} ms cuDNN "
+            f"{tot['library_ms']:.4f} ms plain {tot['plain_ms']:.4f} ms bound "
+            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, 3xTF32; fp32 "
+            f"{bound['fp32_bound_ms']:.4f}); slower than cuDNN at "
+            f"{len(tot['slower'])} of {len(calls) * len(RESNET8_CONVS)} "
+            f"shapes {tot['slower']}")
+        rec["groups"][group] = dict(
+            ms=tot["ms"], library_ms=tot["library_ms"], **bound,
+            slower_than_library=len(tot["slower"]))
+        if group == "K=4 step":                # one local step's forward
+            rec.update(ms=tot["ms"], plain_ms=tot["plain_ms"],
+                       library_ms=tot["library_ms"], **bound)
     return dict(name="grouped_conv_fwd", route="cuda",
                 source="src/repro_torch/csrc/grouped_conv.cu",
-                replaces="src/repro/kernels/grouped_conv/kernel.py:36",
-                max_abs_err=max_err, ms=totals["ms"],
-                plain_ms=totals["plain_ms"], library_ms=totals["library_ms"],
-                bound_ms=b, bound_by=by)
+                replaces="src/repro/kernels/grouped_conv/kernel.py:36", **rec)
 
 
 def check_flash(dev, teacher_ns: list[int]) -> dict:
@@ -352,10 +391,11 @@ def check_flash(dev, teacher_ns: list[int]) -> dict:
         # operations: 4·D per unmasked (query, key) pair and query head
         pairs = int(ref.causal_mask(s, s, device=dev).sum()) if causal else s * s
         nbytes = 4 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
-        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 4 * d * pairs * b * hq)
-        log(f"  flash {shape} err {err:.2e} kernel {t['ms']:.4f} ms plain "
-            f"{t['plain_ms']:.4f} ms library {t['library_ms']:.4f} ms bound "
-            f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
+        t.update(tf32x3_bound_ms(nbytes, 4 * d * pairs * b * hq))
+        log(f"  flash {shape} err {err:.2e} kernel {t['ms']:.5f} ms plain "
+            f"{t['plain_ms']:.5f} ms library {t['library_ms']:.5f} ms bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']}; fp32 "
+            f"{t['fp32_bound_ms']:.5f})")
         if b == 64:                            # one local step's attention
             rec.update(t)
     return dict(name="flash_attention_fwd", route="cuda",

@@ -1,8 +1,9 @@
-// Flash-attention forward for Hopper (sm_90a), fp32, causal / sliding
-// window / full, grouped-query heads.
+// Flash-attention forward for Hopper (sm_90a), fp32 in and out, causal /
+// sliding window / full, grouped-query heads, both products on the tensor
+// cores in 3xTF32.
 //
 // Replaces the Pallas TPU kernel of the JAX reference:
-//   flash_attention_fwd_f32 <- repro/kernels/flash_attention/kernel.py:
+//   flash_attention_fwd_f32 <- repro/kernels/flash_attention/kernel.py:28
 //                              _flash_kernel (flash_attention_fwd)
 //
 //   q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) -> o (B, Sq, Hq, D)
@@ -20,77 +21,121 @@
 //   * q, k and v are read in the reference's (B, S, H, D) layout through
 //     their batch / sequence / head strides (the last axis contiguous): no
 //     transposed copies.
-//   * Ragged lengths are loop bounds.  The TPU wrapper pads S to its block
-//     of 128 (and so sends non-causal ragged calls to the reference); this
-//     kernel bounds-checks every row and key.
+//   * Ragged lengths are bounds: cp.async's zero fill pads the tiles, and
+//     the mask drops keys past Skv.  The TPU wrapper pads S to its block of
+//     128 (and so sends non-causal ragged calls to the reference).
 //   * KV tiles that lie wholly in the future (causal) or wholly before the
-//     window are never visited, where the TPU grid visits and masks them.
+//     window are never visited, by the block or by a warp, where the TPU
+//     grid visits and masks them.
 //
 // What bounds it on the card: at the text path's shapes (B=64, S=64, Hq=Hkv=4,
 // D=32, causal) one call reads q, k, v and writes o, 8 MB in all, ~2.5 us
 // at 3.35 TB/s; it does 4*D FLOP for each of the 2,080 unmasked (query, key)
-// pairs per head, 68 MFLOP, ~1 us at the fp32 CUDA-core peak.  So neither
-// bound is far from a launch's own latency: the design keeps it to ONE
-// launch that never writes the (S, S) scores or probabilities to memory.
+// pairs per head, 68 MFLOP: ~1 us at the fp32 CUDA-core peak, 0.4 us in
+// 3xTF32 (3 x 68 MFLOP at 495 TFLOP/s).  So it is bytes-bound, and short:
+// the design keeps it to ONE launch that never writes the (S, S) scores or
+// probabilities to memory, and keeps the arithmetic's dependent chains short
+// by giving both products to the tensor cores.  The first form (scalar FMA,
+// lane j scoring key j against 8 rows, probabilities through shared memory)
+// took 14.4 us there.
 //
-// Design, simple first (fp32 FMA on the CUDA cores, no tensor cores):
-//   * one thread block per (batch * query head, tile of kBlockQ = 32 query
-//     rows); 4 warps, each owning 8 of the rows;
-//   * the q tile and one kBlockKV = 32 key tile of k and v are staged in
-//     shared memory, head_dim zero-padded to Dp = 32 * NC (NC = 1..4), the
-//     k rows padded by one float so lane j reading key j hits bank j;
-//   * per key tile, lane j scores key j against the warp's 8 rows, the
-//     warp reduces the tile's row max with shuffles, and the running max,
-//     the lane's share of the exp-sum and the output row (lane owns
-//     columns lane + 32 c) stay in registers; the probabilities go through
-//     a small per-warp shared buffer into the P.V product;
-//   * the lanes' exp-sums are summed once, at the end.
-// int64 offsets throughout.
+// Design:
+//   * one block of 4 warps per (batch * query head, tile of 64 query rows);
+//     each warp owns 16 rows, so at S = 64 a block holds the whole head;
+//   * q's tile and 64-key tiles of k and v are staged in shared memory by
+//     cp.async (zero fill past D, Sq and Skv), head_dim padded to Dp = 32*NC,
+//     rows padded to Dp + 4 floats so every fragment read below is free of
+//     bank conflicts; the k/v tiles are double-buffered, the next tile's
+//     copy in flight while this one is computed;
+//   * S = Q.K^T: per warp a 16 x 64 tile of scores as 8 m16n8 accumulator
+//     tiles, over Dp/8 steps of 3xTF32 mma.sync (tf32_mma.cuh);
+//   * online softmax on the accumulator fragments: a thread holds two
+//     columns of rows g and g + 8 in each tile, the row max is reduced over
+//     the quad by two shuffles, the running max and the thread's share of
+//     the sum stay in registers (the quad's shares are summed once, at the
+//     end), and the output accumulators are rescaled in place;
+//   * O += P.V: P goes from the score accumulators to the A operand in
+//     registers, without a shared buffer or shuffles.  The accumulator gives
+//     a thread keys 2t and 2t+1 of each 8-key step, where the A operand
+//     wants keys t and t+4; since the product sums over keys, the step's
+//     keys are taken in the permuted order (slot t = key 2t, slot t+4 = key
+//     2t+1), and the V fragment is read from the rows of the same keys;
+//     in both products each 8-deep step is summed from zero on the tensor
+//     cores and added to the accumulators in fp32, so O's error does not
+//     grow with the number of keys (the tensor cores' accumulator does not
+//     round to nearest);
+//   * 8-key tiles past a warp's last causal key (or past Skv) are skipped.
+// int64 offsets in global memory; 32-bit inside the shared tiles.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kBlockQ = 32;
-constexpr int kBlockKV = 32;
+using tf32x3::Split;
+
+constexpr int kBlockQ = 64;
+constexpr int kBlockKV = 64;
 constexpr int kWarps = 4;
-constexpr int kRows = kBlockQ / kWarps;  // query rows per warp
+constexpr int kThreads = 32 * kWarps;
+constexpr int kKeyTiles = kBlockKV / 8;  // n8 tiles of scores per warp
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Strides {
   int64_t b, s, h;
 };
 
-// shared floats of one block: q tile, k tile (rows padded by one), v tile,
-// per-warp probabilities
+// shared floats of one block: the q tile and two stages of k and v tiles
 template <int NC>
-constexpr int64_t smem_floats() {
-  return static_cast<int64_t>(kBlockQ) * 32 * NC +
-         static_cast<int64_t>(kBlockKV) * (32 * NC + 1) +
-         static_cast<int64_t>(kBlockKV) * 32 * NC +
-         static_cast<int64_t>(kWarps) * kRows * kBlockKV;
+constexpr int smem_floats() {
+  return (kBlockQ + 4 * kBlockKV) * (32 * NC + 4);
+}
+
+// rows [r0, r0 + 64) of a (S, D) slice with row stride rs, into a
+// [64][Dp + 4] tile; zero past S and D
+template <int NC>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int64_t rs, int64_t r0, int64_t S,
+                                           int D, bool vec4) {
+  constexpr int Dp = 32 * NC, LD = Dp + 4;
+  if (vec4) {
+    constexpr int per_row = Dp / 4;
+    for (int e = threadIdx.x; e < kBlockKV * per_row; e += kThreads) {
+      const int r = e / per_row, c = (e - r * per_row) * 4;
+      const bool in = r0 + r < S && c < D;
+      tf32x3::cp_async16(dst + r * LD + c, in ? src + (r0 + r) * rs + c : src,
+                         in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kBlockKV * Dp; e += kThreads) {
+      const int r = e / Dp, c = e - r * Dp;
+      const bool in = r0 + r < S && c < D;
+      tf32x3::cp_async4(dst + r * LD + c, in ? src + (r0 + r) * rs + c : src,
+                        in);
+    }
+  }
 }
 
 template <int NC>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 int64_t Sq, int64_t Skv, int64_t Hq, int64_t group, int64_t D,
+                 int64_t Sq, int64_t Skv, int64_t Hq, int64_t group, int D,
                  Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                 int64_t window, float scale) {
+                 int64_t window, float scale, int vec4) {
   constexpr int Dp = 32 * NC;
-  constexpr int kStride = Dp + 1;
-  extern __shared__ float smem[];
-  float* q_sh = smem;                              // [kBlockQ][Dp]
-  float* k_sh = q_sh + kBlockQ * Dp;               // [kBlockKV][kStride]
-  float* v_sh = k_sh + kBlockKV * kStride;         // [kBlockKV][Dp]
-  float* p_sh = v_sh + kBlockKV * Dp;              // [kWarps][kRows][kBlockKV]
+  constexpr int LD = Dp + 4;
+  constexpr int KS = Dp / 8;  // k8 steps of Q.K^T, n8 tiles of O
+  extern __shared__ __align__(16) float smem[];
+  float* q_sh = smem;                        // [kBlockQ][LD]
+  float* kv_sh = q_sh + kBlockQ * LD;        // 2 x {k [64][LD], v [64][LD]}
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
   const int64_t bh = blockIdx.x;
   const int64_t b = bh / Hq;
   const int64_t h = bh % Hq;
@@ -100,12 +145,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + hk * ks.h;
   const float* vb = v + b * vs.b + hk * vs.h;
-
-  for (int idx = tid; idx < kBlockQ * Dp; idx += kWarps * 32) {
-    const int r = idx / Dp, d = idx % Dp;
-    const int64_t qi = q0 + r;
-    q_sh[idx] = (qi < Sq && d < D) ? qb[qi * qs.s + d] : 0.f;
-  }
 
   // the block's key range: tiles wholly in the future or before the window
   // are skipped
@@ -118,113 +157,175 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       kv_begin = ((q0 - window + 1) / kBlockKV) * kBlockKV;
   }
 
-  // this warp's rows
-  const int64_t row0 = q0 + warp * kRows;
-  float m[kRows], l[kRows], acc[kRows][NC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+  stage_rows<NC>(q_sh, qb, qs.s, q0, Sq, D, vec4);
+  if (kv_begin < kv_end) {
+    stage_rows<NC>(kv_sh, kb, ks.s, kv_begin, Skv, D, vec4);
+    stage_rows<NC>(kv_sh + kBlockKV * LD, vb, vs.s, kv_begin, Skv, D, vec4);
   }
-  float* p_warp = p_sh + warp * kRows * kBlockKV;
+  tf32x3::cp_async_commit();
 
-  for (int64_t kv0 = kv_begin; kv0 < kv_end; kv0 += kBlockKV) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = tid; idx < kBlockKV * Dp; idx += kWarps * 32) {
-      const int j = idx / Dp, d = idx % Dp;
-      const int64_t kj = kv0 + j;
-      const bool in = kj < Skv && d < D;
-      k_sh[j * kStride + d] = in ? kb[kj * ks.s + d] : 0.f;
-      v_sh[j * Dp + d] = in ? vb[kj * vs.s + d] : 0.f;
+  // this thread's rows: g and g + 8 of the warp's 16
+  const int64_t row0 = q0 + warp * 16;
+  const int64_t rows[2] = {row0 + gq, row0 + gq + 8};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  int it = 0;
+  for (int64_t kv0 = kv_begin; kv0 < kv_end; kv0 += kBlockKV, ++it) {
+    const float* k_sh = kv_sh + (it & 1) * 2 * kBlockKV * LD;
+    const float* v_sh = k_sh + kBlockKV * LD;
+    if (kv0 + kBlockKV < kv_end) {
+      float* nk = kv_sh + ((it + 1) & 1) * 2 * kBlockKV * LD;
+      stage_rows<NC>(nk, kb, ks.s, kv0 + kBlockKV, Skv, D, vec4);
+      stage_rows<NC>(nk + kBlockKV * LD, vb, vs.s, kv0 + kBlockKV, Skv, D,
+                     vec4);
+      tf32x3::cp_async_commit();
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
     }
     __syncthreads();
-    // a tile wholly outside every row of this warp adds nothing to them
-    if (causal && (kv0 > row0 + kRows - 1 ||
-                   (window > 0 && kv0 + kBlockKV - 1 <= row0 - window)))
-      continue;
 
-    // scores of key kv0 + lane against the warp's rows
-    float s[kRows];
+    // the key tiles this warp's rows can see: past its last causal key, or
+    // past Skv, an 8-key tile is skipped; before the window the whole tile
+    int64_t key_end = Skv;
+    if (causal && row0 + 16 < key_end) key_end = row0 + 16;
+    const int64_t live = key_end - kv0;
+    const int nt_end =
+        live <= 0 ? 0 : (live >= kBlockKV ? kKeyTiles : static_cast<int>((live + 7) / 8));
+    const bool before_window =
+        causal && window > 0 && kv0 + kBlockKV - 1 <= row0 - window;
+    if (row0 < Sq && nt_end > 0 && !before_window) {
+      // S = Q . K^T over the warp's 16 rows and the tile's 64 keys
+      float s[kKeyTiles][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    const float* krow = k_sh + lane * kStride;
-    const float* qw = q_sh + warp * kRows * Dp;
-#pragma unroll 8
-    for (int d = 0; d < Dp; ++d) {
-      const float kd = krow[d];
+      for (int n = 0; n < kKeyTiles; ++n)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) s[r] = fmaf(qw[r * Dp + d], kd, s[r]);
-    }
-
-    const int64_t kj = kv0 + lane;
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      const float* qw = q_sh + (warp * 16 + gq) * LD + tq;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int64_t qi = row0 + r;
-      bool valid = kj < Skv;
-      if (causal) {
-        valid = valid && kj <= qi;
-        if (window > 0) valid = valid && kj > qi - window;
+      for (int ks8 = 0; ks8 < KS; ++ks8) {
+        const float av[4] = {qw[ks8 * 8], qw[8 * LD + ks8 * 8],
+                             qw[ks8 * 8 + 4], qw[8 * LD + ks8 * 8 + 4]};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const Split sp = tf32x3::split(av[e]);
+          ah[e] = sp.hi;
+          al[e] = sp.lo;
+        }
+        const float* kr = k_sh + gq * LD + ks8 * 8 + tq;
+#pragma unroll
+        for (int n = 0; n < kKeyTiles; ++n) {
+          if (n < nt_end) {
+            const Split b0 = tf32x3::split(kr[n * 8 * LD]);
+            const Split b1 = tf32x3::split(kr[n * 8 * LD + 4]);
+            tf32x3::mma3_add(s[n], ah, al, b0, b1);
+          }
+        }
       }
-      const float sc = valid ? s[r] * scale : -INFINITY;
-      float mt = sc;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, off));
-      const float m_new = fmaxf(m[r], mt);
-      float p = 0.f, alpha = 1.f;
-      if (m_new != -INFINITY) {  // uniform across the warp
-        p = valid ? expf(sc - m_new) : 0.f;
-        alpha = expf(m[r] - m_new);  // 0 while m[r] is still -inf
-      }
-      m[r] = m_new;
-      l[r] = l[r] * alpha + p;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
-      p_warp[r * kBlockKV + lane] = p;
-    }
-    __syncwarp();
 
-    // acc[r][c] += sum_j p[r][j] * v[j][lane + 32 c]
-#pragma unroll 4
-    for (int j = 0; j < kBlockKV; j += 4) {
-      float vj[4][NC];
+      // online softmax on the fragments: s[n][2r + e] is row g + 8r, key
+      // kv0 + 8n + 2t + e
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
+      for (int r = 0; r < 2; ++r) {
+        // the row's keys as offsets j in [lo, hi) of this tile
+        int64_t hi64 = Skv - kv0, lo64 = 0;
+        if (causal) {
+          if (rows[r] - kv0 + 1 < hi64) hi64 = rows[r] - kv0 + 1;
+          if (window > 0) lo64 = rows[r] - window + 1 - kv0;
+        }
+        const int hi = static_cast<int>(
+            hi64 < 0 ? 0 : (hi64 > kBlockKV ? kBlockKV : hi64));
+        const int lo = static_cast<int>(
+            lo64 < 0 ? 0 : (lo64 > kBlockKV ? kBlockKV : lo64));
+        float mt = -INFINITY;
 #pragma unroll
-        for (int c = 0; c < NC; ++c) vj[t][c] = v_sh[(j + t) * Dp + lane + 32 * c];
+        for (int n = 0; n < kKeyTiles; ++n)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 p4 = *reinterpret_cast<const float4*>(p_warp + r * kBlockKV + j);
+          for (int e = 0; e < 2; ++e) {
+            const int j = n * 8 + 2 * tq + e;
+            const bool valid = n < nt_end && j >= lo && j < hi;
+            const float sc = valid ? s[n][2 * r + e] * scale : -INFINITY;
+            s[n][2 * r + e] = sc;
+            mt = fmaxf(mt, sc);
+          }
+        mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, 2));
+        const float m_new = fmaxf(m[r], mt);
+        float alpha = 1.f, psum = 0.f;
+        if (m_new != -INFINITY) {  // uniform across the quad
+          alpha = expf(m[r] - m_new);  // 0 while m[r] is still -inf
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          float a = acc[r][c];
-          a = fmaf(p4.x, vj[0][c], a);
-          a = fmaf(p4.y, vj[1][c], a);
-          a = fmaf(p4.z, vj[2][c], a);
-          a = fmaf(p4.w, vj[3][c], a);
-          acc[r][c] = a;
+          for (int n = 0; n < kKeyTiles; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float sc = s[n][2 * r + e];
+              const float p = sc == -INFINITY ? 0.f : expf(sc - m_new);
+              s[n][2 * r + e] = p;
+              psum += p;
+            }
+        } else {
+#pragma unroll
+          for (int n = 0; n < kKeyTiles; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) s[n][2 * r + e] = 0.f;
+        }
+        m[r] = m_new;
+        l[r] = l[r] * alpha + psum;
+#pragma unroll
+        for (int n = 0; n < KS; ++n) {
+          acc[n][2 * r] *= alpha;
+          acc[n][2 * r + 1] *= alpha;
+        }
+      }
+
+      // O += P . V, the keys of each 8-key step in the order (2t, 2t+1) of
+      // the accumulator: slot t = key 2t, slot t + 4 = key 2t + 1
+#pragma unroll
+      for (int n = 0; n < kKeyTiles; ++n) {
+        if (n < nt_end) {
+          const float pv[4] = {s[n][0], s[n][2], s[n][1], s[n][3]};
+          uint32_t ph[4], pl[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const Split sp = tf32x3::split(pv[e]);
+            ph[e] = sp.hi;
+            pl[e] = sp.lo;
+          }
+          const float* vr = v_sh + (n * 8 + 2 * tq) * LD + gq;
+#pragma unroll
+          for (int dn = 0; dn < KS; ++dn) {
+            const Split b0 = tf32x3::split(vr[dn * 8]);
+            const Split b1 = tf32x3::split(vr[LD + dn * 8]);
+            tf32x3::mma3_add(acc[dn], ph, pl, b0, b1);
+          }
         }
       }
     }
-    __syncwarp();  // p_warp is rewritten by the next tile
+    __syncthreads();  // this buffer is refilled two tiles on
   }
+  tf32x3::cp_async_wait<0>();
 
+  // acc[dn][2r + e] is row g + 8r, column 8 dn + 2t + e
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < 2; ++r) {
     float lsum = l[r];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      lsum += __shfl_xor_sync(kFull, lsum, off);
-    const int64_t qi = row0 + r;
+    lsum += __shfl_xor_sync(kFull, lsum, 1);
+    lsum += __shfl_xor_sync(kFull, lsum, 2);
+    const int64_t qi = rows[r];
     if (qi >= Sq) continue;
     const float inv = lsum > 0.f ? 1.f / lsum : 0.f;  // no key seen: 0
     float* orow = o + b * os.b + qi * os.s + h * os.h;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) orow[d] = acc[r][c] * inv;
+    for (int dn = 0; dn < KS; ++dn) {
+      const int d = dn * 8 + 2 * tq;
+      if (d < D) orow[d] = acc[dn][2 * r] * inv;
+      if (d + 1 < D) orow[d + 1] = acc[dn][2 * r + 1] * inv;
     }
   }
 }
@@ -232,21 +333,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int NC>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    int64_t B, int64_t Sq, int64_t Skv, int64_t Hq,
-                   int64_t Hkv, int64_t D, Strides qs, Strides ks, Strides vs,
+                   int64_t Hkv, int D, Strides qs, Strides ks, Strides vs,
                    Strides os, int causal, int64_t window, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * static_cast<size_t>(smem_floats<NC>());
-  if (smem > 48 * 1024) {  // above 48 KB (NC = 4) needs the opt-in
+                   int vec4, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(float)) * smem_floats<NC>();
+  if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(static_cast<unsigned>(B * Hq),
                   static_cast<unsigned>((Sq + kBlockQ - 1) / kBlockQ));
-  flash_fwd_kernel<NC><<<grid, kWarps * 32, smem, stream>>>(
+  flash_fwd_kernel<NC><<<grid, kThreads, smem, stream>>>(
       q, k, v, o, Sq, Skv, Hq, Hq / Hkv, D, qs, ks, vs, os, causal, window,
-      scale);
+      scale, vec4);
   return cudaGetLastError();
 }
 
@@ -256,9 +357,9 @@ extern "C" {
 
 // q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), o (B, Sq, Hq, D): fp32, the last
 // axis contiguous, the other three axes at the given element strides.
-// D <= 128, Hq a multiple of Hkv, B*Hq < 2^31, ceil(Sq/32) < 2^16; causal
-// is 0 or 1, window 0 means none (used only when causal).  Returns the
-// launch's cudaError_t.
+// D <= 128, Hq a multiple of Hkv, B*Hq < 2^31, ceil(Sq/64) < 2^16, and a
+// head's rows within 32-bit offsets; causal is 0 or 1, window 0 means none
+// (used only when causal).  Returns the launch's cudaError_t.
 int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                             void* o, int64_t B, int64_t Sq, int64_t Skv,
                             int64_t Hq, int64_t Hkv, int64_t D,
@@ -277,25 +378,33 @@ int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
   float* op = static_cast<float*>(o);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
+  // 16-byte copies where every row start is 16-byte aligned
+  const bool vec4 =
+      D % 4 == 0 &&
+      (q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb | v_ss | v_sh) % 4 ==
+          0 &&
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   const int c = static_cast<int>(causal != 0);
+  const int d = static_cast<int>(D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch ((D + 31) / 32) {
     case 1:
-      err = launch<1>(qp, kp, vp, op, B, Sq, Skv, Hq, Hkv, D, qs, ks, vs, os,
-                      c, window, scale, st);
+      err = launch<1>(qp, kp, vp, op, B, Sq, Skv, Hq, Hkv, d, qs, ks, vs, os,
+                      c, window, scale, vec4, st);
       break;
     case 2:
-      err = launch<2>(qp, kp, vp, op, B, Sq, Skv, Hq, Hkv, D, qs, ks, vs, os,
-                      c, window, scale, st);
+      err = launch<2>(qp, kp, vp, op, B, Sq, Skv, Hq, Hkv, d, qs, ks, vs, os,
+                      c, window, scale, vec4, st);
       break;
     case 3:
-      err = launch<3>(qp, kp, vp, op, B, Sq, Skv, Hq, Hkv, D, qs, ks, vs, os,
-                      c, window, scale, st);
+      err = launch<3>(qp, kp, vp, op, B, Sq, Skv, Hq, Hkv, d, qs, ks, vs, os,
+                      c, window, scale, vec4, st);
       break;
     default:
-      err = launch<4>(qp, kp, vp, op, B, Sq, Skv, Hq, Hkv, D, qs, ks, vs, os,
-                      c, window, scale, st);
+      err = launch<4>(qp, kp, vp, op, B, Sq, Skv, Hq, Hkv, d, qs, ks, vs, os,
+                      c, window, scale, vec4, st);
       break;
   }
   return static_cast<int>(err);

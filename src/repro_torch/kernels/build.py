@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-Every ``*.cu`` file under ``repro_torch/csrc`` is compiled for Hopper
+Every ``*.cu`` file under ``repro_torch/csrc`` (with the ``*.cuh`` headers
+beside them) is compiled for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) with one ``nvcc`` process per
 source, all started together, and the objects are linked into ONE shared
 library with a plain C interface.  The library's name carries a digest of
-the sources and flags, so a changed source builds anew and an unchanged one
-loads from ``<checkout>/build/kernels``, a directory ``.gitignore`` lists.
+the sources, headers and flags, so a changed source builds anew and an
+unchanged one loads from ``<checkout>/build/kernels``, a directory
+``.gitignore`` lists.
 
 Importing this module compiles nothing and touches no CUDA API: the CPU
 tests import every module of the package.  ``library()`` builds and loads
@@ -35,9 +37,11 @@ _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 SIGNATURES = {
     "kd_kl_fwd_f32": [_P, _P, _P, _P, _P, _I64, _I64, _F32, _F32, _P],
     "kd_kl_bwd_f32": [_P, _P, _P, _P, _P, _P, _I64, _I64, _F32, _F32, _P],
-    "grouped_conv_fwd_f32": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                             _I64, _I64, _I64, _I32, _I32, _I32, _I32, _I32,
-                             _P],
+    # x, w, y; K, N, H, W, Cin, OH, OW, Cout; kh, kw, stride, pad_top,
+    # pad_left; the tile plan (images, rows, cols, Cin chunk, bn, stages,
+    # shared-memory bytes); stream
+    "grouped_conv_fwd_f32": [_P, _P, _P] + [_I64] * 8 + [_I32] * 5
+                            + [_I32] * 7 + [_P],
     # q, k, v, o; B, Sq, Skv, Hq, Hkv, D; the (batch, seq, head) strides of
     # q, k, v and o; causal, window; scale; stream
     "flash_attention_fwd_f32": [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
@@ -55,6 +59,10 @@ BUILD_LOG: dict = {}        # {"seconds": float, "ptxas": str, "path": str}
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -79,7 +87,7 @@ def _digest(srcs: list[Path]) -> str:
 def build(build_dir: Path = BUILD_DIR) -> Path:
     """Compile and link the shared library if it is not built yet."""
     srcs = sources()
-    out = build_dir / f"librepro_torch_kernels_{_digest(srcs)}.so"
+    out = build_dir / f"librepro_torch_kernels_{_digest(srcs + headers())}.so"
     if out.exists():
         BUILD_LOG.update(seconds=0.0, path=str(out), ptxas="(cached)")
         return out

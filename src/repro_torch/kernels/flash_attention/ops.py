@@ -34,7 +34,20 @@ from repro_torch.kernels import LAUNCHES, build
 from repro_torch.kernels.flash_attention import ref
 
 MAX_HEAD_DIM = 128
-BLOCK_Q = 32            # query rows per thread block (csrc kBlockQ)
+BLOCK_Q = 64            # query rows per thread block (csrc kBlockQ)
+BLOCK_KV = 64           # keys per staged tile (csrc kBlockKV)
+THREADS = 128           # 4 warps of 16 query rows
+MAX_SMEM = 232_448      # the shared memory one block may take on sm_90
+
+
+def launch_plan(b: int, sq: int, hq: int, d: int):
+    """(grid, threads, shared-memory bytes) of the kernel's launch: a block
+    per (batch * query head, 64 query rows); the q tile and two stages of
+    k and v tiles, head_dim padded to a multiple of 32 and each row by 4
+    floats (csrc smem_floats)."""
+    dp = 32 * -(-d // 32)
+    smem = 4 * (BLOCK_Q + 4 * BLOCK_KV) * (dp + 4)
+    return (b * hq, -(-sq // BLOCK_Q)), THREADS, smem
 
 
 def _validate(q, k, v, window) -> None:
@@ -66,8 +79,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     skv, hkv = k.shape[1], k.shape[2]
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM}: the kernel keeps "
-                         f"a row of the output in one warp's registers")
-    if -(-sq // BLOCK_Q) >= 2 ** 16 or b * hq >= 2 ** 31:
+                         f"16 rows of the output in one warp's registers")
+    grid, _, _ = launch_plan(b, sq, hq, d)
+    if grid[1] >= 2 ** 16 or grid[0] >= 2 ** 31:
         raise ValueError(f"grid too large for q {tuple(q.shape)}")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty((b, sq, hq, d), device=q.device, dtype=q.dtype)

@@ -111,3 +111,21 @@ def test_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention_gqa(q, torch.zeros(1, 8, 3, 16),
                                 torch.zeros(1, 8, 3, 16), window=0)
+
+
+# (B, S, Hq, D): the text path's local step, evaluation batch and a teacher
+# chunk, one token, a ragged S = 100, and head dims up to the kernel's 128
+@pytest.mark.parametrize("b,s,hq,d", [(64, 64, 4, 32), (256, 64, 4, 32),
+                                      (405, 64, 4, 32), (64, 1, 4, 32),
+                                      (8, 100, 4, 128), (3, 128, 8, 64),
+                                      (2, 37, 6, 7), (1, 300, 2, 96)])
+def test_launch_plan_covers_rows_within_shared_memory(b, s, hq, d):
+    """A block per (batch * query head, 64 query rows) of 4 warps; the q
+    tile and two stages of k and v tiles, head_dim padded to a multiple
+    of 32 and rows to +4 floats, fit a block's 227 KB."""
+    (gx, gy), threads, smem = ops.launch_plan(b, s, hq, d)
+    assert gx == b * hq and threads == 128
+    assert (gy - 1) * ops.BLOCK_Q < s <= gy * ops.BLOCK_Q
+    dp = -(-d // 32) * 32
+    assert smem == 4 * (ops.BLOCK_Q + 4 * ops.BLOCK_KV) * (dp + 4)
+    assert smem <= ops.MAX_SMEM == 227 * 1024

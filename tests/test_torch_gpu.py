@@ -37,12 +37,18 @@ pytestmark = pytest.mark.gpu
 TOL = 1e-5
 
 # (K, N, H, Cin, Cout, k, stride): ResNet-8's convs at width 16 and K=4,
-# a K=1 teacher/eval shape, and an odd input size
+# K=1 eval and teacher-chunk shapes, an odd input size, Cout past the
+# kernel's 64-channel tile, a ragged pixel tile (7x7 outputs, two images to
+# a tile, N odd), ResNet-50's 7x7 stride-2 stem and a 1x1 conv over 2,048
+# input channels (64 Cin chunks)
 CONVS = [(4, 64, 32, 3, 16, 3, 1), (4, 64, 32, 16, 16, 3, 1),
          (4, 64, 32, 16, 32, 3, 2), (4, 64, 16, 32, 32, 3, 1),
          (4, 64, 32, 16, 32, 1, 2), (4, 64, 16, 32, 64, 3, 2),
          (4, 64, 8, 64, 64, 3, 1), (4, 64, 16, 32, 64, 1, 2),
-         (1, 256, 32, 3, 16, 3, 1), (2, 3, 9, 4, 8, 3, 2)]
+         (1, 256, 32, 3, 16, 3, 1), (2, 3, 9, 4, 8, 3, 2),
+         (1, 1024, 32, 16, 16, 3, 1), (1, 788, 8, 64, 64, 3, 1),
+         (2, 4, 16, 32, 128, 3, 1), (3, 5, 7, 8, 24, 3, 1),
+         (1, 2, 64, 3, 64, 7, 2), (1, 2, 8, 2048, 96, 1, 1)]
 
 
 @pytest.fixture
@@ -102,6 +108,20 @@ def test_grouped_conv_kernel_matches_plain(cuda, case):
     _close(got, conv_ref.grouped_conv_ref(x, w, s, "SAME"))
 
 
+@pytest.mark.parametrize("case", [(2, 3, 11, 4, 4, 3, 2),
+                                  (3, 5, 9, 8, 24, 3, 1),
+                                  (1, 2, 64, 3, 64, 7, 2)], ids=str)
+def test_grouped_conv_kernel_valid_padding(cuda, case):
+    """VALID: no pads, a stride that does not divide the input."""
+    k, n, h, cin, cout, kk, s = case
+    gen = torch.Generator(device=cuda).manual_seed(sum(case))
+    x = torch.randn(k, n, h, h, cin, device=cuda, generator=gen)
+    w = torch.randn(k, kk, kk, cin, cout, device=cuda, generator=gen)
+    got = conv_ops.grouped_conv_fwd(x, w, s, "VALID")
+    torch.cuda.synchronize()
+    _close(got, conv_ref.grouped_conv_ref(x, w, s, "VALID"))
+
+
 def test_short_fedgkd_run_launches_every_kernel(cuda):
     """The ResNet-8 path launches every kernel of its path."""
     task = scaled(CIFAR10, 0.02, rounds=1, local_epochs=1)
@@ -114,22 +134,26 @@ def test_short_fedgkd_run_launches_every_kernel(cuda):
     assert math.isfinite(hist.records[0].mean_local_loss)
 
 
-# (B, S, Hq, Hkv, D, window): the text path's local step, GQA with a window
-FLASH = [(64, 64, 4, 4, 32, None), (3, 128, 8, 2, 64, 32)]
+# (B, S, Hq, Hkv, D, causal, window): the text path's local step, GQA with
+# a window, a teacher chunk's B = 405, D = 128, one token, and non-causal
+# at a ragged S = 100
+FLASH = [(64, 64, 4, 4, 32, True, None), (3, 128, 8, 2, 64, True, 32),
+         (405, 64, 4, 4, 32, True, None), (4, 64, 4, 2, 128, True, None),
+         (64, 1, 4, 4, 32, True, None), (8, 100, 4, 4, 32, False, None)]
 
 
 @pytest.mark.parametrize("case", FLASH, ids=str)
 def test_flash_attention_kernel_matches_plain(cuda, case):
-    b, s, hq, hkv, d, window = case
+    b, s, hq, hkv, d, causal, window = case
     gen = torch.Generator(device=cuda).manual_seed(s + d)
     q = torch.randn(b, s, hq, d, device=cuda, generator=gen)
     k, v = (torch.randn(b, s, hkv, d, device=cuda, generator=gen)
             for _ in range(2))
     before = LAUNCHES["flash_attention_fwd"]
-    got = fa_ops.flash_attention_fwd(q, k, v, True, window)
+    got = fa_ops.flash_attention_fwd(q, k, v, causal, window)
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention_fwd"] == before + 1
-    _close(got, fa_ref.attention_ref(q, k, v, window=window))
+    _close(got, fa_ref.attention_ref(q, k, v, causal=causal, window=window))
 
 
 def test_flash_attention_autograd_on_card(cuda):

@@ -94,3 +94,99 @@ def test_rejects_mismatched_clients():
         ops.client_batched_conv(torch.zeros(2, 1, 4, 4, 3),
                                 torch.zeros(3, 3, 3, 3, 8))
 
+
+
+# The CUDA kernel's tile plan (``ops.conv_plan``), which the wrapper makes
+# on the host: (H, Cin, Cout, k, stride) of ResNet-8's nine convs at width
+# 16 on 32x32, taken at K=4, N=64 (a local step) and K=1 at N=256, 1024
+# and 788 (evaluation and the teacher precompute's chunks), and of the
+# reference's ResNet-50 on 64x64 inputs (stem, then the bottleneck stages
+# at 16, 8, 4 and 2 pixels, up to 2048 channels), at K=4, N=64
+RESNET8_PLAN = [(32, 3, 16, 3, 1), (32, 16, 16, 3, 1), (32, 16, 32, 3, 2),
+                (16, 32, 32, 3, 1), (32, 16, 32, 1, 2), (16, 32, 64, 3, 2),
+                (8, 64, 64, 3, 1), (16, 32, 64, 1, 2)]
+RESNET50_PLAN = [(64, 3, 64, 7, 2),
+                 (16, 64, 64, 1, 1), (16, 64, 64, 3, 1), (16, 64, 256, 1, 1),
+                 (16, 256, 64, 1, 1),
+                 (16, 256, 128, 1, 1), (16, 128, 128, 3, 2), (8, 128, 512, 1, 1),
+                 (16, 256, 512, 1, 2), (8, 512, 128, 1, 1), (8, 128, 128, 3, 1),
+                 (8, 512, 256, 1, 1), (8, 256, 256, 3, 2), (4, 256, 1024, 1, 1),
+                 (8, 512, 1024, 1, 2), (4, 1024, 256, 1, 1), (4, 256, 256, 3, 1),
+                 (4, 1024, 512, 1, 1), (4, 512, 512, 3, 2), (2, 512, 2048, 1, 1),
+                 (4, 1024, 2048, 1, 2), (2, 2048, 512, 1, 1), (2, 512, 512, 3, 1)]
+PLAN_CASES = ([(4, 64) + g for g in RESNET8_PLAN]
+              + [(1, n) + g for n in (256, 1024, 788) for g in RESNET8_PLAN]
+              + [(4, 64) + g for g in RESNET50_PLAN]
+              + [(2, 3, 9, 4, 8, 3, 2), (3, 5, 7, 8, 24, 3, 1),
+                 (2, 4, 16, 32, 128, 3, 1), (1, 2, 64, 3, 64, 7, 2)])
+
+
+def _covered(plan, n, oh, ow):
+    """Every (image, row, col) output pixel a block writes, decoding the
+    grid's x index and the block's 128 pixels as the kernel does."""
+    nrb = -(-oh // plan.tile_rows)
+    ncb = -(-ow // plan.tile_cols)
+    seen = np.zeros((n, oh, ow), np.int64)
+    for bx in range(plan.grid[0]):
+        cb, rest = bx % ncb, bx // ncb
+        rb, nb = rest % nrb, rest // nrb
+        img0 = nb * plan.tile_imgs
+        oh0, ow0 = rb * plan.tile_rows, cb * plan.tile_cols
+        for p in range(ops.TILE_PIXELS):
+            pc, q = p % plan.tile_cols, p // plan.tile_cols
+            pr, pi = q % plan.tile_rows, q // plan.tile_rows
+            if (pi < plan.tile_imgs and img0 + pi < n and oh0 + pr < oh
+                    and ow0 + pc < ow):
+                seen[img0 + pi, oh0 + pr, ow0 + pc] += 1
+    return seen
+
+
+# every case SAME, and VALID where the input is at least the filter
+PLAN_PADS = [(c, p) for c in PLAN_CASES for p in ("SAME", "VALID")
+             if p == "SAME" or c[2] >= c[5]]
+
+
+@pytest.mark.parametrize("case,pad", PLAN_PADS, ids=str)
+def test_conv_plan_fits_and_covers_every_output(case, pad):
+    k, n, h, cin, cout, kk, s = case
+    plan = ops.conv_plan(k, n, h, h, cin, cout, kk, kk, s, pad)
+    oh = ref.resolve_pads(h, kk, s, pad)[0]
+    # the kernel's tiles: <= 128 pixels, whole images only as whole rows
+    # and columns, a Cin chunk of at most 32, shared memory within a block's
+    assert plan.tile_imgs * plan.tile_rows * plan.tile_cols <= ops.TILE_PIXELS
+    if plan.tile_imgs > 1:
+        assert (plan.tile_rows, plan.tile_cols) == (oh, oh)
+    assert 1 <= plan.chunk <= min(cin, ops.MAX_CHUNK)
+    assert plan.stages in (1, 2) and (plan.stages == 1 or plan.chunk < cin)
+    assert plan.smem_bytes <= ops.MAX_SMEM == 227 * 1024
+    # the bytes the kernel recounts: the offset table, then per stage the
+    # receptive window (channel stride 4 mod 8) and the padded filter slice
+    kp = -(-kk * kk * plan.chunk // 8) * 8
+    window = (plan.tile_imgs * ((plan.tile_rows - 1) * s + kk)
+              * ((plan.tile_cols - 1) * s + kk) * ops.channel_stride(plan.chunk))
+    assert ops.channel_stride(plan.chunk) % 8 == 4
+    assert plan.smem_bytes == 4 * (kp + plan.stages * (window + kp * (plan.bn + 8)))
+    # every output channel and client, every pixel exactly once
+    assert plan.bn in (8, 16, 32, 64) and plan.grid[1] * plan.bn >= cout
+    assert (plan.grid[1] - 1) * plan.bn < cout and plan.grid[2] == k
+    assert (_covered(plan, n, oh, oh) == 1).all()
+
+
+def test_conv_plan_tiles_resnet8_as_designed():
+    """Whole output rows, ~128 pixels: 4 x 32 at 32x32, 8 x 16 at 16x16,
+    two images at 8x8; the stem's Cin = 3 in one chunk."""
+    stem = ops.conv_plan(4, 64, 32, 32, 3, 16, 3, 3, 1, "SAME")
+    assert (stem.tile_imgs, stem.tile_rows, stem.tile_cols) == (1, 4, 32)
+    assert (stem.chunk, stem.bn, stem.stages, stem.grid) == (3, 16, 1, (512, 1, 4))
+    b2 = ops.conv_plan(1, 1024, 16, 16, 32, 32, 3, 3, 1, "SAME")
+    assert (b2.tile_imgs, b2.tile_rows, b2.tile_cols) == (1, 8, 16)
+    b3 = ops.conv_plan(1, 788, 8, 8, 64, 64, 3, 3, 1, "SAME")
+    assert (b3.tile_imgs, b3.tile_rows, b3.tile_cols) == (2, 8, 8)
+    assert b3.grid == (394, 1, 1) and b3.stages == 2
+
+
+def test_conv_plan_raises_where_no_tile_fits():
+    with pytest.raises(ValueError, match="no tile plan fits"):
+        ops.conv_plan(1, 1, 4096, 4096, 3, 64, 101, 101, 1, "SAME")
+    with pytest.raises(ValueError, match="no output"):
+        ops.conv_plan(1, 1, 2, 2, 8, 8, 3, 3, 1, "VALID")
