@@ -23,19 +23,21 @@ and nothing of JAX or of the JAX package, and
      (B, L, H, P, G, N, chunk) = (4, 1023, 80, 64, 1, 128, 256) of a step,
      (8, ...) of an evaluation and (1, 512, ...) of the round check, and
      for coverage at the smoke config's layer, two groups at a ragged
-     length and L = 1; the row logsumexp at (4092, 50280), (8184, 50280),
-     one and two rows and ragged shapes — to 1e-5 of the plain version's
-     largest magnitude (fp32, TF32 off; for the SSD scan, where its fp32
-     plain version is itself further than that from float64, to being no
-     further from float64 than the plain version), and times the kernel,
+     length, L = 1, one 4,096-token sequence, one full-width chunk, a
+     chunk of 48 and P, N not multiples of 4; the row logsumexp at
+     (4092, 50280), (8184, 50280), one and two rows and ragged shapes —
+     to 1e-5 of the plain version's largest magnitude (fp32, TF32 off;
+     for the SSD scan, where its fp32 plain version is itself further than
+     that from float64, to being no further from float64 than the plain
+     version), and times the kernel,
      the plain version and, where one exists, one library call (cuDNN's
      grouped ``conv2d``; ``kl_div`` of ``log_softmax``;
      ``scaled_dot_product_attention``; ``torch.logsumexp``) on the device:
      CUDA-graph replays between CUDA events, so the host's enqueue cost is
      left out.  The conv is totalled per group (K=4 step, K=1 eval, K=1
      teacher) against cuDNN, with the shapes where cuDNN is faster; the
-     conv's and flash attention's bounds count their 3xTF32 arithmetic,
-     with the fp32 CUDA-core bound beside them;
+     conv's, flash attention's and the SSD scan's bounds count their
+     3xTF32 arithmetic, with the fp32 CUDA-core bound beside them;
   4. drives three paths, each with every launch count set to 0 just before
      and read just after, and fails if a kernel of the path was not
      launched:
@@ -82,8 +84,8 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parent / "src"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s outside the
-# tensor cores, dense TF32 FLOP/s on them.  B1, B2, B5 and B6 are fp32 on
-# the CUDA cores; B3 and B4 run their products in 3xTF32 on the tensor
+# tensor cores, dense TF32 FLOP/s on them.  B1, B2 and B6 are fp32 on the
+# CUDA cores; B3, B4 and B5 run their products in 3xTF32 on the tensor
 # cores, three TF32 products for each fp32 one, so their bound counts
 # 3 x FLOP at the TF32 peak (the fp32 CUDA-core bound is printed beside it)
 PEAK_BYTES = 3.35e12
@@ -115,9 +117,14 @@ KD_SHAPES = [(256, 10), (256, 100), (256, 200), (1000, 37), (64, 4), (64, 5),
 LM_BATCH, LM_SEQ, LM_EVAL_BATCH = 4, 1024, 8
 LM_VOCAB = 50280
 # SSD scan (B, L, H, P, G, N, chunk) for coverage beyond the LM path's own:
-# the smoke config's, two B/C groups at a ragged length, one token
+# the smoke config's, two B/C groups at a ragged length, one token, one
+# sequence at train_4k's published length (16 chunks through the state
+# pass), one chunk at full width, a chunk that is not a multiple of 16, and
+# P and N that are not multiples of 4 (4-byte copies)
 SSD_COVERAGE = [(2, 39, 16, 16, 1, 16, 16), (1, 300, 8, 64, 2, 64, 128),
-                (2, 1, 8, 64, 1, 128, 1)]
+                (2, 1, 8, 64, 1, 128, 1), (1, 4096, 80, 64, 1, 128, 256),
+                (1, 256, 80, 64, 1, 128, 256), (2, 200, 8, 64, 1, 128, 48),
+                (1, 70, 4, 10, 1, 10, 32)]
 SSD_SWEEP_BATCHES = [1, 2, 3, 4, 5, 8]     # B5's time against its grid
 # row logsumexp (T, V) beyond the LM path's: one and two rows, ragged
 ROW_LSE_COVERAGE = [(1, 50280), (2, 50280), (300, 1100), (1, 7)]
@@ -135,6 +142,11 @@ LM_RUN = dict(n_clients=4, batches_per_round=2, batch=LM_BATCH, seq=LM_SEQ,
 # the KD term is gated on the main run instead, and B1/B2 at its shape
 LM_CHECK = dict(LM_RUN, n_clients=2, batch=1, seq=513)
 LM_KERNELS = ["ssd_scan_fwd", "row_logsumexp", "kd_kl_fwd", "kd_kl_bwd"]
+# the CUDA kernels' names in csrc/*.cu, for the profile's device time by
+# kernel, and the port's named ranges (the SSD scan's autograd backward)
+PORT_KERNELS = ["kd_kl_", "conv_fwd_kernel", "flash_fwd_kernel", "row_lse_",
+                "ssd_chunk_kernel", "ssd_pass_kernel", "ssd_out_kernel"]
+PORT_RANGES = ["ssd_scan_backward"]
 # flash attention (B, S, Hq, Hkv, D, causal, window) beyond the text path's
 # own: GQA with a window, non-causal ragged at D = 128, one token
 FLASH_COVERAGE = [(4, 128, 8, 2, 64, True, 32), (8, 100, 4, 4, 128, False, None),
@@ -191,8 +203,8 @@ def bound_ms(nbytes: float, ops: float,
 
 
 def tf32x3_bound_ms(nbytes: float, flops: float) -> dict:
-    """B3's and B4's bounds: in 3xTF32 (3 x FLOP at the TF32 peak), the
-    arithmetic they use, with the fp32 CUDA-core bound beside it."""
+    """B3's, B4's and B5's bounds: in 3xTF32 (3 x FLOP at the TF32 peak),
+    the arithmetic they use, with the fp32 CUDA-core bound beside it."""
     b, by = bound_ms(nbytes, 3 * flops, PEAK_TF32)
     return dict(bound_ms=b, bound_by=by,
                 fp32_bound_ms=bound_ms(nbytes, flops)[0])
@@ -428,17 +440,19 @@ def ssd_inputs(dev, gen, b, l, h, p, g, n):
 
 def ssd_cost(b, l, h, p, g, n, q) -> tuple[float, float]:
     """(bytes, FLOP) of one SSD scan: x, y, dt, A, B, C and the final state
-    once each; per (batch·head, chunk of r rows) 2·pairs·N for C·Bᵀ and
-    2·pairs·P for the weighted x over the r(r+1)/2 pairs i >= j, plus
-    2·r·N·P each for C·Sᵀ and the state update."""
+    once each.  Per chunk of r rows, over its r(r+1)/2 pairs i >= j:
+    2·pairs·N for C·Bᵀ once per (batch, B/C group), since every head of a
+    group shares it (the function needs it once, whatever implements it);
+    per (batch, head) 2·pairs·P for the weighted x, plus 2·r·N·P each for
+    C·Sᵀ and the state update."""
     nbytes = 4 * (2 * b * l * h * p + b * l * h + h + 2 * b * l * g * n
                   + b * h * p * n)
     flops = 0.0
     for c0 in range(0, l, q):
         r = min(q, l - c0)
         pairs = r * (r + 1) // 2
-        flops += 2 * pairs * (n + p) + 4 * r * n * p
-    return nbytes, flops * b * h
+        flops += g * 2 * pairs * n + h * (2 * pairs * p + 4 * r * n * p)
+    return nbytes, flops * b
 
 
 def check_ssd(dev, round_check_len: int) -> dict:
@@ -492,18 +506,23 @@ def check_ssd(dev, round_check_len: int) -> dict:
                      plain_ms=time_ms(lambda: ref.ssd_scan_ref(*args, q_),
                                       reps=5, replays=4),
                      library_ms=None)
-            t["bound_ms"], t["bound_by"] = bound_ms(*ssd_cost(*shape))
+            t.update(tf32x3_bound_ms(*ssd_cost(*shape)))
+            plan = ops.ssd_plan(*shape)
             line += (f"; kernel {t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms"
-                     f" bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+                     f" bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+                     f"3xTF32; fp32 {t['fp32_bound_ms']:.4f}); grids "
+                     f"{plan.grid} (chunk, pass, out), shared bytes "
+                     f"{plan.chunk_smem} / {plan.out_smem}")
             rec.update(t)
         log(line)
-    # one block per (batch, head): the kernel's time against its block
-    # count shows how the blocks fill the card's SMs
+    # the three launches' blocks grow with the batch: the time against the
+    # batch shows how they fill the card's SMs
     sweep = []
     for b in SSD_SWEEP_BATCHES:
         args = ssd_inputs(dev, gen, b, LM_SEQ - 1, h, p, g, n)
         ms = time_ms(lambda: ops.ssd_scan_fwd(*args, q), reps=5, replays=4)
-        sweep.append(f"{b * h} blocks {ms:.4f} ms")
+        grid = ops.ssd_plan(b, LM_SEQ - 1, h, p, g, n, q).grid
+        sweep.append(f"B={b} ({grid[2]} output blocks) {ms:.4f} ms")
     log(f"  ssd time against batch at (B, 1023, 80, 64, 1, 128, 256): "
         + ", ".join(sweep))
     return dict(name="ssd_scan_fwd", route="cuda",
@@ -587,9 +606,12 @@ def profile_round(dev, label, run) -> None:
             prof.stop()
 
     run(window)
+    # device activity: kernels and copies, not the named ranges that the
+    # profiler also draws on the device's timeline
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
     if not spans:
         log(f"profile ({label}, FedGKD round 2): wall {wall['ms']:.3f} ms; "
             f"device busy time not measured (the profiler saw no device "
@@ -604,8 +626,19 @@ def profile_round(dev, label, run) -> None:
     log(f"profile ({label}, FedGKD round 2): wall {wall['ms']:.3f} ms, device "
         f"busy {busy_us / 1e3:.3f} ms, idle share "
         f"{1 - busy_us / 1e3 / wall['ms']:.4f}, {len(spans)} device ops")
-    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"  {t / 1e3:8.3f} ms {n:5d}x  {name[:90]}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for rank, (name, (t, n)) in enumerate(ranked):
+        # the top 12, and below them every hand-written kernel of the port
+        if rank < 12 or any(k in name for k in PORT_KERNELS):
+            log(f"  {t / 1e3:8.3f} ms {n:5d}x  {name[:90]}")
+    # the device time of the kernels launched inside the port's named ranges
+    ranges = [e for e in prof.events() if e.name in PORT_RANGES
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    for name in PORT_RANGES:
+        hits = [e for e in ranges if e.name == name]
+        if hits:
+            log(f"  {sum(e.device_time_total for e in hits) / 1e3:8.3f} ms "
+                f"{len(hits):5d}x  range {name} (all kernels inside it)")
 
 
 def resnet_setup():
@@ -848,8 +881,12 @@ def main() -> int:
     build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s -> {build.BUILD_LOG['path']}")
     for line in build.BUILD_LOG["ptxas"].splitlines():
-        if "Used" in line or line.startswith("=="):
+        if line.startswith("=="):
             log("  " + line.strip())
+        elif "Compiling entry" in line:           # the kernel's mangled name
+            log("    " + line.split("'")[1])
+        elif "Used" in line or "spill" in line:
+            log("      " + line.split(":", 1)[-1].strip())
 
     resnet = resnet_setup()
     text = text_setup()

@@ -23,10 +23,12 @@ struct Split {
   uint32_t hi, lo;
 };
 
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite value (to nearest,
+// ties away from zero), by an integer add and a mask: on sm_90 the cvt
+// compiles to a compare, a select and the same add and mask, guarding inf
+// and NaN, which the kernels' finite operands do not need
 __device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 __device__ __forceinline__ Split split(float x) {

@@ -48,9 +48,11 @@ SIGNATURES = {
                                + [_I64, _I64, _F32, _P],
     # logits, out; rows, vocab; 1 / temperature; stream
     "row_lse_f32": [_P, _P, _I64, _I64, _F32, _P],
-    # x, dt, A, B, C, y, state; batch, L, H, P, G, N, chunk; the strides of
-    # x (4), dt (3), A (1), B (4) and C (4); stream
-    "ssd_scan_fwd_f32": [_P] * 7 + [_I64] * 7 + [_I64] * 16 + [_P],
+    # x, dt, A, B, C, y, state; the scratch: states, cb, decay; batch, L,
+    # H, P, G, N, chunk; the strides of x (4), dt (3), A (1), B (4) and C
+    # (4); the plan (vec_x, vec_bc, chunk_smem, out_smem); stream
+    "ssd_scan_fwd_f32": [_P] * 10 + [_I64] * 7 + [_I64] * 16 + [_I32] * 4
+                        + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

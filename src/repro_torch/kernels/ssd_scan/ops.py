@@ -1,4 +1,4 @@
-"""Mamba-2 SSD scan: the CUDA forward kernel with an autograd rule.
+"""Mamba-2 SSD scan: the CUDA forward kernels with an autograd rule.
 
 ``ssd_scan(x, dt, A, B, C, *, chunk)`` has the contract of the reference's
 ``repro.kernels.ssd_scan.ops.ssd_scan`` and of ``ref.ssd_chunked``: x
@@ -6,12 +6,18 @@
 (B, L, G, N) with G dividing H; it returns (y (B, L, H, P), final state
 (B, H, P, N)), fp32.
 
-Forward: on a CUDA tensor ``ssd_scan_fwd`` launches the kernel of
+Forward: on a CUDA tensor ``ssd_scan_fwd`` launches the kernels of
 ``csrc/ssd_scan.cu`` (built at first use; a failed launch raises) and
-counts the launch; on a CPU tensor it takes ``ref.ssd_scan_ref``.  Nothing
-falls back from one to the other.  The kernel reads the inputs through
-their strides (no repeat of B/C per head, no transposes, no padded copy of
-a ragged length).
+counts one launch per call; on a CPU tensor it takes ``ref.ssd_scan_ref``.
+Nothing falls back from one to the other.  The kernels split the scan as
+the SSD algorithm does: the chunk states and C·Bᵀ (once per B/C group) in
+parallel over chunks, a pass over the chunks for the state entering each,
+then every chunk's output in parallel.  They read the inputs through their
+strides (no repeat of B/C per head, no transposes, no padded copy of a
+ragged length).  Their plan (``ssd_plan``: scratch shapes, grids, shared
+memory, whether rows are staged with 16-byte copies) is made here, where
+the CPU tests reach it, and the C entry point recounts it and refuses a
+plan that disagrees.
 
 Backward: ``ref.ssd_chunked`` recomputed under autograd, and its
 vector-Jacobian product for (x, dt, A, B, C), on either device: the
@@ -19,6 +25,8 @@ reference's own VJP (``jax.vjp`` of ``ssd_chunked``).  A backward kernel
 is later work.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -28,6 +36,92 @@ from repro_torch.kernels.ssd_scan import ref
 MAX_HEAD_DIM = 128      # P (csrc kMaxP)
 MAX_STATE = 256         # N (csrc kMaxN)
 MAX_CHUNK = 256         # Q (csrc kMaxChunk)
+TILE = 64               # rows of an output or C·Bᵀ tile (csrc kTile)
+STATE_TILE = 64         # p and n of a chunk-state block (csrc kTileS)
+PASS_ELEMS = 1024       # state elements of a state-pass block (csrc
+                        # kPassThreads x kPassPer)
+MAX_SMEM = 232_448      # the shared memory one block may take on sm_90
+_SCAN_BYTES = MAX_CHUNK * (8 + 4)      # fp64 prefix sums and dt of a chunk
+
+
+@dataclasses.dataclass(frozen=True)
+class SSDPlan:
+    """How ``csrc/ssd_scan.cu`` runs one call.  ``chunks`` = ceil(L / Q)
+    chunks of ``row_tiles`` 64-row tiles each; the head dim is padded to 32
+    x ``pc``.  Scratch: ``states_shape`` (the chunk states, then the state
+    entering each chunk), ``cb_shape`` (C·Bᵀ per group as ``row_tiles``
+    (``row_tiles`` + 1) / 2 tiles of 64 x 64) and ``decay_shape`` (each
+    chunk's total decay).  ``grid``: the blocks of the chunk kernel (chunk
+    states, then C·Bᵀ tiles), of the state pass and of the output kernel;
+    ``chunk_smem`` and ``out_smem`` are the tiled kernels' shared bytes."""
+    chunks: int
+    row_tiles: int
+    pc: int
+    vec_x: bool
+    vec_bc: bool
+    chunk_smem: int
+    out_smem: int
+    states_shape: tuple[int, int, int, int, int]
+    cb_shape: tuple[int, int, int, int, int]
+    decay_shape: tuple[int, int, int]
+    grid: tuple[int, int, int]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def chunk_smem_bytes() -> int:
+    """The chunk kernel's shared bytes (csrc chunk_smem_bytes): two stages
+    of x and B rows [32][72] for a chunk state, or of C and B [64][36] for
+    C·Bᵀ (the same 9,216 floats)."""
+    return _SCAN_BYTES + 4 * max(2 * 2 * 32 * (STATE_TILE + 8),
+                                 2 * 2 * TILE * 36)
+
+
+def out_smem_bytes(pc: int) -> int:
+    """The output kernel's shared bytes at head dim 32 x ``pc`` (csrc
+    out_smem_bytes): two stages of C [64][36] and S_in [32 pc][36], or, in
+    the same space, of x [64][32 pc + 4]."""
+    return _SCAN_BYTES + 4 * max(2 * (TILE + 32 * pc) * 36,
+                                 2 * TILE * (32 * pc + 4))
+
+
+def copy16(ptr: int, strides: tuple[int, ...], width: int) -> bool:
+    """Whether rows of ``width`` floats of an operand at address ``ptr``
+    with element ``strides`` (last: along the row) may be staged with
+    16-byte copies: unit element stride, the width and every other stride
+    a multiple of 4 floats, and the base 16-byte aligned.  The path's x, B
+    and C, slices of one (B, L, H·P + 2·G·N) tensor at offsets 0, H·P and
+    H·P + G·N, pass where those are multiples of 4."""
+    *outer, elem = strides
+    return (elem == 1 and width % 4 == 0 and all(s % 4 == 0 for s in outer)
+            and ptr % 16 == 0)
+
+
+def ssd_plan(b: int, l: int, h: int, p: int, g: int, n: int, chunk: int,
+             vec_x: bool = False, vec_bc: bool = False) -> SSDPlan:
+    """The kernels' plan for x (b, l, h, p) and B/C (b, l, g, n) at
+    ``chunk``; raises where the kernels do not reach."""
+    if not (1 <= p <= MAX_HEAD_DIM and 1 <= n <= MAX_STATE
+            and 1 <= chunk <= MAX_CHUNK):
+        raise ValueError(f"ssd_scan kernel takes P <= {MAX_HEAD_DIM}, N <= "
+                         f"{MAX_STATE}, 1 <= chunk <= {MAX_CHUNK}; got P={p}, "
+                         f"N={n}, chunk={chunk}")
+    if g < 1 or h % g != 0:
+        raise ValueError(f"ssd_scan: {g} groups do not divide {h} heads")
+    nc, nt, pc = _cdiv(l, chunk), _cdiv(chunk, TILE), _cdiv(p, 32)
+    tri = nt * (nt + 1) // 2
+    state_blocks = (b * nc * h * _cdiv(p, STATE_TILE)
+                    * _cdiv(n, STATE_TILE))
+    grid = (state_blocks + b * nc * g * tri,
+            b * h * _cdiv(p * n, PASS_ELEMS), b * nc * nt * h)
+    if max(grid) >= 2 ** 31:
+        raise ValueError(f"ssd_scan kernel: grid {grid} too large for "
+                         f"(B, L, H) = ({b}, {l}, {h})")
+    return SSDPlan(nc, nt, pc, vec_x, vec_bc, chunk_smem_bytes(),
+                   out_smem_bytes(pc), (b, nc, h, p, n),
+                   (b, nc, g, tri, TILE * TILE), (b, nc, h), grid)
 
 
 def _validate(x, dt, A, B, C) -> None:
@@ -43,11 +137,15 @@ def _validate(x, dt, A, B, C) -> None:
             f"{[tuple(t.shape) for t in (x, dt, A, B, C)]}")
 
 
-def ssd_scan_fwd(x, dt, A, B, C, chunk: int):
-    """The forward: kernel on CUDA tensors, plain version on CPU tensors."""
+def ssd_scan_launch(x, dt, A, B, C, chunk: int):
+    """Launch the kernels on CUDA tensors: (y, final state, and the scratch
+    that holds, after the call, the state entering each chunk (B, nc, H, P,
+    N)).  Raises on a CPU tensor, a type or range the kernels do not take,
+    or a failed launch."""
     _validate(x, dt, A, B, C)
     if not x.is_cuda:
-        return ref.ssd_scan_ref(x, dt, A, B, C, chunk)
+        raise ValueError("ssd_scan_launch runs the CUDA kernels: the inputs "
+                         "are on the CPU")
     if any(t.device != x.device for t in (dt, A, B, C)):
         raise ValueError(f"ssd_scan inputs on several devices, x on {x.device}")
     if any(t.dtype != torch.float32 for t in (x, dt, A, B, C)):
@@ -55,21 +153,34 @@ def ssd_scan_fwd(x, dt, A, B, C, chunk: int):
                         f"{[t.dtype for t in (x, dt, A, B, C)]}")
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    if p > MAX_HEAD_DIM or n > MAX_STATE or not 1 <= chunk <= MAX_CHUNK:
-        raise ValueError(f"ssd_scan kernel takes P <= {MAX_HEAD_DIM}, N <= "
-                         f"{MAX_STATE}, 1 <= chunk <= {MAX_CHUNK}; got P={p}, "
-                         f"N={n}, chunk={chunk}")
-    if b * h >= 2 ** 31:
-        raise ValueError(f"grid too large for x {tuple(x.shape)}")
-    y = torch.empty((b, l, h, p), device=x.device, dtype=torch.float32)
-    state = torch.empty((b, h, p, n), device=x.device, dtype=torch.float32)
+    plan = ssd_plan(b, l, h, p, g, n, chunk,
+                    vec_x=copy16(x.data_ptr(), x.stride(), p),
+                    vec_bc=(copy16(B.data_ptr(), B.stride(), n)
+                            and copy16(C.data_ptr(), C.stride(), n)))
+    f32 = dict(device=x.device, dtype=torch.float32)
+    y = torch.empty((b, l, h, p), **f32)
+    state = torch.empty((b, h, p, n), **f32)
+    states = torch.empty(plan.states_shape, **f32)
+    cb = torch.empty(plan.cb_shape, **f32)
+    decay = torch.empty(plan.decay_shape, **f32)
     rc = build.library().ssd_scan_fwd_f32(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-        y.data_ptr(), state.data_ptr(), b, l, h, p, g, n, chunk,
+        y.data_ptr(), state.data_ptr(), states.data_ptr(), cb.data_ptr(),
+        decay.data_ptr(), b, l, h, p, g, n, chunk,
         *x.stride(), *dt.stride(), A.stride(0), *B.stride(), *C.stride(),
+        int(plan.vec_x), int(plan.vec_bc), plan.chunk_smem, plan.out_smem,
         build.stream_of(x))
     build.check(rc, "ssd_scan_fwd")
     LAUNCHES["ssd_scan_fwd"] += 1
+    return y, state, states
+
+
+def ssd_scan_fwd(x, dt, A, B, C, chunk: int):
+    """The forward: kernels on CUDA tensors, plain version on CPU tensors."""
+    _validate(x, dt, A, B, C)
+    if not x.is_cuda:
+        return ref.ssd_scan_ref(x, dt, A, B, C, chunk)
+    y, state, _ = ssd_scan_launch(x, dt, A, B, C, chunk)
     return y, state
 
 
@@ -86,7 +197,9 @@ class _SSDScan(torch.autograd.Function):
         saved = ctx.saved_tensors          # unpacked once (checkpointing)
         inputs = [t.detach().to(torch.float32).requires_grad_(True)
                   for t in saved]
-        with torch.enable_grad():
+        # named for the profiler: its device time is the backward's cost
+        with torch.enable_grad(), torch.profiler.record_function(
+                "ssd_scan_backward"):
             y, state = ref.ssd_chunked(*inputs, chunk=ctx.chunk)
             grads = torch.autograd.grad((y, state), inputs, (gy, gstate))
         return (*(g.to(t.dtype) for g, t in zip(grads, saved)), None)
@@ -94,5 +207,5 @@ class _SSDScan(torch.autograd.Function):
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int):
-    """SSD scan, one kernel launch forward: (y, final state), fp32."""
+    """SSD scan, one counted launch forward: (y, final state), fp32."""
     return _SSDScan.apply(x, dt, A, B, C, int(chunk))

@@ -36,6 +36,21 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (b, h, p, n)).  A ragged length is zero-padded: dt = 0 rows are identity
     steps, so the final state is the unpadded sequence's.
     """
+    y, final, _ = _chunked(x, dt, A, B, C, chunk, init_state)
+    return y, final
+
+
+def entering_states(x, dt, A, B, C, chunk: int):
+    """(The state entering each chunk (b, ceil(l / chunk), h, p, n), the
+    final state), as ``ssd_chunked`` computes them: the yardstick of the
+    kernels' chunk-state scratch, which holds the former after a call."""
+    _, final, entering = _chunked(x, dt, A, B, C, chunk, None)
+    return entering, final
+
+
+def _chunked(x, dt, A, B, C, chunk, init_state):
+    """``ssd_chunked``'s body: (y, final state, the state entering each
+    chunk)."""
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     pad = (-l) % chunk
@@ -44,8 +59,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         dt = F.pad(dt, (0, 0, 0, pad))
         B = F.pad(B, (0, 0, 0, 0, 0, pad))
         C = F.pad(C, (0, 0, 0, 0, 0, pad))
-        y, final = ssd_chunked(x, dt, A, B, C, chunk, init_state)
-        return y[:, :l], final
+        y, final, entering = _chunked(x, dt, A, B, C, chunk, init_state)
+        return y[:, :l], final, entering
     nc = l // chunk
     rep = h // g
 
@@ -86,7 +101,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     state_decay = torch.exp(dA_cum)                           # (b, nc, c, h)
     y_off = (torch.einsum("bzchn,bzhpn->bzchp", Cc, prev_states)
              * state_decay[..., None])
-    return (y_diag + y_off).reshape(b, l, h, p), carry
+    return (y_diag + y_off).reshape(b, l, h, p), carry, prev_states
 
 
 def ssd_reference(x, dt, A, B, C) -> torch.Tensor:

@@ -213,9 +213,15 @@ def _ssd_close(got, want, exact):
 
 
 # (B, L, H, P, G, N, chunk): the LM path's step, the smoke config's layer,
-# two groups at a ragged length, one token
+# two groups at a ragged length, one token, one sequence at train_4k's
+# published length (16 chunks through the state pass), one chunk at full
+# width, a chunk that is not a multiple of 16, P and N that are not
+# multiples of 4 (4-byte copies), and the largest P and N at three groups
 SSD = [(4, 1023, 80, 64, 1, 128, 256), (2, 39, 16, 16, 1, 16, 16),
-       (1, 300, 8, 64, 2, 64, 128), (2, 1, 8, 64, 1, 128, 1)]
+       (1, 300, 8, 64, 2, 64, 128), (2, 1, 8, 64, 1, 128, 1),
+       (1, 4096, 80, 64, 1, 128, 256), (1, 256, 80, 64, 1, 128, 256),
+       (2, 200, 8, 64, 1, 128, 48), (1, 70, 4, 10, 1, 10, 32),
+       (1, 130, 6, 128, 3, 256, 256)]
 
 
 @pytest.mark.parametrize("case", SSD, ids=str)
@@ -230,6 +236,38 @@ def test_ssd_scan_kernel_matches_plain(cuda, case):
     exact = ssd_ref.ssd_chunked(*(t.double() for t in args), chunk=chunk)
     for got, w, e in zip((y, state), want, exact):
         _ssd_close(got, w, e)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "path slices", "offset"])
+def test_ssd_scan_scratch_holds_entering_states(cuda, layout):
+    """After a call the chunk-state scratch holds the state entering each
+    chunk: stage 1's per-chunk states carried through stage 2's pass,
+    against the plain form (``ref.entering_states``, the function
+    ``ssd_chunked`` itself calls).  The inputs are contiguous, strided
+    slices of one (B, L, H·P + 2·G·N) tensor as ``mamba2_forward`` passes
+    them (16-byte copies), or those slices one float off alignment (4-byte
+    copies)."""
+    b, l, h, p, g, n, chunk = 2, 300, 8, 64, 2, 64, 64
+    args = list(_ssd_inputs(cuda, (b, l, h, p, g, n, chunk), seed=21))
+    if layout != "contiguous":
+        shift = int(layout == "offset")
+        xbc = torch.empty(b, l, shift + h * p + 2 * g * n, device=cuda)
+        xbc = xbc[..., shift:]
+        xbc[...] = torch.cat([args[0].reshape(b, l, -1),
+                              args[3].reshape(b, l, -1),
+                              args[4].reshape(b, l, -1)], dim=-1)
+        args[0] = xbc[..., :h * p].reshape(b, l, h, p)
+        args[3] = xbc[..., h * p:h * p + g * n].reshape(b, l, g, n)
+        args[4] = xbc[..., h * p + g * n:].reshape(b, l, g, n)
+    vec = ssd_ops.copy16(args[0].data_ptr(), args[0].stride(), p)
+    assert vec == (layout != "offset")
+    y, state, entering = ssd_ops.ssd_scan_launch(*args, chunk)
+    torch.cuda.synchronize()
+    want_entering, want_state = ssd_ref.entering_states(*args, chunk)
+    assert entering.shape == want_entering.shape == (b, 5, h, p, n)
+    _close(entering, want_entering)
+    _close(state, want_state)
+    _close(y, ssd_ref.ssd_scan_ref(*args, chunk)[0])
 
 
 def test_ssd_scan_autograd_on_card(cuda):

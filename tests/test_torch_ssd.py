@@ -122,3 +122,109 @@ def test_ssd_scan_rejects_bad_shapes():
     with pytest.raises(ValueError):                # 3 groups do not divide 4 heads
         ops.ssd_scan(x, dt, A, B.expand(1, 8, 3, 8), C.expand(1, 8, 3, 8),
                      chunk=8)
+
+
+# (B, L, H, P, G, N, chunk) -> (chunks, row tiles, pc, grid): the LM
+# path's step, train_4k's length, one chunk of one token, a chunk of 48,
+# the largest P and N at three groups, and the smoke config's layer
+PLANS = [((4, 1023, 80, 64, 1, 128, 256), (4, 4, 2, (2720, 2560, 5120))),
+         ((1, 4096, 80, 64, 1, 128, 256), (16, 4, 2, (2720, 640, 5120))),
+         ((2, 1, 8, 64, 1, 128, 1), (1, 1, 2, (34, 128, 16))),
+         ((2, 200, 8, 64, 1, 128, 48), (5, 1, 2, (170, 128, 80))),
+         ((1, 130, 6, 128, 3, 256, 256), (1, 4, 4, (78, 192, 24))),
+         ((2, 39, 16, 16, 1, 16, 16), (3, 1, 1, (102, 32, 96)))]
+
+
+@pytest.mark.parametrize("shape,want", PLANS, ids=str)
+def test_ssd_plan_grids_and_scratch(shape, want):
+    """The plan's grids cover every (batch, chunk, head) once per 64 x 64
+    tile of (P, N) or of the chunk's rows, C·Bᵀ once per group and tile on
+    or below the diagonal, and the state pass every state element once."""
+    b, l, h, p, g, n, chunk = shape
+    plan = ops.ssd_plan(*shape)
+    assert (plan.chunks, plan.row_tiles, plan.pc, plan.grid) == want
+    nc, nt = plan.chunks, plan.row_tiles
+    assert nc * chunk >= l > (nc - 1) * chunk and nt * 64 >= chunk
+    tri = nt * (nt + 1) // 2
+    assert plan.states_shape == (b, nc, h, p, n)
+    assert plan.cb_shape == (b, nc, g, tri, 64 * 64)
+    assert plan.decay_shape == (b, nc, h)
+    assert plan.grid[1] * 1024 >= b * h * p * n
+    assert 32 * plan.pc >= p > 32 * (plan.pc - 1)
+
+
+def test_ssd_plan_shared_memory():
+    """Both tiled kernels fit a block's shared memory at every head dim,
+    and the counts are the kernels' own (csrc chunk_smem_bytes,
+    out_smem_bytes): the fp64 prefix sums and dt of a chunk, then two
+    stages of tiles."""
+    scan = 256 * (8 + 4)
+    assert ops.chunk_smem_bytes() == scan + 4 * 2 * 2 * 32 * 72 == 39_936
+    assert [ops.out_smem_bytes(pc) for pc in (1, 2, 3, 4)] == [
+        scan + 4 * 2 * (64 + 32) * 36, scan + 4 * 2 * (64 + 64) * 36,
+        scan + 4 * 2 * 64 * 100, scan + 4 * 2 * 64 * 132]
+    for p in (1, 32, 33, 64, 96, 128):
+        plan = ops.ssd_plan(1, 256, 4, p, 1, 256, 256)
+        assert max(plan.chunk_smem, plan.out_smem) <= ops.MAX_SMEM
+        assert plan.out_smem == ops.out_smem_bytes(-(-p // 32))
+
+
+def test_copy16_decision_from_strides_and_pointer():
+    """16-byte copies at the path's layout (x, B and C sliced from one
+    (B, L, H·P + 2·G·N) tensor: row stride 5,376 floats, offsets 0, 5,120
+    and 5,248), 4-byte copies where a width, a stride or the base is off
+    a multiple of 4 floats or the element stride is not 1."""
+    b, l, h, p, g, n = 4, 1023, 80, 64, 1, 128
+    xbc = torch.empty(b, l, h * p + 2 * g * n)
+    base = 4096 * 16                       # a 16-byte aligned address
+    x = xbc[..., :h * p].reshape(b, l, h, p)
+    bm = xbc[..., h * p:h * p + g * n].reshape(b, l, g, n)
+    cm = xbc[..., h * p + g * n:].reshape(b, l, g, n)
+    assert x.stride() == (l * 5376, 5376, 64, 1)
+    for t, off, width in ((x, 0, p), (bm, 5120, n), (cm, 5248, n)):
+        assert t.storage_offset() == off
+        assert ops.copy16(base + 4 * off, t.stride(), width)
+    assert not ops.copy16(base + 4, x.stride(), p)          # misaligned base
+    assert not ops.copy16(base, x.stride(), 10)             # width 10
+    assert not ops.copy16(base, (l * 5378, 5378, 64, 1), p)  # row stride
+    assert not ops.copy16(base, (l * 5376, 5376, 64, 2), p)  # element stride
+    assert ops.copy16(base, (4, 4, 4, 1), 4)
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 4, 129, 1, 8, 8),
+                                   (1, 8, 4, 8, 1, 257, 8),
+                                   (1, 8, 4, 8, 1, 8, 0),
+                                   (1, 8, 4, 8, 1, 8, 257),
+                                   (1, 8, 4, 8, 3, 8, 8)], ids=str)
+def test_ssd_plan_rejects_out_of_range(shape):
+    with pytest.raises(ValueError):
+        ops.ssd_plan(*shape)
+
+
+def test_ssd_scan_launch_refuses_cpu_tensors():
+    """The kernels' launcher never takes a CPU tensor (``ssd_scan_fwd``
+    sends those to the plain version), and counts nothing."""
+    args = [torch.from_numpy(a) for a in _inputs((1, 8, 4, 8, 1, 8, 8), 1)]
+    reset_launches()
+    with pytest.raises(ValueError, match="CPU"):
+        ops.ssd_scan_launch(*args, 8)
+    assert LAUNCHES["ssd_scan_fwd"] == 0
+
+
+def test_entering_states_is_the_chunked_forms_recurrence():
+    """``ref.entering_states`` (the yardstick of the kernels' scratch) is
+    the recurrence ``ssd_chunked`` runs: its final state is the chunked
+    form's, chunk 0 enters from 0 and each next state is the last one
+    decayed plus the chunk's own, here checked against the O(L) recurrence
+    at the chunk boundaries in float64."""
+    shape = (2, 50, 4, 8, 2, 8, 16)
+    args = [torch.from_numpy(a).double() for a in _inputs(shape, seed=4)]
+    entering, final = ref.entering_states(*args, chunk=16)
+    assert entering.shape == (2, 4, 4, 8, 8)
+    _, want_final = ref.ssd_chunked(*args, chunk=16)
+    assert float((final - want_final).abs().max()) < 1e-12
+    assert float(entering[:, 0].abs().max()) == 0.0
+    for z in (1, 2, 3):
+        cut = [t if t.ndim == 1 else t[:, :16 * z] for t in args]  # A: (H,)
+        _, s = ref.ssd_chunked(*cut, chunk=16)
+        assert float((entering[:, z] - s).abs().max()) < 1e-12

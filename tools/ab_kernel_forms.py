@@ -1,26 +1,32 @@
 #!/usr/bin/env python3
-"""Hold two forms of the client-batched conv (and of flash attention) against
-the plain version and time them in one process on one CUDA card, in turns
-(old, new, new, old).
+"""Hold two forms of the client-batched conv, flash attention or the SSD scan
+against the plain version and time them in one process on one CUDA card, in
+turns (old, new, new, old).
 
     python3 tools/ab_kernel_forms.py --old DIR [--interface first|current]
 
-``DIR`` holds the old form's ``grouped_conv.cu`` and, optionally,
-``flash_attention.cu``.  With ``--interface first`` (the default) they have
-the C entry points of the first forms (the conv without the tile-plan
-arguments); with ``current`` they have the port's own entry points (a
-variant of the current kernel, called with the same tile plan), and
-``tf32_mma.cuh`` is on the include path.  They are built with the port's
-``nvcc`` flags into ``DIR/libold.so`` and bound with ``ctypes``; the new
-forms are the port's own (``repro_torch.kernels.build``).
+``DIR`` holds the old form's ``grouped_conv.cu``, ``flash_attention.cu``
+and/or ``ssd_scan.cu``; each kernel whose source is there is compared.
+With ``--interface first`` (the default) they have the C entry points of
+the first forms (``FIRST_SIGNATURES``: the conv without the tile-plan
+arguments, the SSD scan without the scratch and plan arguments); with
+``current`` they have the port's own entry points (a variant of the
+current kernel, called with the same plan), and ``tf32_mma.cuh`` is on the
+include path.  They are built with the port's ``nvcc`` flags into
+``DIR/libold.so`` and bound with ``ctypes``; the new forms are the port's
+own (``repro_torch.kernels.build``).
 
 Both forms run on the same inputs at the ResNet-8 path's conv shapes
 (K=4, N=64; K=1 at N=256, 1024 and 788), at a 1x1 conv over 2,048 input
-channels (a deep reduction, for the error), and at the text path's
-attention (B=64 and 256).  Each form's largest error against the plain
-version is printed beside its time; the run fails if the new form is
-further than 1e-5 of max|plain| from it.  Times are CUDA-graph replays
-(``chip_smoke.time_ms``).  Imports nothing of JAX.
+channels (a deep reduction, for the error), at the text path's attention
+(B=64 and 256) and at the LM path's SSD scan (B = 4 and 8 of (B, 1023,
+80, 64, 1, 128, 256), inputs strided as ``mamba2_forward`` passes them).
+Each form's largest error against the plain version is printed beside its
+time; the run fails if the new form is further than 1e-5 of max|plain|
+from it (for the SSD scan, where the fp32 plain version is itself further
+than that from float64: no further from float64 than the plain version).
+Times are CUDA-graph replays (``chip_smoke.time_ms``).  Imports nothing of
+JAX.
 """
 from __future__ import annotations
 
@@ -41,7 +47,12 @@ FIRST_SIGNATURES = {
     "grouped_conv_fwd_f32": [_P, _P, _P] + [_I64] * 8 + [_I32] * 5 + [_P],
     "flash_attention_fwd_f32": [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
                                + [_I64, _I64, _F32, _P],
+    "ssd_scan_fwd_f32": [_P] * 7 + [_I64] * 7 + [_I64] * 16 + [_P],
 }
+ENTRY = {"grouped_conv.cu": "grouped_conv_fwd_f32",
+         "flash_attention.cu": "flash_attention_fwd_f32",
+         "ssd_scan.cu": "ssd_scan_fwd_f32"}
+SSD_BATCHES = (4, 8)       # the LM path's step and evaluation
 CONV_GROUPS = {"K=4 step": [(4, 64)], "K=1 eval": [(1, 256)],
                "K=1 teacher": [(1, 1024), (1, 788)]}
 # (name, H, Cin, Cout, k, stride) at K=1, N=2
@@ -51,8 +62,9 @@ DEEP = ("1x1 over 2048", 8, 2048, 96, 1, 1)
 def build_old(src_dir: Path, interface: str):
     from repro_torch.kernels import build
 
-    srcs = [p for p in (src_dir / "grouped_conv.cu",
-                        src_dir / "flash_attention.cu") if p.exists()]
+    srcs = [src_dir / name for name in ENTRY if (src_dir / name).exists()]
+    if not srcs:
+        raise FileNotFoundError(f"none of {list(ENTRY)} in {src_dir}")
     out = src_dir / "libold.so"
     done = subprocess.run([build._nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS,
                            "-I", str(build.CSRC), "-shared", "-o", str(out),
@@ -61,11 +73,9 @@ def build_old(src_dir: Path, interface: str):
         raise RuntimeError(f"nvcc failed on {srcs}:\n{done.stdout}{done.stderr}")
     lib = ctypes.CDLL(str(out))
     sigs = FIRST_SIGNATURES if interface == "first" else build.SIGNATURES
-    names = {"grouped_conv.cu": "grouped_conv_fwd_f32",
-             "flash_attention.cu": "flash_attention_fwd_f32"}
     for src in srcs:
-        fn = getattr(lib, names[src.name])
-        fn.argtypes = sigs[names[src.name]]
+        fn = getattr(lib, ENTRY[src.name])
+        fn.argtypes = sigs[ENTRY[src.name]]
         fn.restype = ctypes.c_int
     return lib, {s.name for s in srcs}
 
@@ -86,11 +96,13 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from chip_smoke import RESNET8_CONVS, time_ms
+    from chip_smoke import LM_SEQ, RESNET8_CONVS, ssd_inputs, time_ms
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.grouped_conv import ops, ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
     old, have = build_old(args.old, args.interface)
     dev = torch.device("cuda", 0)
@@ -112,7 +124,8 @@ def main() -> int:
         a, b, c, d = time_ms(f_old), time_ms(f_new), time_ms(f_new), time_ms(f_old)
         return (a + d) / 2, (b + c) / 2
 
-    groups = dict(CONV_GROUPS, deep=[(1, 2)])
+    groups = (dict(CONV_GROUPS, deep=[(1, 2)]) if "grouped_conv.cu" in have
+              else {})
     for group, calls in groups.items():
         tot_old = tot_new = 0.0
         for k, n in calls:
@@ -150,9 +163,7 @@ def main() -> int:
         print(f"conv group {group}: old {tot_old:.4f} ms new {tot_new:.4f} ms "
               f"({tot_old / tot_new:.2f}x)", flush=True)
 
-    if "flash_attention.cu" not in have:
-        return 0
-    for b in (64, 256):
+    for b in ((64, 256) if "flash_attention.cu" in have else ()):
         q, kt, v = (torch.randn(b, 64, 4, 32, device=dev, generator=gen)
                     for _ in range(3))
         o_old = torch.empty_like(q)
@@ -174,6 +185,50 @@ def main() -> int:
         t_old, t_new = turns(f_old, f_new)
         print(f"flash (B={b}, 64, 4, 4, 32) causal: old {t_old:.5f} ms (err "
               f"{e_old:.2e}) new {t_new:.5f} ms (err {e_new:.2e}) "
+              f"{t_old / t_new:.2f}x", flush=True)
+
+    for b in (SSD_BATCHES if "ssd_scan.cu" in have else ()):
+        shape = (b, LM_SEQ - 1, 80, 64, 1, 128, 256)
+        ins = ssd_inputs(dev, gen, *shape[:6])
+        x, dt, a, bm, cm = ins
+        y_old = torch.empty(b, LM_SEQ - 1, 80, 64, device=dev)
+        s_old = torch.empty(b, 80, 64, 128, device=dev)
+        strides = (*x.stride(), *dt.stride(), a.stride(0), *bm.stride(),
+                   *cm.stride())
+        scratch, plan_args = [], []
+        if args.interface == "current":
+            plan = ssd_ops.ssd_plan(*shape, vec_x=True, vec_bc=True)
+            scratch = [torch.empty(s, device=dev) for s in
+                       (plan.states_shape, plan.cb_shape, plan.decay_shape)]
+            plan_args = [1, 1, plan.chunk_smem, plan.out_smem]
+
+        def f_old():
+            rc = old.ssd_scan_fwd_f32(
+                *(t.data_ptr() for t in (*ins, y_old, s_old, *scratch)),
+                *shape, *strides, *plan_args, build.stream_of(x))
+            build.check(rc, "old ssd_scan_fwd")
+
+        def f_new():
+            return ssd_ops.ssd_scan_fwd(*ins, 256)
+
+        f_old()
+        new = f_new()
+        want = ssd_ref.ssd_scan_ref(*ins, 256)
+        exact = ssd_ref.ssd_chunked(*(t.double() for t in ins), chunk=256)
+        line = f"ssd {shape}:"
+        for name, a_old, a_new, w, e in zip(("y", "state"), (y_old, s_old),
+                                            new, want, exact):
+            e_old, e_new, e_plain = (float((t.double() - e).abs().max())
+                                     for t in (a_old, a_new, w))
+            if not (float((a_new - w).abs().max())
+                    <= 1e-5 * float(w.abs().max()) or e_new <= e_plain):
+                raise AssertionError(f"ssd {shape} {name}: the new form is "
+                                     f"{e_new} from float64, plain {e_plain}")
+            line += (f" {name} vs float64 old {e_old:.2e} new {e_new:.2e} "
+                     f"plain {e_plain:.2e};")
+        del exact
+        t_old, t_new = turns(f_old, f_new)
+        print(f"{line} old {t_old:.4f} ms new {t_new:.4f} ms "
               f"{t_old / t_new:.2f}x", flush=True)
     return 0
 
