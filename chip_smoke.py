@@ -12,10 +12,11 @@ and nothing of JAX or of the JAX package, and
      the build's seconds and the compiler's register report;
   3. holds every kernel against its plain PyTorch version on the card at
      the paths' shapes — KD-KL forward and backward at (256, 10),
-     (256, 100), (256, 200), a ragged (1000, 37), the text path's (64, 4)
-     and (64, 5) and the LM path's (4092, 50280); the client-batched conv
-     at all 9 ResNet-8 layers at K=4, N=64, at K=1, N=256 and at K=1 with
-     the teacher precompute's chunk sizes; flash attention at the text
+     FedDistill+'s (64, 10), (256, 100), (256, 200), a ragged (1000, 37),
+     the text path's (64, 4) and (64, 5) and the LM path's (4092, 50280);
+     the client-batched conv at all 9 ResNet-8 layers at K=4, N=64, at
+     K=1, N=64 (the sequential route's step), at K=1, N=256 and at K=1
+     with the teacher precompute's chunk sizes; flash attention at the text
      path's (B, S, Hq, Hkv, D) = (64, 64, 4, 4, 32) of a local step,
      (256, ...) of an evaluation batch and the teacher precompute's row
      counts, and for coverage at GQA with a window, non-causal ragged
@@ -34,7 +35,8 @@ and nothing of JAX or of the JAX package, and
      grouped ``conv2d``; ``kl_div`` of ``log_softmax``;
      ``scaled_dot_product_attention``; ``torch.logsumexp``) on the device:
      CUDA-graph replays between CUDA events, so the host's enqueue cost is
-     left out.  The conv is totalled per group (K=4 step, K=1 eval, K=1
+     left out; an empty kernel is timed the same way (the launch floor).
+     The conv is totalled per group (K=4 step, K=1 step, K=1 eval, K=1
      teacher) against cuDNN, with the shapes where cuDNN is faster; the
      conv's, flash attention's and the SSD scan's bounds count their
      3xTF32 arithmetic, with the fp32 CUDA-core bound beside them;
@@ -56,16 +58,24 @@ and nothing of JAX or of the JAX package, and
         batches of 4 sequences of 1,024 tokens, 3 rounds (SGD momentum
         0.9, lr 0.1, gamma 0.2, M = 3);
      then one FedAvg round of each;
-  5. profiles one steady-state FedGKD round of each path
-     (``torch.profiler``): host wall time, the device's busy time and idle
-     share, device time by kernel;
-  6. runs each path's first FedGKD round on the card and on the CPU from
-     the same init and holds the card's parameters after that round to
-     1e-4 of the CPU's, where the round must have moved them by at least
-     1e-3 (the text path at Adam lr 1e-3 for this check: at its lr 1e-5 a
-     round moves them by about 5e-5, so no check at 1e-4 could fail; the
-     LM path at full width with 1 layer, 2 clients x 1 batch of one
-     513-token sequence, which the CPU runs in reasonable time).
+     d. the paper's baselines on the ResNet-8 path's setup
+        (``run_federated``, ``executor="auto"``, 2 rounds each): FedProx,
+        FedGKD with the MSE loss, FedGKD-VOTE and FedGKD+ on the
+        client-batched vmap executor, MOON, FedDistill+, SCAFFOLD, FedDyn
+        and FedGen on the sequential one; each must take its route and
+        launch the kernels of its step (B3 for all; B1/B2 for FedGKD+ and
+        FedDistill+);
+  5. profiles one steady-state round of each path (``torch.profiler``;
+     FedGKD, and MOON and FedGen for the baselines): host wall time, the
+     device's busy time and idle share, device time by kernel;
+  6. runs each path's first round on the card and on the CPU from the
+     same init (FedGKD, and each of the nine baselines) and holds the
+     card's parameters after that round to 1e-4 of the CPU's, where the
+     round must have moved them by at least 1e-3 (the text path at Adam
+     lr 1e-3 for this check: at its lr 1e-5 a round moves them by about
+     5e-5, so no check at 1e-4 could fail; the LM path at full width with
+     1 layer, 2 clients x 1 batch of one 513-token sequence, which the CPU
+     runs in reasonable time).
 
 It exits non-zero on any failure.  The last lines of its output are the
 kernels' JSON record, the ``nvidia-smi`` line and
@@ -110,8 +120,10 @@ RESNET8_CONVS = [
     ("block3.conv2", 8, 64, 64, 3, 1),
     ("block3.proj", 16, 32, 64, 1, 2),
 ]
-KD_SHAPES = [(256, 10), (256, 100), (256, 200), (1000, 37), (64, 4), (64, 5),
-             (4092, 50280)]
+# the baselines phase: rounds of each of the nine at full ResNet-8 width
+BASELINE_ROUNDS = 2
+KD_SHAPES = [(256, 10), (64, 10), (256, 100), (256, 200), (1000, 37), (64, 4),
+             (64, 5), (4092, 50280)]
 # the LM path (mamba2-2.7b at full width, 4 layers): batch 4 of 1,024-token
 # sequences, so 1,023 positions a step; evaluation on 8 such sequences
 LM_BATCH, LM_SEQ, LM_EVAL_BATCH = 4, 1024, 8
@@ -220,6 +232,18 @@ def compare(name: str, got, want) -> float:
     return err
 
 
+def launch_floor_ms() -> float:
+    """Device time of one launch of an empty kernel (``csrc/empty.cu``),
+    timed as the kernels are: what any launch costs, work or none."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    lib = build.library()
+    return time_ms(lambda: build.check(lib.empty_launch(
+        torch.cuda.current_stream().cuda_stream), "empty_launch"))
+
+
 def check_kd_kl(dev) -> list[dict]:
     import torch
     import torch.nn.functional as F
@@ -266,13 +290,15 @@ def check_kd_kl(dev) -> list[dict]:
         # written; operations: ~8 per element (2 scalings, 2 exps, 4 arith)
         bwd["bound_ms"], bwd["bound_by"] = bound_ms(12 * n + 12 * rows, 8 * n)
         log(f"  kd_kl ({rows:4d},{vocab:3d}) fwd err {err_f:.2e} "
-            f"kernel {fwd['ms']:.4f} ms plain {fwd['plain_ms']:.4f} ms "
-            f"library {fwd['library_ms']:.4f} ms bound {fwd['bound_ms']:.5f} "
-            f"ms | bwd err {err_b:.2e} kernel {bwd['ms']:.4f} ms plain "
-            f"{bwd['plain_ms']:.4f} ms bound {bwd['bound_ms']:.5f} ms")
+            f"kernel {fwd['ms']:.5f} ms plain {fwd['plain_ms']:.5f} ms "
+            f"library {fwd['library_ms']:.5f} ms bound {fwd['bound_ms']:.3g} "
+            f"ms | bwd err {err_b:.2e} kernel {bwd['ms']:.5f} ms plain "
+            f"{bwd['plain_ms']:.5f} ms bound {bwd['bound_ms']:.3g} ms")
         if (rows, vocab) == (256, 10):          # the CIFAR-10 main path
             rec["kd_kl_fwd"].update(fwd)
             rec["kd_kl_bwd"].update(bwd)
+            log(f"  launch floor: an empty kernel {launch_floor_ms():.5f} ms "
+                f"(CUDA-graph replays, as the kernels above)")
     return [
         dict(name="kd_kl_fwd", route="cuda", source="src/repro_torch/csrc/kd_kl.cu",
              replaces="src/repro/kernels/kd_kl/kernel.py:33", **rec["kd_kl_fwd"]),
@@ -282,9 +308,10 @@ def check_kd_kl(dev) -> list[dict]:
 
 
 def check_conv(dev, teacher_ns: list[int]) -> dict:
-    """The conv at every ResNet-8 layer in three groups: K=4, N=64 (a local
-    step), K=1, N=256 (an evaluation batch) and K=1 at ``teacher_ns`` (the
-    teacher precompute's chunks).  Per group it prints the kernel's,
+    """The conv at every ResNet-8 layer in four groups: K=4, N=64 (a local
+    step of the client-batched route), K=1, N=64 (a local step of the
+    sequential route), K=1, N=256 (an evaluation batch) and K=1 at
+    ``teacher_ns`` (the teacher precompute's chunks).  Per group it prints the kernel's,
     cuDNN's and the bound's total ms and the shapes where cuDNN is faster;
     the record's times are the local step's, with the groups beside them."""
     import torch
@@ -293,7 +320,8 @@ def check_conv(dev, teacher_ns: list[int]) -> dict:
     from repro_torch.kernels.grouped_conv import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    groups = {"K=4 step": [(4, 64)], "K=1 eval": [(1, 256)],
+    groups = {"K=4 step": [(4, 64)], "K=1 step": [(1, 64)],
+              "K=1 eval": [(1, 256)],
               "K=1 teacher": [(1, n) for n in teacher_ns]}
     rec = dict(max_abs_err=0.0, groups={})
     for group, calls in groups.items():
@@ -351,7 +379,8 @@ def check_conv(dev, teacher_ns: list[int]) -> dict:
             f"{len(tot['slower'])} of {len(calls) * len(RESNET8_CONVS)} "
             f"shapes {tot['slower']}")
         rec["groups"][group] = dict(
-            ms=tot["ms"], library_ms=tot["library_ms"], **bound,
+            ms=tot["ms"], plain_ms=tot["plain_ms"],
+            library_ms=tot["library_ms"], **bound,
             slower_than_library=len(tot["slower"]))
         if group == "K=4 step":                # one local step's forward
             rec.update(ms=tot["ms"], plain_ms=tot["plain_ms"],
@@ -583,8 +612,8 @@ def all_finite(tree) -> bool:
     return all(bool(torch.isfinite(t).all()) for t in tree_leaves(tree))
 
 
-def profile_round(dev, label, run) -> None:
-    """Where a steady-state FedGKD round's time goes: round 2 of a 2-round
+def profile_round(dev, label, run, algo: str = "FedGKD") -> None:
+    """Where a steady-state round of ``algo`` goes: round 2 of a 2-round
     run under ``torch.profiler``, its host wall time, the device's busy
     time (the union of its kernels' and copies' intervals), and the device
     time by kernel name.  ``run(round_callback)`` drives the 2 rounds and
@@ -613,7 +642,7 @@ def profile_round(dev, label, run) -> None:
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False))
     if not spans:
-        log(f"profile ({label}, FedGKD round 2): wall {wall['ms']:.3f} ms; "
+        log(f"profile ({label}, {algo} round 2): wall {wall['ms']:.3f} ms; "
             f"device busy time not measured (the profiler saw no device "
             f"activity)")
         return
@@ -623,7 +652,7 @@ def profile_round(dev, label, run) -> None:
         end = max(end, hi)
         t, n = by_name.get(name, (0.0, 0))
         by_name[name] = (t + hi - lo, n + 1)
-    log(f"profile ({label}, FedGKD round 2): wall {wall['ms']:.3f} ms, device "
+    log(f"profile ({label}, {algo} round 2): wall {wall['ms']:.3f} ms, device "
         f"busy {busy_us / 1e3:.3f} ms, idle share "
         f"{1 - busy_us / 1e3 / wall['ms']:.4f}, {len(spans)} device ops")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
@@ -685,7 +714,7 @@ def teacher_chunks(task, data, kw, stacked: bool) -> list[int]:
 
 
 def first_round_check(dev, label, lr, params_after) -> None:
-    """Round 1 of FedGKD on the card and on the CPU from the same init: the
+    """Round 1 on the card and on the CPU from the same init: the
     parameters must agree to ``ROUND_TOL`` while the round moved them by at
     least ``MIN_MOVE`` times that, so a card that trained wrongly, or not
     at all, fails.  ``params_after(device, rounds)`` runs that many rounds
@@ -717,10 +746,8 @@ def run_path(dev, label, task, data, kw, kernels: list[str],
     launched), one FedAvg round, a profiled round, and round 1 on the card
     against the CPU's (at ``check_lr`` where given).  Returns the launch
     counts."""
-    from repro_torch.bridge import params_to_numpy
     from repro_torch.core import algorithms, fl_loop
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.tree import tree_leaves
 
     def fedgkd():
         return algorithms.make("fedgkd", gamma=task.gamma,
@@ -754,14 +781,101 @@ def run_path(dev, label, task, data, kw, kernels: list[str],
         task, fedgkd(), data, device=dev, rounds=2, round_callback=cb, **kw))
     check_task = (task if check_lr is None
                   else dataclasses.replace(task, lr=check_lr))
+    federated_round_check(dev, label, check_task, data, kw, fedgkd)
+    return launches
+
+
+def federated_round_check(dev, label, task, data, kw, make_algo) -> None:
+    """``first_round_check`` of ``run_federated`` with the algorithm that
+    ``make_algo()`` builds (a fresh one for each run)."""
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.core import fl_loop
+    from repro_torch.tree import tree_leaves
 
     def params_after(device, rounds):
-        hist = fl_loop.run_federated(check_task, fedgkd(), data,
-                                     device=device, rounds=rounds, **kw)
+        hist = fl_loop.run_federated(task, make_algo(), data, device=device,
+                                     rounds=rounds, **kw)
         return tree_leaves(params_to_numpy(hist.final_params))
 
-    first_round_check(dev, label, check_task.lr, params_after)
-    return launches
+    first_round_check(dev, label, task.lr, params_after)
+
+
+def baseline_specs(task, kw) -> list[tuple]:
+    """The paper's baselines on the ResNet-8 path: (label, algorithm, its
+    arguments beyond the reference's defaults, the executor ``"auto"`` must
+    pick, the kernels that must launch).  The KD methods take the task's γ
+    and M; SCAFFOLD the task's lr and the run's steps per client."""
+    kd = dict(gamma=task.gamma, buffer_m=task.buffer_m)
+    conv = ["grouped_conv_fwd"]
+    kl = conv + ["kd_kl_fwd", "kd_kl_bwd"]
+    scaffold = dict(lr=task.lr, local_steps_hint=kw["max_batches_per_client"])
+    return [("fedprox", "fedprox", {}, "vmap", conv),
+            ("fedgkd (mse)", "fedgkd", dict(kd, loss_type="mse"), "vmap",
+             conv),
+            ("fedgkd-vote", "fedgkd-vote", kd, "vmap", conv),
+            ("fedgkd+", "fedgkd+", kd, "vmap", kl),
+            ("moon", "moon", {}, "sequential", conv),
+            ("feddistill+", "feddistill+", {}, "sequential", kl),
+            ("scaffold", "scaffold", scaffold, "sequential", conv),
+            ("feddyn", "feddyn", {}, "sequential", conv),
+            ("fedgen", "fedgen", {}, "sequential", conv)]
+
+
+def run_baselines(dev) -> dict:
+    """The nine baselines at full ResNet-8 width (``resnet_setup``), each
+    for ``BASELINE_ROUNDS`` rounds with ``executor="auto"`` and the launch
+    counts set to 0 just before and read just after: the route must be
+    the expected one, losses and params finite, and the kernels of its
+    step launched; then round 1 on the card against the CPU's.  Last, a
+    profiled steady-state round of MOON and of FedGen.  Returns the launch counts summed
+    over the nine runs."""
+    from repro_torch.core import algorithms, fl_loop
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    t_phase = time.perf_counter()
+    task, data, kw = resnet_setup()
+    total = dict.fromkeys(LAUNCHES, 0)
+    for label, name, args, route, kernels in baseline_specs(task, kw):
+        def make_algo(name=name, args=args):
+            return algorithms.make(name, **args)
+
+        reset_launches()
+        t0 = time.perf_counter()
+        hist = fl_loop.run_federated(task, make_algo(), data, device=dev,
+                                     rounds=BASELINE_ROUNDS, **kw)
+        launches = dict(LAUNCHES)
+        log(f"baseline {label}: route {hist.telemetry['route']}, "
+            f"{time.perf_counter() - t0:.2f} s, launches {launches}")
+        for r in hist.records:
+            log(f"  round {r.round}: {r.seconds:.3f} s test_acc "
+                f"{r.test_acc:.4f} test_loss {r.test_loss:.4f} local_loss "
+                f"{r.mean_local_loss:.4f}")
+        if hist.telemetry["route"] != route:
+            raise AssertionError(f"baseline {label}: executor "
+                                 f"{hist.telemetry['route']}, expected {route}")
+        losses = [v for r in hist.records
+                  for v in (r.test_loss, r.mean_local_loss)]
+        if not (all(map(math.isfinite, losses))
+                and all_finite(hist.final_params)):
+            raise AssertionError(f"baseline {label}: non-finite loss or "
+                                 f"params {losses}")
+        missing = [k for k in kernels if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by baseline {label}: "
+                                 f"{missing}")
+        for k, n in launches.items():
+            total[k] += n
+        federated_round_check(dev, f"ResNet-8 {label}", task, data, kw,
+                              make_algo)
+    # MOON: the sequential route's costliest step; FedGen: its default
+    # noise reads the label sum and distribution back on every step
+    for name, algo in (("moon", "MOON"), ("fedgen", "FedGen")):
+        profile_round(dev, "ResNet-8", lambda cb, name=name:
+                      fl_loop.run_federated(
+                          task, algorithms.make(name), data, device=dev,
+                          rounds=2, round_callback=cb, **kw), algo=algo)
+    log(f"baselines phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def lm_config(n_layers: int):
@@ -851,6 +965,7 @@ def run_lm_path(dev) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -905,9 +1020,12 @@ def main() -> int:
         run_path(dev, "AG News text", *text,
                  ["flash_attention_fwd", "kd_kl_fwd", "kd_kl_bwd"],
                  check_lr=TEXT_CHECK_LR),
-        run_lm_path(dev)]
+        run_lm_path(dev),
+        run_baselines(dev)]
     for k in kernels:
         k["launches"] = sum(counts[k["name"]] for counts in launches)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
+        f"included")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,12 +6,17 @@ Two of the reference's executors (``repro.core.executor``):
 cohort order, one ``client.make_step`` per batch, no padding and no masks.
 When the algorithm has a precompute stage (FedGKD: the teacher's logits),
 the teacher runs once over the client's whole shard, without autograd and
-in chunks, and is gathered by the batch picks to (S, B, ...).
+in chunks, and is gathered by the batch picks to (S, B, ...).  After the
+last step it runs the algorithm's ``client_finalize`` over the whole shard
+(FedDistill+'s logit table, FedGen's head) and ``update_client_state``
+(MOON's previous model, FedDyn's dual state).
 ``executor="auto"`` picks it for the text encoder (no client-batched form)
 and for a cohort of one.
 
 ``VmapExecutor`` on its client-batched route, which ``"auto"`` picks for
-ResNet-8 with FedAvg and FedGKD.  Per round it
+ResNet-8 with every algorithm that has a ``batched_loss_fn`` (FedAvg,
+FedProx, FedGKD, FedGKD-VOTE, FedGKD+); the others (MOON, FedDistill+,
+SCAFFOLD, FedDyn, FedGen) have none and run sequentially.  Per round it
 
   1. stacks each sampled client's FULL shard to (K, N_max, ...) and runs the
      algorithm's ``precompute_aux`` once over it, folding K into the batch
@@ -28,8 +33,9 @@ Ragged clients are exact, not approximate: every batch of a client has
 behind a zero example mask, and a client with fewer steps gets whole
 padded steps that leave its params and optimizer state untouched.
 
-The vmapped round body (models without a client-batched form), shard_map
-and async execution are not ported yet; asking for them raises.
+The vmapped round body (models without a client-batched form), the
+client hooks on the vmap executor, shard_map and async execution are not
+ported yet; asking for them raises.
 """
 from __future__ import annotations
 
@@ -70,8 +76,15 @@ class RoundContext:
         self.batched_local_update = (
             None if bloss is None
             else client_lib.make_batched_local_update(bloss, self.opt))
+        # hooks left at the Algorithm defaults are no-ops: the executors
+        # skip calling them
+        cls = type(self.algo)
         self.has_precompute = (
-            type(self.algo).precompute_aux is not Algorithm.precompute_aux)
+            cls.precompute_aux is not Algorithm.precompute_aux)
+        self.has_finalize = (
+            cls.client_finalize is not Algorithm.client_finalize)
+        self.has_state_update = (
+            cls.update_client_state is not Algorithm.update_client_state)
         # which route and body ran: written by the executor, read by tests
         self.telemetry: dict = {}
 
@@ -194,17 +207,19 @@ class SequentialExecutor:
                   client_ids=None) -> RoundResult:
         ctx.telemetry["route"] = "sequential"
         dev = ctx.device
-        uploads, weights, losses = [], [], []
+        uploads, weights, losses, new_states = [], [], [], []
         for state, cdata in zip(client_states, client_data):
             mat = materialize_client(rng, cdata, ctx.batch_size, ctx.epochs,
                                      ctx.max_batches)
             xs, ys = (torch.from_numpy(a).to(dev) for a in (mat.xs, mat.ys))
             aux_steps = ()
+            if ctx.has_precompute or ctx.has_finalize:
+                full_x, full_y = (torch.from_numpy(a).to(dev)
+                                  for a in (cdata.x, cdata.y))
+                full_mask = torch.ones(cdata.n, device=dev)
             if ctx.has_precompute:
-                aux_full = _precompute_rows(
-                    ctx, payload, torch.from_numpy(cdata.x).to(dev),
-                    torch.from_numpy(cdata.y).to(dev),
-                    torch.ones(cdata.n, device=dev))
+                aux_full = _precompute_rows(ctx, payload, full_x, full_y,
+                                            full_mask)
                 picks = torch.from_numpy(mat.picks).to(dev).long()
                 aux_steps = tree_map(lambda l: l[picks], aux_full)
             params, opt_state = global_params, ctx.opt.init(global_params)
@@ -214,13 +229,20 @@ class SequentialExecutor:
                     params, opt_state, payload, state, xs[s], ys[s], None,
                     tree_map(lambda l: l[s], aux_steps), ctx.lr)
                 step_losses.append(loss)
-            uploads.append({"params": params})
+            extras = {}
+            if ctx.has_finalize:
+                extras = ctx.algo.client_finalize(ctx.model, params, full_x,
+                                                  full_y, full_mask, payload)
+            new_states.append(
+                ctx.algo.update_client_state(state, params, payload)
+                if ctx.has_state_update else state)
+            uploads.append({"params": params, **extras})
             weights.append(float(mat.n))
             # one device->host copy per client; the mean in float64 over
             # the fp32 step losses, as the reference's np.mean of floats
             losses.append(float(np.mean(torch.stack(step_losses).tolist()))
                           if step_losses else 0.0)
-        return RoundResult(uploads, weights, losses, list(client_states))
+        return RoundResult(uploads, weights, losses, new_states)
 
 
 class VmapExecutor:
@@ -245,7 +267,12 @@ class VmapExecutor:
         if ctx.batched_local_update is None:
             raise NotImplementedError(
                 "the vmapped round body (models or algorithms without a "
-                "client-batched form) is not ported yet (ROADMAP A8b)")
+                "client-batched form) is not ported yet (ROADMAP A8b part 2)")
+        if ctx.has_finalize or ctx.has_state_update:
+            raise NotImplementedError(
+                f"{ctx.algo.name}: client_finalize / update_client_state on "
+                f"the vmap executor are not ported yet (ROADMAP A8b part 2); "
+                f"use the sequential executor")
         ctx.telemetry["round_body"] = "client_batched"
         k = len(client_data)
         aux_full = None

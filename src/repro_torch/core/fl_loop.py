@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.configs.paper import PaperTask
 from repro_torch.core import executor as executor_lib
-from repro_torch.core.algorithms import Algorithm
+from repro_torch.core.algorithms import Algorithm, FedGen
 from repro_torch.core.distillation import accuracy, cross_entropy
 from repro_torch.core.modelzoo import ModelBundle, make_model
 from repro_torch.data.pipeline import FederatedData
@@ -123,7 +123,12 @@ def run_federated(task: PaperTask, algo: Algorithm,
     # the init is drawn on the CPU, so one seed gives one init on any device
     init_gen = torch.Generator().manual_seed(seed + 1)
     global_params = tree_map(lambda t: t.to(dev), model.init(init_gen))
-    server = algo.init_server(global_params, model, task.num_classes)
+    if isinstance(algo, FedGen):
+        probe_x = torch.from_numpy(data.clients[0].x[:2]).to(dev)
+        server = algo.init_server_with_probe(global_params, model,
+                                             task.num_classes, probe_x)
+    else:
+        server = algo.init_server(global_params, model, task.num_classes)
     if rounds == 0:
         return History(algo.name, [], server["global"], 0.0)
 
@@ -140,6 +145,11 @@ def run_federated(task: PaperTask, algo: Algorithm,
         max_batches=max_batches_per_client)
     client_states = {k: algo.init_client_state(k, global_params)
                      for k in range(data.n_clients)}
+    # a small server-side validation split: FedGKD-VOTE's coefficients
+    n_val = min(256, len(data.test_y) // 4)
+    val_batch = (torch.from_numpy(np.ascontiguousarray(data.test_x[:n_val]))
+                 .to(dev), torch.from_numpy(np.asarray(data.test_y[:n_val]))
+                 .to(dev))
 
     records: list[RoundRecord] = []
     uploads: list[dict] = []
@@ -156,7 +166,7 @@ def run_federated(task: PaperTask, algo: Algorithm,
         for k, new_state in zip(cids, result.client_states):
             client_states[k] = new_state
         server = algo.server_update(server, uploads, weights, model,
-                                    n_clients=data.n_clients)
+                                    val_batch, n_clients=data.n_clients)
 
         acc, loss = evaluate(model, server["global"], data.test_x, data.test_y)
         if dev.type == "cuda":

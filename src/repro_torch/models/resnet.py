@@ -66,27 +66,41 @@ def basic_block(params: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
 
 
 def resnet8_init(generator: torch.Generator, num_classes: int,
-                 width: int = 16) -> Params:
-    """3 stages × 1 basic block, ~0.08M params at width 16."""
-    return {
+                 width: int = 16, projection_head: bool = False) -> Params:
+    """3 stages × 1 basic block, ~0.08M params at width 16.
+    ``projection_head`` adds MOON's / FedGKD+'s two-layer MLP (4w -> 4w ->
+    256) between the pooled features and the classifier."""
+    p = {
         "stem": conv_init(generator, 3, 3, 3, width),
         "gn0": layers.groupnorm_init(width),
         "block1": basic_block_init(generator, width, width),
         "block2": basic_block_init(generator, width, 2 * width),
         "block3": basic_block_init(generator, 2 * width, 4 * width),
-        "fc": layers.dense_bias_init(generator, 4 * width, num_classes),
     }
+    if projection_head:
+        p["proj_head"] = {
+            "fc1": layers.dense_bias_init(generator, 4 * width, 4 * width),
+            "fc2": layers.dense_bias_init(generator, 4 * width, 256),
+        }
+    feat = 256 if projection_head else 4 * width
+    p["fc"] = layers.dense_bias_init(generator, feat, num_classes)
+    return p
 
 
 def resnet8_features(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Penultimate features. x: (N, H, W, 3) or stacked (K, B, H, W, 3)."""
+    """Penultimate features (through the projection head where the params
+    have one). x: (N, H, W, 3) or stacked (K, B, H, W, 3)."""
     w = params["gn0"]["scale"].shape[-1]
     h = torch.relu(layers.groupnorm(params["gn0"], conv(params["stem"], x, 1),
                                     _gn_groups(w)))
     h = basic_block(params["block1"], h, 1)
     h = basic_block(params["block2"], h, 2)
     h = basic_block(params["block3"], h, 2)
-    return h.mean(dim=(-3, -2))
+    h = h.mean(dim=(-3, -2))
+    if "proj_head" in params:
+        h = torch.relu(layers.dense(params["proj_head"]["fc1"], h))
+        h = layers.dense(params["proj_head"]["fc2"], h)
+    return h
 
 
 def resnet8_apply(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,230 @@
+"""The paper's baselines that keep client or server state, end to end
+against the JAX reference on the CPU: MOON, FedDistill+, SCAFFOLD, FedDyn
+and FedGen.
+
+None of them has a client-stacked loss, so ``executor="auto"`` runs them
+on the sequential executor in both packages, which calls their
+``client_finalize`` and ``update_client_state`` hooks.  2 rounds of
+``run_federated`` on the fixture of ``tests/test_torch_baselines_batched.py``
+from the reference's initialisation: identical cohorts, and the final
+params, each round's mean local loss, test accuracy and test loss within
+1e-5 (fp32).  Beside the trajectory, each test holds the state the
+algorithm carries to 1e-5: MOON's ``prev`` and FedDyn's ``h`` per client
+after round 2, SCAFFOLD's server control variate ``c`` and FedDistill+'s
+label-logit table after each round.
+
+FedGen draws noise per local step and per generator step; torch cannot
+replay ``jax.random``, so the port is given the reference's draws through
+its ``client_noise`` and ``server_noise`` arguments, rebuilt here with
+``jax.random`` exactly as the reference makes them, and the reference's
+generator init through the bridge.
+"""
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.core import algorithms as jax_algorithms  # noqa: E402
+from repro.core import executor as jax_executor  # noqa: E402
+from repro.core.modelzoo import make_model as jax_make_model  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.core import algorithms  # noqa: E402
+from repro_torch.core import executor, modelzoo  # noqa: E402
+
+from test_torch_baselines_batched import (  # noqa: E402
+    FIXTURE, TOL, assert_trajectories_match, fixture_data, max_diff,
+    reference_init, run_port, run_reference)
+
+SEED = 0
+
+
+def recording(base):
+    """A sequential executor of ``base``'s package that keeps each client's
+    state as the round returns it, keyed by client id."""
+
+    class Recording(base):
+        def __init__(self):
+            self.states = {}
+
+        def run_round(self, ctx, global_params, payload, client_states,
+                      client_data, rng, client_ids=None, **kw):
+            result = super().run_round(ctx, global_params, payload,
+                                       client_states, client_data, rng,
+                                       client_ids=client_ids, **kw)
+            self.states.update(zip(client_ids, result.client_states))
+            return result
+
+    return Recording()
+
+
+def run_both(monkeypatch, name, jalgo=None, algo=None, server_keys=()):
+    """Both packages' 2-round runs: (port history, reference history, port
+    states, reference states, per-round server values of ``server_keys``
+    for each)."""
+    jalgo = jalgo or jax_algorithms.make(name)
+    algo = algo or algorithms.make(name)
+    seen = {"ref": [], "port": []}
+
+    def recorder(key):
+        return lambda t, server, model: seen[key].append(
+            {k: server[k] for k in server_keys})
+
+    jexec = recording(jax_executor.SequentialExecutor)
+    texec = recording(executor.SequentialExecutor)
+    init = reference_init(algo.needs_projection_head)
+    hj = run_reference(jalgo, executor=jexec, round_callback=recorder("ref"))
+    ht = run_port(monkeypatch, algo, init, executor=texec,
+                  round_callback=recorder("port"))
+    # what "auto" picks for these algorithms in both packages
+    jtask, _, task, data = fixture_data()
+    k = max(1, int(round(task.participation * data.n_clients)))
+    head = algo.needs_projection_head
+    assert jax_executor.get_executor("auto", jalgo, k, jax_make_model(
+        jtask, projection_head=head, width=8)).name == "sequential"
+    assert executor.get_executor("auto", algo, k, modelzoo.make_model(
+        task, projection_head=head, width=8)).name == "sequential"
+    assert ht.telemetry["route"] == hj.telemetry["route"] == "sequential"
+    assert_trajectories_match(ht, hj)
+    return ht, hj, texec.states, jexec.states, seen
+
+
+def state_diffs(tstates, jstates, key):
+    """Per client id, the max abs difference of state ``key``."""
+    assert sorted(tstates) == sorted(jstates)
+    return {cid: max_diff(bridge.params_to_numpy(tstates[cid][key]),
+                          jstates[cid][key]) for cid in jstates}
+
+
+# MOON's per-client ``prev`` after round 2 is held to 2e-5, not 1e-5, for
+# one client.  Client 2's second step of round 2 sits on a ReLU kink: with
+# both packages' inputs to that step made identical, the port lands 9.7e-8
+# from a float64 run and the reference 1.1e-5 from it, and in float64 alone
+# a 1e-7 perturbation of the step's inputs moves its result by 4e-7 or
+# 1.1e-5 to 1.6e-5 depending on the draw.  fp32 rounding picks the side of
+# the kink, so that client's state reaches 1.104e-5 here; the other five
+# stay within 1.2e-7, and the final params within 1.9e-6 (< TOL).
+MOON_PREV_TOL = 2e-5
+
+
+def test_moon_matches_reference(monkeypatch):
+    _, _, ts, js, _ = run_both(monkeypatch, "moon")
+    diffs = state_diffs(ts, js, "prev")
+    assert max(diffs.values()) < MOON_PREV_TOL, diffs
+    assert sum(d >= TOL for d in diffs.values()) <= 1, diffs
+
+
+def test_feddyn_matches_reference(monkeypatch):
+    _, _, ts, js, _ = run_both(monkeypatch, "feddyn")
+    diffs = state_diffs(ts, js, "h")
+    assert max(diffs.values()) < TOL, diffs
+    # the dual state moved: h_k = -alpha·(w_k - w_t) after one visit
+    assert max(float(np.abs(np.asarray(leaf)).max()) for cid in js
+               for leaf in jax.tree_util.tree_leaves(js[cid]["h"])) > 0
+
+
+def test_scaffold_matches_reference(monkeypatch):
+    # the task's steps per client: the fixture's largest shard is 20 rows,
+    # 3 batches of 8
+    kw = dict(lr=FIXTURE["lr"], local_steps_hint=3)
+    _, _, _, _, seen = run_both(
+        monkeypatch, "scaffold", jax_algorithms.make("scaffold", **kw),
+        algorithms.make("scaffold", **kw), server_keys=("c",))
+    for st, sj in zip(seen["port"], seen["ref"], strict=True):
+        assert max_diff(bridge.params_to_numpy(st["c"]), sj["c"]) < TOL
+    assert max_diff(seen["ref"][-1]["c"], jax.tree_util.tree_map(
+        np.zeros_like, seen["ref"][-1]["c"])) > 0
+
+
+def test_feddistill_plus_matches_reference(monkeypatch):
+    _, _, _, _, seen = run_both(monkeypatch, "feddistill+",
+                                server_keys=("label_logits", "have_logits"))
+    for st, sj in zip(seen["port"], seen["ref"], strict=True):
+        np.testing.assert_allclose(st["label_logits"].numpy(),
+                                   np.asarray(sj["label_logits"]), rtol=0,
+                                   atol=TOL)
+        assert float(st["have_logits"]) == float(sj["have_logits"]) == 1.0
+
+
+# ---------------------------------------------------------------- FedGen
+
+def reference_client_noise(seed, noise_dim):
+    """The reference's per-step draws, for the port's ``client_noise``:
+    round t's key is the t-th split of ``PRNGKey(seed)`` (``fl_loop``), and
+    each step folds in the batch's masked label sum (``FedGen.loss_fn``)."""
+    keys, jrng = [], jax.random.PRNGKey(seed)
+
+    def round_key(t):
+        nonlocal jrng
+        while len(keys) <= t:
+            jrng, krng = jax.random.split(jrng)
+            keys.append(krng)
+        return keys[t]
+
+    def noise(payload, labels, b):
+        rng = jax.random.fold_in(round_key(payload["round"]),
+                                 jnp.int32(int(labels.sum())))
+        k1, k2 = jax.random.split(rng)
+        dist = jnp.asarray(payload["label_dist"].cpu().numpy())
+        y_gen = jax.random.categorical(
+            k1, jnp.log(dist + 1e-9)[None, :].repeat(b, 0))
+        z = jax.random.normal(k2, (b, noise_dim))
+        return (torch.from_numpy(np.asarray(y_gen).astype(np.int64)),
+                torch.from_numpy(np.array(z)))
+
+    return noise
+
+
+def reference_server_noise(num_classes, noise_dim, batch=64):
+    """The reference's generator-step draws (``FedGen.server_update``)."""
+
+    def noise(rnd, step):
+        rng = jax.random.fold_in(jax.random.PRNGKey(1000 + rnd), step)
+        k1, k2 = jax.random.split(rng)
+        y = jax.random.randint(k1, (batch,), 0, num_classes)
+        z = jax.random.normal(k2, (batch, noise_dim))
+        return (torch.from_numpy(np.asarray(y).astype(np.int64)),
+                torch.from_numpy(np.array(z)))
+
+    return noise
+
+
+def reference_fedgen(jalgo, num_classes, feat_dim):
+    """The reference generator's init (``PRNGKey(17)``), as numpy."""
+    return jax.tree_util.tree_map(np.asarray, jalgo._gen_init(
+        jax.random.PRNGKey(17), num_classes, feat_dim))
+
+
+def port_fedgen(jalgo, **kw):
+    """A port FedGen fed the reference's noise and generator init."""
+    task = fixture_data()[2]
+    c, nd = task.num_classes, jalgo.gcfg.noise_dim
+    algo = algorithms.make(
+        "fedgen", client_noise=reference_client_noise(SEED, nd),
+        server_noise=reference_server_noise(c, nd), **kw)
+    gen_init = {}
+
+    def from_reference(generator, num_classes, feat_dim):
+        gen_init["np"] = reference_fedgen(jalgo, num_classes, feat_dim)
+        return bridge.params_from_numpy(gen_init["np"])
+
+    algo._gen_init = from_reference
+    return algo, gen_init
+
+
+def test_fedgen_matches_reference_with_its_draws(monkeypatch):
+    jalgo = jax_algorithms.make("fedgen")
+    algo, gen_init = port_fedgen(jalgo)
+    _, _, _, _, seen = run_both(monkeypatch, "fedgen", jalgo, algo,
+                                server_keys=("gen", "label_dist"))
+    assert gen_init["np"]["fc2"]["w"].shape[-1] == 32     # 4 x width 8
+    for st, sj in zip(seen["port"], seen["ref"], strict=True):
+        assert max_diff(bridge.params_to_numpy(st["gen"]), sj["gen"]) < TOL
+        np.testing.assert_allclose(st["label_dist"].numpy(),
+                                   np.asarray(sj["label_dist"]), rtol=0,
+                                   atol=TOL)
+    # the generator trained: it moved away from its init
+    assert max_diff(seen["ref"][-1]["gen"], gen_init["np"]) > 1e-4

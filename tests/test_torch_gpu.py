@@ -341,3 +341,49 @@ def test_lm_train_step_on_card_matches_cpu(cuda):
     assert abs(loss_card - loss_cpu) < TOL * max(1.0, abs(loss_cpu))
     for a, b in zip(card, cpu, strict=True):
         _close(a, b)
+
+
+@pytest.mark.parametrize("name", ["moon", "feddistill+"])
+def test_baseline_client_step_on_card_matches_cpu(cuda, name):
+    """One local step of MOON (three feature forwards, the projection head)
+    and of FedDistill+ (B1/B2 against its label-logit table) at ResNet-8's
+    full width on the card and on the CPU from the same params: loss and
+    params after, and the kernels of the step launched."""
+    from repro_torch.core import client, modelzoo
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves, tree_map
+
+    algo = algorithms.make(name)
+    model = modelzoo.make_model(CIFAR10,
+                                projection_head=algo.needs_projection_head)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen)
+    other = tree_map(lambda t: t + 0.01 * torch.randn(t.shape, generator=gen),
+                     params)
+    x = torch.randn(64, 32, 32, 3, generator=gen)
+    y = torch.randint(0, 10, (64,), generator=gen)
+    if name == "moon":
+        payload, state = {"global": other}, {"prev": params}
+    else:
+        payload = {"label_logits": torch.randn(10, 10, generator=gen),
+                   "enable": torch.ones(())}
+        state = ()
+    opt = sgd(momentum=0.9, weight_decay=1e-5)
+    step = client.make_step(algo.loss_fn(model), opt)
+    out = {}
+    for dev in ("cpu", cuda):
+        on = lambda tree: tree_map(lambda t: t.to(dev), tree)  # noqa: E731
+        p = on(params)
+        reset_launches()
+        new, _, loss, _ = step(p, opt.init(p), on(payload), on(state),
+                               x.to(dev), y.to(dev), None, (), 0.05)
+        out[str(dev)] = (tree_leaves(tree_map(torch.Tensor.cpu, new)),
+                         float(loss), dict(LAUNCHES))
+    (cpu, loss_cpu, _), (card, loss_card, launched) = out.values()
+    kernels = ["grouped_conv_fwd"] + (["kd_kl_fwd", "kd_kl_bwd"]
+                                      if name == "feddistill+" else [])
+    for k in kernels:
+        assert launched[k] > 0, launched
+    assert abs(loss_card - loss_cpu) < TOL * max(1.0, abs(loss_cpu))
+    for a, b in zip(card, cpu, strict=True):
+        _close(a, b)
