@@ -16,11 +16,13 @@ and nothing of JAX or of the JAX package, and
      the text path's (64, 4) and (64, 5) and the LM path's (4092, 50280);
      the client-batched conv at all 9 ResNet-8 layers at K=4, N=64, at
      K=1, N=64 (the sequential route's step), at K=1, N=256 and at K=1
-     with the teacher precompute's chunk sizes; flash attention at the text
-     path's (B, S, Hq, Hkv, D) = (64, 64, 4, 4, 32) of a local step,
-     (256, ...) of an evaluation batch and the teacher precompute's row
-     counts, and for coverage at GQA with a window, non-causal ragged
-     S = 100 at D = 128, and S = 1; the SSD scan at the LM path's
+     with the teacher precompute's chunk sizes, and at ResNet-50's 23
+     distinct shapes at 64x64 (53 convs) at K=4, N=64 and at K=1 with
+     N=256 and the teacher's chunk sizes; flash attention at the text
+     path's (B, S, Hq, Hkv, D) = (64, 64, 4, 4, 32) of a local step and
+     a teacher forward, (256, ...) of an evaluation batch, and for
+     coverage at the row counts a per-shard teacher pass would take, GQA
+     with a window, non-causal ragged S = 100 at D = 128, and S = 1; the SSD scan at the LM path's
      (B, L, H, P, G, N, chunk) = (4, 1023, 80, 64, 1, 128, 256) of a step,
      (8, ...) of an evaluation and (1, 512, ...) of the round check, and
      for coverage at the smoke config's layer, two groups at a ragged
@@ -37,10 +39,15 @@ and nothing of JAX or of the JAX package, and
      CUDA-graph replays between CUDA events, so the host's enqueue cost is
      left out; an empty kernel is timed the same way (the launch floor).
      The conv is totalled per group (K=4 step, K=1 step, K=1 eval, K=1
-     teacher) against cuDNN, with the shapes where cuDNN is faster; the
-     conv's, flash attention's and the SSD scan's bounds count their
-     3xTF32 arithmetic, with the fp32 CUDA-core bound beside them;
-  4. drives three paths, each with every launch count set to 0 just before
+     teacher; ResNet-50's K=4 step and K=1 teacher/eval, each shape as
+     often as the network has it) against cuDNN, with the shapes where
+     cuDNN is faster; the conv's, flash attention's and the SSD scan's
+     bounds count their 3xTF32 arithmetic, with the fp32 CUDA-core bound
+     beside them.  Then the vmap rules: B1/B2 under ``torch.func.vmap`` of
+     ``grad`` over 8 clients, and B3 over K=4 single-client convs (output,
+     input and weight gradients), against the plain versions, one launch
+     for all the vmapped clients;
+  4. drives the paths, each with every launch count set to 0 just before
      and read just after, and fails if a kernel of the path was not
      launched:
      a. ResNet-8 (``run_federated``, client-batched vmap executor): FedGKD
@@ -65,9 +72,23 @@ and nothing of JAX or of the JAX package, and
         and FedGen on the sequential one; each must take its route and
         launch the kernels of its step (B3 for all; B1/B2 for FedGKD+ and
         FedDistill+);
+     e. ResNet-50 (``run_federated``, ``executor="auto"``: the
+        client-batched vmap route): FedGKD on Tiny-ImageNet at full width
+        (64x64x3 inputs, 200 classes, batch 64, 20 clients at C=0.2 so
+        K=4, gamma 0.1, M=5), depth cut to 9,000 examples, one local
+        epoch, 5 batches per client, 3 rounds; B3 at all 53 convs, B1/B2;
+        its peak device memory;
+     f. the vmapped round body (``executor="vmap"``): the TOY task's MLP,
+        2 rounds each of FedGKD (B1/B2 under vmap) and of MOON,
+        FedDistill+, SCAFFOLD, FedDyn and FedGen (their client hooks
+        vmapped too); ResNet-8 FedGKD with ``client_batched=False`` (B3
+        and B1/B2 under vmap) for one round, held to 1e-5 against the
+        client-batched route's round;
   5. profiles one steady-state round of each path (``torch.profiler``;
      FedGKD, and MOON and FedGen for the baselines): host wall time, the
-     device's busy time and idle share, device time by kernel;
+     device's busy time and idle share, device time by kernel, and the
+     device time inside the conv's gradients (``grouped_conv_dw``,
+     ``grouped_conv_dx``) with their kernels by name;
   6. runs each path's first round on the card and on the CPU from the
      same init (FedGKD, and each of the nine baselines) and holds the
      card's parameters after that round to 1e-4 of the CPU's, where the
@@ -75,7 +96,8 @@ and nothing of JAX or of the JAX package, and
      lr 1e-3 for this check: at its lr 1e-5 a round moves them by about
      5e-5, so no check at 1e-4 could fail; the LM path at full width with
      1 layer, 2 clients x 1 batch of one 513-token sequence, which the CPU
-     runs in reasonable time).
+     runs in reasonable time; ResNet-50 at lr 1e-3, ``R50_CHECK_LR``
+     says why; the TOY runs of phase f at the task's lr).
 
 It exits non-zero on any failure.  The last lines of its output are the
 kernels' JSON record, the ``nvidia-smi`` line and
@@ -120,8 +142,37 @@ RESNET8_CONVS = [
     ("block3.conv2", 8, 64, 64, 3, 1),
     ("block3.proj", 16, 32, 64, 1, 2),
 ]
+
+
+def resnet50_shapes(hw: int = 64) -> list[tuple]:
+    """ResNet-50's distinct conv shapes at ``hw`` x ``hw`` inputs, each as
+    (name of its first conv, H, Cin, Cout, k, stride, how many of the 53
+    convs have it)."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.models.resnet import resnet50_convs
+
+    shapes: dict = {}
+    for name, *shape in resnet50_convs(hw):
+        first, count = shapes.get(tuple(shape), (name, 0))
+        shapes[tuple(shape)] = (first, count + 1)
+    return [(name, *shape, count) for shape, (name, count) in shapes.items()]
 # the baselines phase: rounds of each of the nine at full ResNet-8 width
 BASELINE_ROUNDS = 2
+# the ResNet-50 path (Tiny-ImageNet at 64x64): 3 rounds of K=4 of 20
+# clients, 5 batches of 64 a client
+R50_HW, R50_ROUNDS = 64, 3
+# its card-vs-CPU round runs at lr 1e-3, not the task's 0.05: from the
+# random init the local loss climbs from ~8 to ~70 in 5 steps at 0.05, and
+# fp32 rounding grows ~10x a step (two summation orders on the card itself
+# are 1.2e-7 apart after 1 step, 1.1e-5 after 2, 1.5e-4 after 3, 1.3e-3
+# after 5), so no fp32 check at 1e-4 could pass there; at 1e-3 a round
+# moves the params by ~2e-2 (PERF.md, PR 17)
+R50_CHECK_LR = 1e-3
+# the vmapped-body phase: the TOY task's MLP through executor="vmap", 2
+# rounds each of FedGKD and the five algorithms with client hooks
+VMAP_ALGOS = ["fedgkd", "moon", "feddistill+", "scaffold", "feddyn", "fedgen"]
+VMAP_ROUNDS = 2
+VMAP_TOL = 1e-5            # the vmapped body against the client-batched one
 KD_SHAPES = [(256, 10), (64, 10), (256, 100), (256, 200), (1000, 37), (64, 4),
              (64, 5), (4092, 50280)]
 # the LM path (mamba2-2.7b at full width, 4 layers): batch 4 of 1,024-token
@@ -158,7 +209,7 @@ LM_KERNELS = ["ssd_scan_fwd", "row_logsumexp", "kd_kl_fwd", "kd_kl_bwd"]
 # kernel, and the port's named ranges (the SSD scan's autograd backward)
 PORT_KERNELS = ["kd_kl_", "conv_fwd_kernel", "flash_fwd_kernel", "row_lse_",
                 "ssd_chunk_kernel", "ssd_pass_kernel", "ssd_out_kernel"]
-PORT_RANGES = ["ssd_scan_backward"]
+PORT_RANGES = ["ssd_scan_backward", "grouped_conv_dw", "grouped_conv_dx"]
 # flash attention (B, S, Hq, Hkv, D, causal, window) beyond the text path's
 # own: GQA with a window, non-causal ragged at D = 128, one token
 FLASH_COVERAGE = [(4, 128, 8, 2, 64, True, 32), (8, 100, 4, 4, 128, False, None),
@@ -307,28 +358,41 @@ def check_kd_kl(dev) -> list[dict]:
     ]
 
 
-def check_conv(dev, teacher_ns: list[int]) -> dict:
-    """The conv at every ResNet-8 layer in four groups: K=4, N=64 (a local
+def check_conv(dev, teacher_ns: list[int], r50_teacher_ns: list[int]) -> dict:
+    """The conv in six groups.  At every ResNet-8 layer: K=4, N=64 (a local
     step of the client-batched route), K=1, N=64 (a local step of the
     sequential route), K=1, N=256 (an evaluation batch) and K=1 at
-    ``teacher_ns`` (the teacher precompute's chunks).  Per group it prints the kernel's,
-    cuDNN's and the bound's total ms and the shapes where cuDNN is faster;
-    the record's times are the local step's, with the groups beside them."""
+    ``teacher_ns`` (the teacher precompute's chunks).  At every distinct
+    ResNet-50 shape at 64x64 (23 shapes, 53 convs): K=4, N=64 (a local
+    step) and K=1 at N=256 and ``r50_teacher_ns`` (evaluation and the
+    teacher's chunks); a ResNet-50 group's totals count each shape as often
+    as the network has it.  Per group it prints the kernel's, cuDNN's and
+    the bound's total ms and the shapes where cuDNN is faster; the record's
+    times are the ResNet-8 local step's, with the groups beside them."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.grouped_conv import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    groups = {"K=4 step": [(4, 64)], "K=1 step": [(1, 64)],
-              "K=1 eval": [(1, 256)],
-              "K=1 teacher": [(1, n) for n in teacher_ns]}
+    r8 = [c + (1,) for c in RESNET8_CONVS]
+    r50 = resnet50_shapes(R50_HW)
+    groups = {"K=4 step": ([(4, 64)], r8), "K=1 step": ([(1, 64)], r8),
+              "K=1 eval": ([(1, 256)], r8),
+              "K=1 teacher": ([(1, n) for n in teacher_ns], r8),
+              "R50 K=4 step": ([(4, 64)], r50),
+              "R50 K=1 teacher/eval": ([(1, 256)] + [(1, n) for n in
+                                                     r50_teacher_ns], r50)}
     rec = dict(max_abs_err=0.0, groups={})
-    for group, calls in groups.items():
+    for group, (calls, convs) in groups.items():
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0,
                    flops=0.0, slower=[])
+        # ResNet-50's teacher chunks: few timed calls (the plain version
+        # takes tens of ms a call there)
+        reps = (dict(reps=3, replays=2) if group.startswith("R50 K=1")
+                else {})
         for k, n in calls:
-            for name, h, cin, cout, kk, s in RESNET8_CONVS:
+            for name, h, cin, cout, kk, s, count in convs:
                 x = torch.randn(k, n, h, h, cin, device=dev, generator=gen)
                 w = torch.randn(k, kk, kk, cin, cout, device=dev,
                                 generator=gen) / math.sqrt(kk * kk * cin)
@@ -347,17 +411,21 @@ def check_conv(dev, teacher_ns: list[int]) -> dict:
                 compare(f"library conv2d K={k} N={n} {name}",
                         lib.reshape(n, k, cout, oh, oh).permute(1, 0, 3, 4, 2),
                         want)
-                t = dict(ms=time_ms(lambda: ops.grouped_conv_fwd(x, w, s, "SAME")),
-                         plain_ms=time_ms(lambda: ref.grouped_conv_ref(x, w, s, "SAME")),
-                         library_ms=time_ms(lambda: F.conv2d(xg, wg, stride=s,
-                                                             groups=k)))
+                del want, lib
+                t = dict(ms=time_ms(lambda: ops.grouped_conv_fwd(x, w, s, "SAME"),
+                                    **reps),
+                         plain_ms=time_ms(lambda: ref.grouped_conv_ref(
+                             x, w, s, "SAME"), **reps),
+                         library_ms=time_ms(lambda: F.conv2d(
+                             xg, wg, stride=s, groups=k), **reps))
                 nbytes = 4 * (x.numel() + w.numel() + k * n * oh * oh * cout)
                 # multiply-adds of the taps inside the input only
                 flops = (2 * k * n * cout * cin
                          * taps_in_bounds(h, kk, s, oh, lo) ** 2)
                 t.update(tf32x3_bound_ms(nbytes, flops))
                 plan = ops.conv_plan(k, n, h, h, cin, cout, kk, kk, s, "SAME")
-                log(f"  conv K={k} N={n:4d} {name:13s} err {err:.2e} kernel "
+                log(f"  conv K={k} N={n:4d} {name:13s} x{count} ({h}x{h}, "
+                    f"{cin}->{cout}, {kk}x{kk} s{s}) err {err:.2e} kernel "
                     f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms library "
                     f"{t['library_ms']:.4f} ms bound {t['bound_ms']:.4f} ms "
                     f"({t['bound_by']}; fp32 {t['fp32_bound_ms']:.4f}) tile "
@@ -365,36 +433,107 @@ def check_conv(dev, teacher_ns: list[int]) -> dict:
                     f"chunk {plan.chunk} bn {plan.bn} stages {plan.stages} "
                     f"smem {plan.smem_bytes} grid {plan.grid}")
                 for key in ("ms", "plain_ms", "library_ms"):
-                    tot[key] += t[key]
-                tot["nbytes"] += nbytes
-                tot["flops"] += flops
+                    tot[key] += count * t[key]
+                tot["nbytes"] += count * nbytes
+                tot["flops"] += count * flops
                 if t["ms"] > t["library_ms"]:
                     tot["slower"].append(f"N={n} {name}")
+                del x, w, xg, wg
         # the group's bound: its bytes and FLOP summed, then bounded
         bound = tf32x3_bound_ms(tot["nbytes"], tot["flops"])
+        n_shapes = len(calls) * len(convs)
         log(f"  conv group {group}: kernel {tot['ms']:.4f} ms cuDNN "
             f"{tot['library_ms']:.4f} ms plain {tot['plain_ms']:.4f} ms bound "
             f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, 3xTF32; fp32 "
             f"{bound['fp32_bound_ms']:.4f}); slower than cuDNN at "
-            f"{len(tot['slower'])} of {len(calls) * len(RESNET8_CONVS)} "
-            f"shapes {tot['slower']}")
+            f"{len(tot['slower'])} of {n_shapes} shapes {tot['slower']}")
         rec["groups"][group] = dict(
             ms=tot["ms"], plain_ms=tot["plain_ms"],
             library_ms=tot["library_ms"], **bound,
-            slower_than_library=len(tot["slower"]))
+            slower_than_library=len(tot["slower"]), shapes=n_shapes)
         if group == "K=4 step":                # one local step's forward
             rec.update(ms=tot["ms"], plain_ms=tot["plain_ms"],
                        library_ms=tot["library_ms"], **bound)
+    torch.cuda.empty_cache()
     return dict(name="grouped_conv_fwd", route="cuda",
                 source="src/repro_torch/csrc/grouped_conv.cu",
                 replaces="src/repro/kernels/grouped_conv/kernel.py:36", **rec)
 
 
+def check_vmap_rules(dev) -> None:
+    """The kernels' ``torch.func`` vmap rules on the card, against the plain
+    versions on the same inputs: B1/B2 under ``vmap(grad)`` over 8 clients
+    of the TOY path's (32, 10), and B3 under ``vmap(grad)`` of a
+    single-client conv over K=4 clients at two ResNet-8 layers (the
+    vmapped body's conv: the rule folds the vmapped axis into K), output
+    and both gradients, to ``KERNEL_TOL`` of max|plain|."""
+    import torch
+    from torch.func import grad, vmap
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.grouped_conv import ops as conv_ops
+    from repro_torch.kernels.grouped_conv import ref as conv_ref
+    from repro_torch.kernels.kd_kl import ops as kd_ops
+    from repro_torch.kernels.kd_kl import ref as kd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    lt = torch.randn(8, 32, 10, device=dev, generator=gen) * 2
+    ls = torch.randn(8, 32, 10, device=dev, generator=gen) * 2
+    g = torch.randn(8, 32, device=dev, generator=gen)
+    before = dict(LAUNCHES)
+    kl = vmap(lambda a, b: kd_ops.kd_kl_loss(a, b))(lt, ls)
+    dls = vmap(grad(lambda b, a, w: torch.sum(kd_ops.kd_kl_loss(a, b) * w)))(
+        ls, lt, g)
+    launched = {k: LAUNCHES[k] - before[k] for k in ("kd_kl_fwd", "kd_kl_bwd")}
+    kl_ref, lse_t, lse_s = kd_ref.kd_kl_fwd_ref(lt.reshape(-1, 10),
+                                                ls.reshape(-1, 10), 1.0)
+    err_f = compare("vmap kd_kl_fwd", kl.reshape(-1), kl_ref)
+    err_b = compare("vmap(grad) kd_kl_bwd", dls.reshape(-1, 10),
+                    kd_ref.kd_kl_bwd_ref(lt.reshape(-1, 10),
+                                         ls.reshape(-1, 10), lse_t, lse_s,
+                                         g.reshape(-1), 1.0))
+    if launched != {"kd_kl_fwd": 2, "kd_kl_bwd": 1}:
+        raise AssertionError(f"B1/B2 under vmap: one launch for all 8 "
+                             f"clients expected, got {launched}")
+    log(f"  vmap rules: B1 under vmap over 8 x (32, 10) err {err_f:.2e}, B2 "
+        f"under vmap(grad) err {err_b:.2e}, launches {launched}")
+    for name, h, cin, cout, kk, s in (RESNET8_CONVS[3], RESNET8_CONVS[7]):
+        x = torch.randn(4, 64, h, h, cin, device=dev, generator=gen)
+        w = torch.randn(4, kk, kk, cin, cout, device=dev,
+                        generator=gen) / math.sqrt(kk * kk * cin)
+        oh = conv_ref.same_pads(h, kk, s)[0]
+        dy = torch.randn(4, 64, oh, oh, cout, device=dev, generator=gen)
+
+        def one(xi, wi, dyi):
+            return torch.sum(conv_ops.client_batched_conv(
+                xi[None], wi[None], stride=s)[0] * dyi)
+
+        before = LAUNCHES["grouped_conv_fwd"]
+        y = vmap(lambda xi, wi: conv_ops.client_batched_conv(
+            xi[None], wi[None], stride=s)[0])(x, w)
+        dx, dw = vmap(grad(one, argnums=(0, 1)))(x, w, dy)
+        launched = LAUNCHES["grouped_conv_fwd"] - before
+        errs = [compare(f"vmap conv {name}", y,
+                        conv_ref.grouped_conv_ref(x, w, s, "SAME")),
+                compare(f"vmap(grad) conv dx {name}", dx,
+                        conv_ref.grouped_conv_dx(dy, w, s, h, h, "SAME")),
+                compare(f"vmap(grad) conv dw {name}", dw,
+                        conv_ref.shift_gemm_dw(x, dy, s, kk, kk, "SAME"))]
+        if launched != 2:
+            raise AssertionError(f"B3 under vmap {name}: one K=4 launch a "
+                                 f"call expected, got {launched} for 2")
+        log(f"  vmap rules: B3 under vmap over K=4 at {name} err y "
+            f"{errs[0]:.2e} dx {errs[1]:.2e} dw {errs[2]:.2e}, launches "
+            f"{launched}")
+
+
 def check_flash(dev, teacher_ns: list[int]) -> dict:
     """Flash attention at the text path's shapes — (64, 64, 4, 4, 32)
-    causal for a local step, (256, ...) for an evaluation batch and
-    (n, ...) for ``teacher_ns``, the teacher precompute's row counts — and
-    at ``FLASH_COVERAGE``.  The record's times are the local step's."""
+    causal for a local step and its inline teacher forward, (256, ...) for
+    an evaluation batch — and for coverage at (n, ...) for ``teacher_ns``,
+    the row counts of a per-shard teacher pass (``precompute=True`` on the
+    sequential executor), and at ``FLASH_COVERAGE``.  The record's times
+    are the local step's."""
     import torch
     import torch.nn.functional as F
 
@@ -612,13 +751,30 @@ def all_finite(tree) -> bool:
     return all(bool(torch.isfinite(t).all()) for t in tree_leaves(tree))
 
 
-def profile_round(dev, label, run, algo: str = "FedGKD") -> None:
+def _range_kernels(event) -> dict:
+    """Device kernels launched inside a profiler range: name -> (us, n)."""
+    out: dict = {}
+    stack = [event]
+    while stack:
+        e = stack.pop()
+        for k in e.kernels:
+            t, n = out.get(k.name, (0.0, 0))
+            out[k.name] = (t + k.duration, n + 1)
+        stack.extend(e.cpu_children)
+    return out
+
+
+def profile_round(dev, label, run, algo: str = "FedGKD") -> dict:
     """Where a steady-state round of ``algo`` goes: round 2 of a 2-round
     run under ``torch.profiler``, its host wall time, the device's busy
     time (the union of its kernels' and copies' intervals), and the device
-    time by kernel name.  ``run(round_callback)`` drives the 2 rounds and
-    calls ``round_callback(round, ...)`` after each round's synchronize.
-    Prints "not measured" where the profiler saw no device activity."""
+    time by kernel name; then the device time inside each of the port's
+    named ranges (``PORT_RANGES``), with its kernels by name.
+    ``run(round_callback)`` drives the 2 rounds and calls
+    ``round_callback(round, ...)`` after each round's synchronize.  Prints
+    "not measured" where the profiler saw no device activity.  Returns
+    ``wall_ms``, ``busy_ms`` and ``ranges`` (name -> device ms), empty
+    where nothing was measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -645,7 +801,7 @@ def profile_round(dev, label, run, algo: str = "FedGKD") -> None:
         log(f"profile ({label}, {algo} round 2): wall {wall['ms']:.3f} ms; "
             f"device busy time not measured (the profiler saw no device "
             f"activity)")
-        return
+        return {}
     busy_us, end, by_name = 0.0, -math.inf, {}
     for lo, hi, name in spans:
         busy_us += max(0.0, hi - max(lo, end))
@@ -663,11 +819,22 @@ def profile_round(dev, label, run, algo: str = "FedGKD") -> None:
     # the device time of the kernels launched inside the port's named ranges
     ranges = [e for e in prof.events() if e.name in PORT_RANGES
               and e.device_type == torch.autograd.DeviceType.CPU]
+    out = dict(wall_ms=wall["ms"], busy_ms=busy_us / 1e3, ranges={})
     for name in PORT_RANGES:
         hits = [e for e in ranges if e.name == name]
-        if hits:
-            log(f"  {sum(e.device_time_total for e in hits) / 1e3:8.3f} ms "
-                f"{len(hits):5d}x  range {name} (all kernels inside it)")
+        if not hits:
+            continue
+        out["ranges"][name] = sum(e.device_time_total for e in hits) / 1e3
+        log(f"  {out['ranges'][name]:8.3f} ms {len(hits):5d}x  range {name} "
+            f"(all kernels inside it)")
+        kernels: dict = {}
+        for e in hits:
+            for k, (t, n) in _range_kernels(e).items():
+                t0, n0 = kernels.get(k, (0.0, 0))
+                kernels[k] = (t0 + t, n0 + n)
+        for k, (t, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:4]:
+            log(f"      {t / 1e3:8.3f} ms {n:5d}x  {k[:86]}")
+    return out
 
 
 def resnet_setup():
@@ -878,6 +1045,165 @@ def run_baselines(dev) -> dict:
     return total
 
 
+def resnet50_setup():
+    """The ResNet-50 path's task, data and ``run_federated`` arguments:
+    Tiny-ImageNet at the paper's settings (200 classes, 64x64 images, 20
+    clients at C=0.2 so K=4, batch 64, gamma 0.1, M=5) and ResNet-50 at
+    full width; depth cut to 9,000 examples, 1 local epoch, 5 batches per
+    client, 3 rounds (the paper: 90,000, 20 epochs, 30 rounds)."""
+    from repro_torch.configs.paper import TINY_IMAGENET, scaled
+    from repro_torch.core import fl_loop
+
+    task = scaled(TINY_IMAGENET, 0.1, rounds=R50_ROUNDS, local_epochs=1)
+    data = fl_loop.make_federated_data(task, alpha=0.5, seed=0)
+    return task, data, dict(seed=0, max_batches_per_client=5)
+
+
+def run_resnet50(dev, task, data, kw) -> dict:
+    """FedGKD on Tiny-ImageNet with ResNet-50 at full width through
+    ``run_federated(executor="auto")``: the client-batched vmap route, with
+    the launch counts set to 0 just before and read just after (B3 and
+    B1/B2 must have launched), finite losses and params, the peak device
+    memory, a profiled round 2 (the conv weight gradient's share of the
+    busy time) and round 1 on the card against the CPU's at
+    ``R50_CHECK_LR``.  Returns the launch counts."""
+    import torch
+
+    from repro_torch.core import algorithms, fl_loop
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    label = "ResNet-50 Tiny-ImageNet"
+
+    def fedgkd():
+        return algorithms.make("fedgkd", gamma=task.gamma,
+                               buffer_m=task.buffer_m)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = fl_loop.run_federated(task, fedgkd(), data, device=dev,
+                                 executor="auto", **kw)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    log(f"{label}: FedGKD, {hist.telemetry}, {time.perf_counter() - t0:.2f} "
+        f"s, launches {launches}, peak device memory {peak:.2f} GiB")
+    for r in hist.records:
+        log(f"  round {r.round}: {r.seconds:.3f} s test_acc {r.test_acc:.4f} "
+            f"test_loss {r.test_loss:.4f} local_loss {r.mean_local_loss:.4f} "
+            f"cohort {list(r.sampled)}")
+    if (hist.telemetry["route"], hist.telemetry["round_body"]) != (
+            "vmap", "client_batched"):
+        raise AssertionError(f"{label}: took {hist.telemetry}, not the "
+                             f"client-batched vmap route")
+    losses = [v for r in hist.records for v in (r.test_loss, r.mean_local_loss)]
+    if not (all(map(math.isfinite, losses)) and all_finite(hist.final_params)):
+        raise AssertionError(f"{label}: non-finite loss or params {losses}")
+    missing = [k for k in ("grouped_conv_fwd", "kd_kl_fwd", "kd_kl_bwd")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {label} path: "
+                             f"{missing}")
+    del hist
+    prof = profile_round(dev, label, lambda cb: fl_loop.run_federated(
+        task, fedgkd(), data, device=dev, rounds=2, round_callback=cb, **kw))
+    if prof:
+        dw = prof["ranges"].get("grouped_conv_dw", 0.0)
+        dx = prof["ranges"].get("grouped_conv_dx", 0.0)
+        log(f"{label} round 2: {prof['wall_ms'] / 1e3:.3f} s, idle share "
+            f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f}, peak "
+            f"{peak:.2f} GiB; the conv weight gradient {dw:.3f} ms "
+            f"({dw / prof['busy_ms']:.4f} of busy), the input gradient "
+            f"{dx:.3f} ms ({dx / prof['busy_ms']:.4f})")
+    federated_round_check(dev, label,
+                          dataclasses.replace(task, lr=R50_CHECK_LR), data,
+                          kw, fedgkd)
+    return launches
+
+
+def run_vmap_body(dev) -> dict:
+    """The vmapped round body: the TOY task's MLP through
+    ``executor="vmap"`` for ``VMAP_ROUNDS`` rounds of FedGKD (B1/B2 under
+    ``torch.func.vmap``) and of the five algorithms with client hooks
+    (their finalize and state update vmapped too), each with the launch
+    counts set to 0 just before and read just after, then round 1 on the
+    card against the CPU's; and ResNet-8 FedGKD with
+    ``client_batched=False`` (B3 and B1/B2 under vmap) for one round,
+    held against the client-batched route's round to ``VMAP_TOL``.
+    Returns the launch counts summed over the runs."""
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.configs.paper import TOY
+    from repro_torch.core import algorithms, fl_loop
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    data = fl_loop.make_federated_data(TOY, alpha=1.0, seed=0, n_test=400)
+    kw = dict(seed=0, executor="vmap")
+    total = dict.fromkeys(LAUNCHES, 0)
+    for name in VMAP_ALGOS:
+        def make_algo(name=name):
+            return algorithms.make(name)
+
+        reset_launches()
+        hist = fl_loop.run_federated(TOY, make_algo(), data, device=dev,
+                                     rounds=VMAP_ROUNDS, **kw)
+        launches = dict(LAUNCHES)
+        log(f"vmapped body TOY {name}: {hist.telemetry}, rounds "
+            f"{[round(r.seconds, 3) for r in hist.records]} s, test_acc "
+            f"{[round(r.test_acc, 4) for r in hist.records]}, launches "
+            f"{ {k: n for k, n in launches.items() if n} }")
+        if hist.telemetry.get("round_body") != "vmap":
+            raise AssertionError(f"TOY {name}: {hist.telemetry}, not the "
+                                 f"vmapped body")
+        losses = [v for r in hist.records
+                  for v in (r.test_loss, r.mean_local_loss)]
+        if not (all(map(math.isfinite, losses))
+                and all_finite(hist.final_params)):
+            raise AssertionError(f"TOY {name}: non-finite loss or params")
+        if name in ("fedgkd", "feddistill+") and not (
+                launches["kd_kl_fwd"] and launches["kd_kl_bwd"]):
+            raise AssertionError(f"TOY {name}: B1/B2 not launched under vmap")
+        for k, n in launches.items():
+            total[k] += n
+        federated_round_check(dev, f"TOY {name} (vmapped body)", TOY, data,
+                              kw, make_algo)
+
+    task, data, kw = resnet_setup()
+    out = {}
+    for body, flag in (("vmap", False), ("client_batched", "auto")):
+        reset_launches()
+        hist = fl_loop.run_federated(
+            task, algorithms.make("fedgkd", gamma=task.gamma,
+                                  buffer_m=task.buffer_m),
+            data, device=dev, rounds=1, client_batched=flag, **kw)
+        launches = dict(LAUNCHES)
+        log(f"ResNet-8 FedGKD, {body} body: {hist.records[0].seconds:.3f} s, "
+            f"local_loss {hist.records[0].mean_local_loss:.6f}, launches "
+            f"{ {k: n for k, n in launches.items() if n} }")
+        if hist.telemetry["round_body"] != body:
+            raise AssertionError(f"ResNet-8 client_batched={flag}: "
+                                 f"{hist.telemetry}")
+        missing = [k for k in ("grouped_conv_fwd", "kd_kl_fwd", "kd_kl_bwd")
+                   if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"ResNet-8 {body} body: not launched "
+                                 f"{missing}")
+        if body == "vmap":
+            for k, n in launches.items():
+                total[k] += n
+        out[body] = tree_leaves(params_to_numpy(hist.final_params))
+    diff = max(float(abs(a - b).max())
+               for a, b in zip(out["vmap"], out["client_batched"], strict=True))
+    log(f"ResNet-8 FedGKD round 1: vmapped body against client-batched, max "
+        f"abs param diff {diff:.3e} (limit {VMAP_TOL})")
+    if not diff < VMAP_TOL:
+        raise AssertionError(f"ResNet-8: the vmapped body is {diff} from the "
+                             f"client-batched one")
+    log(f"vmapped-body phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def lm_config(n_layers: int):
     """mamba2-2.7b at its published width, depth cut to ``n_layers``, in
     fp32 (the port's kernels are fp32; bf16 is later work)."""
@@ -1005,15 +1331,19 @@ def main() -> int:
 
     resnet = resnet_setup()
     text = text_setup()
+    r50 = resnet50_setup()
     conv_chunks = teacher_chunks(*resnet, stacked=True)
     text_chunks = teacher_chunks(*text, stacked=False)
+    r50_chunks = teacher_chunks(*r50, stacked=True)
     log(f"kernels against their plain versions (fp32, TF32 off; device "
         f"time of CUDA-graph replays); teacher chunks of round 1: ResNet-8 "
-        f"{conv_chunks}, text {text_chunks}")
-    kernels = (check_kd_kl(dev) + [check_conv(dev, conv_chunks),
+        f"{conv_chunks}, ResNet-50 {r50_chunks}; text (a per-shard pass, "
+        f"for coverage) {text_chunks}")
+    kernels = (check_kd_kl(dev) + [check_conv(dev, conv_chunks, r50_chunks),
                                    check_flash(dev, text_chunks),
                                    check_ssd(dev, LM_CHECK["seq"] - 1),
                                    check_row_lse(dev)])
+    check_vmap_rules(dev)
     launches = [
         run_path(dev, "ResNet-8", *resnet,
                  ["kd_kl_fwd", "kd_kl_bwd", "grouped_conv_fwd"]),
@@ -1021,7 +1351,9 @@ def main() -> int:
                  ["flash_attention_fwd", "kd_kl_fwd", "kd_kl_bwd"],
                  check_lr=TEXT_CHECK_LR),
         run_lm_path(dev),
-        run_baselines(dev)]
+        run_baselines(dev),
+        run_resnet50(dev, *r50),
+        run_vmap_body(dev)]
     for k in kernels:
         k["launches"] = sum(counts[k["name"]] for counts in launches)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "

@@ -1,7 +1,7 @@
 """The paper's experimental configurations (Section 5.1), without JAX.
 
-A copy of the CIFAR, text and tabular tasks of ``repro.configs.paper`` and
-of ``distilbert_class_config``: the reference module imports
+A copy of the CIFAR, Tiny-ImageNet, text and tabular tasks of
+``repro.configs.paper`` and of ``distilbert_class_config``: the reference module imports
 ``repro.models.config`` and through it JAX, so the port keeps its own
 ``PaperTask`` and builds the text encoder's config from
 ``repro_torch.models.config``.  Datasets are synthetic stand-ins with the
@@ -49,6 +49,10 @@ CIFAR10 = PaperTask("cifar10", "image", "resnet8", num_classes=10,
 CIFAR100 = PaperTask("cifar100", "image", "resnet8", num_classes=100,
                      train_size=45_000, n_clients=20, rounds=100,
                      local_epochs=20, participation=0.2, gamma=0.2)
+TINY_IMAGENET = PaperTask("tiny-imagenet", "image", "resnet50", num_classes=200,
+                          train_size=90_000, n_clients=20, rounds=30,
+                          local_epochs=20, participation=0.2, gamma=0.1,
+                          image_hw=64)
 AG_NEWS = PaperTask("ag-news", "text", "distilbert", num_classes=4,
                     train_size=60_000, n_clients=20, rounds=10,
                     local_epochs=1, participation=0.2, optimizer="adam",
@@ -63,7 +67,8 @@ TOY = PaperTask("toy", "tabular", "mlp", num_classes=10,
                 local_epochs=2, participation=0.5, batch_size=32,
                 lr=0.05, weight_decay=0.0, feat_dim=16)
 
-PAPER_TASKS = {t.name: t for t in (CIFAR10, CIFAR100, AG_NEWS, SST5, TOY)}
+PAPER_TASKS = {t.name: t for t in (CIFAR10, CIFAR100, TINY_IMAGENET, AG_NEWS,
+                                   SST5, TOY)}
 
 
 def scaled(task: PaperTask, scale: float, rounds: Optional[int] = None,

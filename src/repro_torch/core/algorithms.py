@@ -35,6 +35,12 @@ from repro_torch.models import layers
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 
+def _one_hot(y: torch.Tensor, c: int) -> torch.Tensor:
+    """fp32 one-hot rows; ``F.one_hot`` checks its labels' range with a
+    read back, which ``torch.func.vmap`` cannot do."""
+    return (y[..., None] == torch.arange(c, device=y.device)).to(torch.float32)
+
+
 class Algorithm:
     """Base: FedAvg.  Subclasses override the regularizer hooks.
 
@@ -84,10 +90,12 @@ class Algorithm:
 
     def precompute_parts(self, payload: Any):
         """``None``, or ``(keys, get_part)``: ``precompute_aux`` split into
-        parts, ``keys[m]`` the version id of part m's payload slice and
-        ``get_part(m)`` that slice.  A cross-round cache (ROADMAP A8b part
-        2) would keep each part's ``precompute_part`` output per client
-        and fold them with ``precompute_combine``."""
+        parts, ``keys[m]`` the version id of part m's payload slice (kept
+        across rounds while the slice is unchanged) and ``get_part(m)``
+        that slice.  The vmap executor then keeps each part's
+        ``precompute_part`` output per client across rounds
+        (``RoundContext.aux_cache``), computes only the parts with new
+        keys, and folds them with ``precompute_combine``."""
         return None
 
     def precompute_part(self, model: ModelBundle, part_payload: Any,
@@ -100,6 +108,16 @@ class Algorithm:
         """Fold stacked part outputs (n_parts, N, ...) into the aux dict;
         equals ``precompute_aux`` on the same shard."""
         raise NotImplementedError
+
+    def host_step_inputs(self, payload: Any, ys: torch.Tensor,
+                         mask: torch.Tensor) -> Optional[dict]:
+        """Per-step inputs the loss would draw from values on the device,
+        drawn on the host before the vmapped round body (a value read back
+        inside ``torch.func.vmap`` is an error): a dict of leaves (K, S, B,
+        ...) that the executor adds to ``aux``, or ``None`` (the default).
+        ``ys`` (K, S, B) and ``mask`` (K, S, B) are the round's padded
+        labels and example mask, on the CPU."""
+        return None
 
     def loss_fn(self, model: ModelBundle):
         """``loss(params, payload, client_state, x, y, mask=None, aux=None)
@@ -463,7 +481,7 @@ class MOON(Algorithm):
             # the bundles' apply is the classifier on ``features``: one
             # student forward serves both the logits and z
             z = model.features(params, x)
-            logits = layers.dense(params["fc"], z)
+            logits = layers.dense(params[model.head_key], z)
             with torch.no_grad():
                 z_g = model.features(payload["global"], x)
                 z_p = model.features(client_state["prev"], x)
@@ -528,8 +546,7 @@ class FedDistillPlus(Algorithm):
         with torch.no_grad():
             logits = model.apply(params, x)
             c = logits.shape[-1]
-            onehot = (torch.nn.functional.one_hot(y.long(), c)
-                      .to(torch.float32) * mask[:, None])
+            onehot = _one_hot(y, c) * mask[:, None]
             return {"logit_sums": onehot.T @ logits,            # (C, C)
                     "label_counts": torch.sum(onehot, dim=0)}  # (C,)
 
@@ -575,7 +592,11 @@ class FedGen(Algorithm):
     label sum (the client) or from the round and the step (the server),
     moved to the device, so the card and the CPU see the same noise.  The
     client's default reads the label sum and the label distribution back
-    from the device, two synchronisations a local step.
+    from the device, two synchronisations a local step.  The vmapped round
+    body cannot read back inside ``torch.func.vmap``: there the client
+    noise of every (client, step) is drawn before the call, in that order
+    (``host_step_inputs``), at the padded batch size, and reaches the loss
+    through ``aux``.
     """
 
     name = "fedgen"
@@ -631,6 +652,16 @@ class FedGen(Algorithm):
                 self.server_noise or functools.partial(
                     self._server_noise, num_classes=num_classes))
 
+    def host_step_inputs(self, payload, ys, mask):
+        noise = self.noise_sources(payload["label_dist"].shape[0])[0]
+        k, s, b = ys.shape
+        draws = [noise(payload, ys[i, j] * mask[i, j].to(ys.dtype), b)
+                 for i in range(k) for j in range(s)]
+        return {"gen_y": torch.stack([d[0].cpu() for d in draws])
+                .reshape(k, s, b),
+                "gen_z": torch.stack([d[1].cpu() for d in draws])
+                .reshape(k, s, b, -1)}
+
     def _client_noise(self, payload, labels, b):
         seed = (payload["round"] << 32) + int(labels.sum())
         g = torch.Generator().manual_seed(seed)
@@ -652,13 +683,16 @@ class FedGen(Algorithm):
             logits = model.apply(params, x)
             ce = D.cross_entropy(logits, y, mask=mask)
             c = payload["label_dist"].shape[0]
-            y_eff = y if mask is None else y * mask.to(y.dtype)
-            y_gen, z = self.noise_sources(c)[0](payload, y_eff, x.shape[0])
+            if aux is not None and "gen_y" in aux:
+                y_gen, z = aux["gen_y"], aux["gen_z"]
+            else:
+                y_eff = y if mask is None else y * mask.to(y.dtype)
+                y_gen, z = self.noise_sources(c)[0](payload, y_eff,
+                                                    x.shape[0])
             with torch.no_grad():
-                onehot = torch.nn.functional.one_hot(y_gen.long(), c)
                 feats = self._gen_apply(payload["gen"], z,
-                                        onehot.to(torch.float32))
-            gen_logits = layers.dense(params["fc"], feats)
+                                        _one_hot(y_gen, c))
+            gen_logits = layers.dense(params[model.head_key], feats)
             reg = D.cross_entropy(gen_logits, y_gen, mask=mask)
             return ce + alpha * reg, {"gen_ce": reg}
 
@@ -666,9 +700,9 @@ class FedGen(Algorithm):
 
     def client_finalize(self, model, params, x, y, mask, payload):
         c = payload["label_dist"].shape[0]
-        onehot = torch.nn.functional.one_hot(y.long(), c).to(torch.float32)
-        return {"head": params["fc"],
-                "label_counts": torch.sum(onehot * mask[:, None], dim=0)}
+        return {"head": params[model.head_key],
+                "label_counts": torch.sum(_one_hot(y, c) * mask[:, None],
+                                          dim=0)}
 
     def server_update(self, server, uploads, weights, model, val_batch=None,
                       n_clients=None):

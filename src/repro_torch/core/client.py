@@ -1,9 +1,14 @@
-"""Client side: one local step, and the whole-cohort local update.
+"""Client side: one local step, one client's masked pass, and the
+whole-cohort local update.
 
-The port of ``repro.core.client``'s ``make_step`` and
-``make_batched_local_update``.  ``make_step`` is one autograd pass of an
-algorithm's loss followed by the optimizer update; the sequential executor
-runs one per batch of one client (``mask=None``: every example counts).
+The port of ``repro.core.client``'s ``make_step``, ``make_local_update``
+and ``make_batched_local_update``.  ``make_step`` is one autograd pass of
+an algorithm's loss followed by the optimizer update; the sequential
+executor runs one per batch of one client (``mask=None``: every example
+counts).  ``make_local_update`` is one client's whole pass over a stacked
+``(S, B, ...)`` batch tensor with the two masks below, written with
+``torch.func`` so that the executor's vmapped round body can
+``torch.func.vmap`` it over a cohort.
 
 For client-batched models the global params are broadcast to a
 client-stacked ``(K, ...)`` copy, and each local step is one such step on
@@ -25,6 +30,7 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
+from torch.func import grad_and_value
 
 from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.tree import tree_flatten, tree_map
@@ -57,6 +63,46 @@ def make_step(loss_fn: Callable, opt: Optimizer) -> Callable:
                     tree_map(torch.Tensor.detach, metrics))
 
     return step
+
+
+def make_local_update(loss_fn: Callable, opt: Optimizer) -> Callable:
+    """One client's masked pass: ``local_update(params, payload,
+    client_state, xs (S, B, ...), ys, ex_mask (S, B), aux, step_mask (S,),
+    lr) -> (new_params, mean_loss)``.
+
+    Each step is ``torch.func.grad_and_value`` of ``loss_fn`` over the
+    params, then the optimizer; a step whose ``step_mask`` is False leaves
+    params and optimizer state bit-identical (``torch.where``), and the
+    loss is averaged over the live steps.  ``aux`` is the per-step dict
+    (leaves (S, B, ...)) or ``()``.  Pure in its tensor arguments, so it
+    composes with ``torch.func.vmap`` (the executor's vmapped round body).
+    """
+
+    def local_update(params: Any, payload: Any, client_state: Any,
+                     xs: torch.Tensor, ys: torch.Tensor,
+                     ex_mask: torch.Tensor, aux: Any,
+                     step_mask: torch.Tensor, lr: float):
+        opt_state = opt.init(params)
+        losses = []
+        for s in range(xs.shape[0]):
+            aux_s = _aux_or_none(tree_map(lambda l: l[s], aux))
+            grads, (loss, _) = grad_and_value(
+                lambda p: loss_fn(p, payload, client_state, xs[s], ys[s],
+                                  ex_mask[s], aux_s), has_aux=True)(params)
+            updates, o2 = opt.update(grads, opt_state, params, lr)
+            p2 = apply_updates(params, updates)
+            live = step_mask[s]
+            params = tree_map(lambda new, old: torch.where(live, new, old),
+                              p2, params)
+            opt_state = tree_map(lambda new, old: torch.where(live, new, old),
+                                 o2, opt_state)
+            losses.append(torch.where(live, loss, torch.zeros_like(loss)))
+        denom = torch.clamp(step_mask.to(torch.float32).sum(), min=1.0)
+        mean_loss = (torch.stack(losses).sum() / denom if losses
+                     else torch.zeros((), device=xs.device))
+        return params, mean_loss
+
+    return local_update
 
 
 def make_batched_local_update(batched_loss_fn: Callable,

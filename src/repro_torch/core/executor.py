@@ -4,38 +4,50 @@ Two of the reference's executors (``repro.core.executor``):
 
 ``SequentialExecutor`` — the reference loop, clients one at a time in
 cohort order, one ``client.make_step`` per batch, no padding and no masks.
-When the algorithm has a precompute stage (FedGKD: the teacher's logits),
-the teacher runs once over the client's whole shard, without autograd and
-in chunks, and is gathered by the batch picks to (S, B, ...).  After the
-last step it runs the algorithm's ``client_finalize`` over the whole shard
-(FedDistill+'s logit table, FedGen's head) and ``update_client_state``
-(MOON's previous model, FedDyn's dual state).
-``executor="auto"`` picks it for the text encoder (no client-batched form)
-and for a cohort of one.
+With the precompute stage on (``RoundContext.precompute``; ``run_federated``
+turns it off for this executor unless asked, as the reference does) the
+teacher runs once over the client's whole shard, without autograd and in
+chunks, and is gathered by the batch picks to (S, B, ...); off, the loss
+runs the teacher inline on each batch.  After the last step it runs the
+algorithm's ``client_finalize`` over the whole shard (FedDistill+'s logit
+table, FedGen's head) and ``update_client_state`` (MOON's previous model,
+FedDyn's dual state).
 
-``VmapExecutor`` on its client-batched route, which ``"auto"`` picks for
-ResNet-8 with every algorithm that has a ``batched_loss_fn`` (FedAvg,
-FedProx, FedGKD, FedGKD-VOTE, FedGKD+); the others (MOON, FedDistill+,
-SCAFFOLD, FedDyn, FedGen) have none and run sequentially.  Per round it
+``VmapExecutor`` — the whole cohort as one client-stacked program.  Per
+round it
 
   1. stacks each sampled client's FULL shard to (K, N_max, ...) and runs the
      algorithm's ``precompute_aux`` once over it, folding K into the batch
-     axis, without autograd, in chunks;
+     axis, without autograd, in chunks; where the algorithm splits it into
+     versioned parts (FedGKD-VOTE's M teachers, ``precompute_parts``) and
+     the caller passes client ids, only the parts with a version new to a
+     sampled client are computed, and the rest come from the cross-round
+     cache ``RoundContext.aux_cache``;
   2. draws every client's batch picks from the numpy generator in the
      reference's order (``materialize_picks``) and stacks them to
      (K, S, B, ...) with an example mask and a step mask;
-  3. gathers the precomputed rows per batch and runs the whole cohort's
-     local SGD as one client-stacked program
-     (``client.make_batched_local_update``).
+  3. trains the cohort by one of two bodies (``telemetry["round_body"]``):
+     ``"client_batched"`` — for a ``client_batched`` model (ResNet-8/50)
+     with an algorithm that has a ``batched_loss_fn``: the global params
+     broadcast to a (K, ...) stack and one step on the summed per-client
+     losses (``client.make_batched_local_update``), each conv one K-client
+     launch; ``"vmap"`` — otherwise, or with ``client_batched=False``:
+     ``torch.func.vmap`` of one client's masked pass
+     (``client.make_local_update``) over the cohort, with the kernels'
+     vmap rules folding the vmapped axis into their row or client axes;
+  4. runs ``client_finalize`` and ``update_client_state`` as
+     ``torch.func.vmap`` over the stacked params.
 
 Ragged clients are exact, not approximate: every batch of a client has
 ``min(B, n_k)`` examples, padded across clients to the cohort maximum
 behind a zero example mask, and a client with fewer steps gets whole
 padded steps that leave its params and optimizer state untouched.
 
-The vmapped round body (models without a client-batched form), the
-client hooks on the vmap executor, shard_map and async execution are not
-ported yet; asking for them raises.
+``executor="auto"`` picks the vmap executor for more than one sampled
+client of a ``vmap_friendly`` model (the MLP) or of a client-batched pair,
+the sequential executor otherwise (the text encoder; ResNet-8 with MOON,
+FedDistill+, SCAFFOLD, FedDyn or FedGen).  Shard_map and async execution
+are not ported yet; asking for them raises.
 """
 from __future__ import annotations
 
@@ -58,7 +70,13 @@ PRECOMPUTE_CHUNK = 1024
 
 @dataclasses.dataclass
 class RoundContext:
-    """Everything fixed across rounds that an executor needs."""
+    """Everything fixed across rounds that an executor needs.
+
+    ``precompute=False`` forces the inline (no-aux) loss path.
+    ``client_batched`` gates the vmap executor's client-batched round body:
+    ``"auto"`` uses it whenever the model is ``client_batched`` and the
+    algorithm has a ``batched_loss_fn``; ``False`` forces the vmapped
+    round body; ``True`` also raises where the pair has no such form."""
     algo: Algorithm
     model: ModelBundle
     opt: Optimizer
@@ -67,25 +85,42 @@ class RoundContext:
     epochs: int
     device: torch.device
     max_batches: Optional[int] = None
+    precompute: bool = True
+    client_batched: "bool | str" = "auto"
 
     def __post_init__(self):
-        self.step = client_lib.make_step(self.algo.loss_fn(self.model),
-                                         self.opt)
-        bloss = (self.algo.batched_loss_fn(self.model)
-                 if self.model.client_batched else None)
-        self.batched_local_update = (
-            None if bloss is None
-            else client_lib.make_batched_local_update(bloss, self.opt))
+        loss_fn = self.algo.loss_fn(self.model)
+        self.step = client_lib.make_step(loss_fn, self.opt)
+        # one client's masked pass, the vmapped round body's per-client fn
+        self.local_update = client_lib.make_local_update(loss_fn, self.opt)
+        self.batched_local_update = None
+        if self.client_batched in ("auto", True):
+            bloss = (self.algo.batched_loss_fn(self.model)
+                     if self.model.client_batched else None)
+            if bloss is not None:
+                self.batched_local_update = (
+                    client_lib.make_batched_local_update(bloss, self.opt))
+            elif self.client_batched is True:
+                raise ValueError(
+                    f"client_batched=True but model {self.model.name!r} / "
+                    f"algorithm {self.algo.name!r} has no client-batched "
+                    f"form (ModelBundle.client_batched + "
+                    f"Algorithm.batched_loss_fn)")
         # hooks left at the Algorithm defaults are no-ops: the executors
         # skip calling them
         cls = type(self.algo)
         self.has_precompute = (
-            cls.precompute_aux is not Algorithm.precompute_aux)
+            self.precompute
+            and cls.precompute_aux is not Algorithm.precompute_aux)
         self.has_finalize = (
             cls.client_finalize is not Algorithm.client_finalize)
         self.has_state_update = (
             cls.update_client_state is not Algorithm.update_client_state)
-        # which route and body ran: written by the executor, read by tests
+        # cross-round cache of precompute parts, per client id and part
+        # version: {cid: {key: (n, ...)}} (``VmapExecutor._incremental_aux``)
+        self.aux_cache: dict = {}
+        # which route and body ran, parts recomputed: written by the
+        # executor, read by tests and chip_smoke
         self.telemetry: dict = {}
 
 
@@ -140,9 +175,9 @@ def materialize_client(rng: np.random.Generator, data: ClientData,
     return MaterializedClient(data.x[sel], data.y[sel], data.n, sel)
 
 
-def _pad_and_stack(mats: list[MaterializedClient], device):
+def _pad_and_stack(mats: list[MaterializedClient]):
     """(K, S, B, ...) batches + example mask (K, S, B) + picks (K, S, B) +
-    step mask (K, S), on ``device``.  Padded picks point at row 0; the
+    step mask (K, S), as CPU tensors.  Padded picks point at row 0; the
     example mask zero-weights whatever they gather."""
     S = max(m.xs.shape[0] for m in mats)
     B = max(m.xs.shape[1] for m in mats)
@@ -160,7 +195,7 @@ def _pad_and_stack(mats: list[MaterializedClient], device):
         ex_mask[i, :s, :b] = 1.0
         picks[i, :s, :b] = m.picks
         step_mask[i, :s] = True
-    return tuple(torch.from_numpy(a).to(device)
+    return tuple(torch.from_numpy(a)
                  for a in (xs, ys, ex_mask, picks, step_mask))
 
 
@@ -245,9 +280,23 @@ class SequentialExecutor:
         return RoundResult(uploads, weights, losses, new_states)
 
 
+def _tree_stack(trees: list) -> Any:
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _tree_unstack(tree: Any, k: int) -> list:
+    return [tree_map(lambda l, i=i: l[i], tree) for i in range(k)]
+
+
+def _fold(t: torch.Tensor) -> torch.Tensor:
+    """(K, N, ...) -> (K·N, ...)."""
+    return t.reshape((-1,) + tuple(t.shape[2:]))
+
+
 class VmapExecutor:
-    """The reference's batched executor, on its client-batched route: one
-    client-stacked program trains the whole cohort."""
+    """The reference's batched executor: one client-stacked program trains
+    the whole cohort, on the client-batched route or through the vmapped
+    round body."""
 
     name = "vmap"
 
@@ -256,46 +305,126 @@ class VmapExecutor:
         """``precompute_aux`` over (K, N_max) shards with K folded into the
         batch axis: leaves (K, N_max, ...)."""
         k, n = fx.shape[0], fx.shape[1]
-        flat = [t.reshape((k * n,) + tuple(t.shape[2:])) for t in (fx, fy, fmask)]
         return tree_map(lambda l: l.reshape((k, n) + tuple(l.shape[1:])),
-                        _precompute_rows(ctx, payload, *flat))
+                        _precompute_rows(ctx, payload, _fold(fx), _fold(fy),
+                                         _fold(fmask)))
+
+    @staticmethod
+    def _part_rows(ctx: RoundContext, part_payload, fx):
+        """``precompute_part`` over (K, N_max) shards, K folded into the
+        rows, PRECOMPUTE_CHUNK rows a call: (K, N_max, ...)."""
+        k, n = fx.shape[0], fx.shape[1]
+        flat = _fold(fx)
+        with torch.no_grad():
+            out = torch.cat([
+                ctx.algo.precompute_part(ctx.model, part_payload,
+                                         flat[lo:lo + PRECOMPUTE_CHUNK])
+                for lo in range(0, flat.shape[0], PRECOMPUTE_CHUNK)])
+        return out.reshape((k, n) + tuple(out.shape[1:]))
+
+    def _incremental_aux(self, ctx: RoundContext, payload, parts_spec,
+                         client_ids, client_data, full):
+        """The precompute through the cross-round part cache: only the
+        parts whose version key is new for some sampled client are
+        computed (steady state: ONE teacher forward over the stacked
+        cohort a round instead of M), each once over the (K, N_max) stack;
+        then the parts are folded by ``precompute_combine``.  Cached values
+        are the part's outputs over the client's real rows."""
+        keys, get_part = parts_spec
+        fx, fy, fmask = full
+        k, n_max = fx.shape[0], fx.shape[1]
+        for cid in client_ids:
+            ctx.aux_cache.setdefault(cid, {})
+        fresh: dict = {}                 # freshly computed parts, by key
+        for m, key in enumerate(keys):
+            if key in fresh or all(key in ctx.aux_cache[cid]
+                                   for cid in client_ids):
+                continue
+            fresh[key] = self._part_rows(ctx, get_part(m), fx)
+            ctx.telemetry["parts_computed"] = (
+                ctx.telemetry.get("parts_computed", 0) + 1)
+            for i, (cid, d) in enumerate(zip(client_ids, client_data)):
+                ctx.aux_cache[cid].setdefault(key, fresh[key][i, :d.n])
+        keyset = set(keys)
+        slabs = dict(fresh)
+        for key in keyset - set(fresh):  # (K, N_max, ...) from the cache
+            rows = [ctx.aux_cache[cid][key] for cid in client_ids]
+            slabs[key] = rows[0].new_zeros((k, n_max) + tuple(rows[0].shape[1:]))
+            for i, r in enumerate(rows):
+                slabs[key][i, :r.shape[0]] = r
+        parts = torch.stack([slabs[key] for key in keys])   # (P, K, N_max, .)
+        # drop the versions that rotated out of the key set
+        for cid in client_ids:
+            ctx.aux_cache[cid] = {kk: v for kk, v in ctx.aux_cache[cid].items()
+                                  if kk in keyset}
+        with torch.no_grad():
+            aux = ctx.algo.precompute_combine(
+                payload, parts.reshape((len(keys), k * n_max)
+                                       + tuple(parts.shape[3:])),
+                _fold(fx), _fold(fy), _fold(fmask))
+        return tree_map(lambda l: l.reshape((k, n_max) + tuple(l.shape[1:])),
+                        aux)
 
     def run_round(self, ctx: RoundContext, global_params, payload,
                   client_states, client_data, rng: np.random.Generator,
                   client_ids=None) -> RoundResult:
         ctx.telemetry["route"] = "vmap"
-        if ctx.batched_local_update is None:
-            raise NotImplementedError(
-                "the vmapped round body (models or algorithms without a "
-                "client-batched form) is not ported yet (ROADMAP A8b part 2)")
-        if ctx.has_finalize or ctx.has_state_update:
-            raise NotImplementedError(
-                f"{ctx.algo.name}: client_finalize / update_client_state on "
-                f"the vmap executor are not ported yet (ROADMAP A8b part 2); "
-                f"use the sequential executor")
-        ctx.telemetry["round_body"] = "client_batched"
+        batched = ctx.batched_local_update is not None
+        ctx.telemetry["round_body"] = "client_batched" if batched else "vmap"
+        dev = ctx.device
         k = len(client_data)
-        aux_full = None
+        full = aux_full = None
+        if ctx.has_precompute or ctx.has_finalize:
+            full = _pad_full_data(client_data, dev)
         if ctx.has_precompute:
             # the teacher forward needs no batch picks: it goes first, as in
             # the reference, so the device works while the host pads below
-            aux_full = self._precompute(ctx, payload,
-                                        *_pad_full_data(client_data, ctx.device))
+            parts_spec = (ctx.algo.precompute_parts(payload)
+                          if client_ids is not None else None)
+            aux_full = (self._incremental_aux(ctx, payload, parts_spec,
+                                              client_ids, client_data, full)
+                        if parts_spec is not None
+                        else self._precompute(ctx, payload, *full))
         mats = [materialize_client(rng, d, ctx.batch_size, ctx.epochs,
                                    ctx.max_batches) for d in client_data]
-        xs, ys, ex_mask, picks, step_mask = _pad_and_stack(mats, ctx.device)
-        states = tuple(client_states)
-        aux = ()
+        host = _pad_and_stack(mats)
+        xs, ys, ex_mask, picks, step_mask = (t.to(dev) for t in host)
+        aux = {}
         if ctx.has_precompute:
-            rows = torch.arange(k, device=ctx.device)[:, None, None]
+            rows = torch.arange(k, device=dev)[:, None, None]
             aux = tree_map(lambda l: l[rows, picks], aux_full)
-        params_stacked, mloss = ctx.batched_local_update(
-            global_params, payload, states, xs, ys, ex_mask, aux, step_mask,
-            ctx.lr)
-        uploads = [{"params": tree_map(lambda l, i=i: l[i], params_stacked)}
-                   for i in range(k)]
+        if batched:
+            params_stacked, mloss = ctx.batched_local_update(
+                global_params, payload, tuple(client_states), xs, ys, ex_mask,
+                aux or (), step_mask, ctx.lr)
+        else:
+            # inputs drawn on the host before the call (FedGen's noise): a
+            # value read back inside torch.func.vmap is an error
+            drawn = ctx.algo.host_step_inputs(payload, host[1], host[2])
+            if drawn:
+                aux = {**aux, **tree_map(lambda t: t.to(dev), drawn)}
+            body = torch.func.vmap(ctx.local_update,
+                                   in_dims=(None, None, 0, 0, 0, 0, 0, 0,
+                                            None))
+            params_stacked, mloss = body(
+                global_params, payload, _tree_stack(client_states), xs, ys,
+                ex_mask, aux or (), step_mask, ctx.lr)
+        extras = [{}] * k
+        if ctx.has_finalize:
+            fx, fy, fmask = full
+            extras = _tree_unstack(torch.func.vmap(
+                lambda p, x, y, m: ctx.algo.client_finalize(
+                    ctx.model, p, x, y, m, payload))(params_stacked, fx, fy,
+                                                     fmask), k)
+        new_states = list(client_states)
+        if ctx.has_state_update:
+            new_states = _tree_unstack(torch.func.vmap(
+                lambda st, p: ctx.algo.update_client_state(st, p, payload))(
+                    _tree_stack(client_states), params_stacked), k)
+        uploads = [{"params": p, **e}
+                   for p, e in zip(_tree_unstack(params_stacked, k), extras)]
         return RoundResult(uploads, [float(m.n) for m in mats],
-                           mloss.cpu().tolist(), list(client_states))
+                           mloss.cpu().tolist(), new_states)
 
 
 _EXECUTORS = {"sequential": SequentialExecutor, "vmap": VmapExecutor}
@@ -309,18 +438,21 @@ def available() -> list[str]:
     return sorted(_EXECUTORS) + ["auto"]
 
 
-def get_executor(spec, algo: Algorithm, n_sample: int, model: ModelBundle):
-    """Resolve an executor spec.  ``"auto"`` picks the vmap executor's
-    client-batched route when the algorithm ``supports_vmap``, more than
-    one client is sampled and the model is ``client_batched`` with an
-    algorithm that has ``batched_loss_fn``; the sequential executor
-    otherwise.  Instances pass through."""
+def get_executor(spec, algo: Algorithm, n_sample: int,
+                 model: Optional[ModelBundle] = None):
+    """Resolve an executor spec.  ``"auto"`` picks the vmap executor when
+    the algorithm ``supports_vmap``, more than one client is sampled and
+    the model batches well: it is ``vmap_friendly`` (the MLP: the vmapped
+    round body), or it is ``client_batched`` and the algorithm has a
+    ``batched_loss_fn`` (ResNet-8/50: the client-batched route); the
+    sequential executor otherwise.  Instances pass through."""
     if not isinstance(spec, str):
         return spec
     if spec == "auto":
-        batched_ok = (algo.supports_vmap and n_sample > 1
-                      and model.client_batched
-                      and algo.batched_loss_fn(model) is not None)
+        model_ok = (model is None or model.vmap_friendly
+                    or (model.client_batched
+                        and algo.batched_loss_fn(model) is not None))
+        batched_ok = algo.supports_vmap and n_sample > 1 and model_ok
         spec = "vmap" if batched_ok else "sequential"
     if spec in _EXECUTORS:
         return _EXECUTORS[spec]()

@@ -90,21 +90,31 @@ def evaluate(model: ModelBundle, params: Any, x: np.ndarray, y: np.ndarray,
 def run_federated(task: PaperTask, algo: Algorithm,
                   data: Optional[FederatedData] = None, *,
                   population=None, rounds: Optional[int] = None,
-                  seed: int = 0,
+                  seed: int = 0, eval_every: int = 1,
                   max_batches_per_client: Optional[int] = None,
-                  width: int = 16,
+                  verbose: bool = False, width: int = 16,
                   round_callback=None, dp=None, executor="auto",
+                  precompute="auto", client_batched="auto",
                   faults=None, checkpoint_dir: Optional[str] = None,
                   device=None) -> History:
     """Run T communication rounds of ``algo`` on the partitioned data.
 
     The arguments mean what they mean in the reference; ``data`` holds
-    images or int32 token sequences, and ``width`` is ResNet-8's (the text
-    encoder takes its width from the task).  The options the port does
-    not have yet raise ``NotImplementedError``: ``population=`` (ROADMAP
-    A12), ``faults=`` (A10), ``checkpoint_dir=`` (A11), ``dp=`` (A14), the
-    vmapped round body and the shard_map and async executors (A8b, A10,
-    A13).  ``device`` defaults to ``"cuda"``.
+    images, tabular rows or int32 token sequences, and ``width`` is
+    ResNet-8's and the MLP's (the text encoder takes its width from the
+    task, ResNet-50 has none).  ``eval_every``: the test set is evaluated
+    every that many rounds and after the last; the rounds between repeat
+    the last evaluation (0.0 before the first).  ``verbose`` prints the
+    executor's route after round 1 and one line a round.  ``precompute``:
+    the round-level teacher-precompute stage; ``"auto"`` turns it on
+    unless the resolved executor is the sequential one.
+    ``client_batched``: the vmap executor's client-batched round body
+    (``"auto"``, ``True`` or ``False``, which forces the vmapped body; see
+    ``executor.RoundContext``).  The options the port does not have yet
+    raise ``NotImplementedError``: ``population=`` (ROADMAP A12),
+    ``faults=`` (A10), ``checkpoint_dir=`` (A11), ``dp=`` (A14) and the
+    shard_map and async executors (A13, A10).  ``device`` defaults to
+    ``"cuda"``.
     """
     for arg, value, item in (("population", population, "A12"),
                              ("faults", faults, "A10"),
@@ -139,10 +149,13 @@ def run_federated(task: PaperTask, algo: Algorithm,
 
     n_sample = max(1, int(round(task.participation * data.n_clients)))
     exec_ = executor_lib.get_executor(executor, algo, n_sample, model)
+    if precompute == "auto":
+        precompute = exec_.name != "sequential"
     ctx = executor_lib.RoundContext(
         algo=algo, model=model, opt=opt, lr=task.lr,
         batch_size=task.batch_size, epochs=task.local_epochs, device=dev,
-        max_batches=max_batches_per_client)
+        max_batches=max_batches_per_client, precompute=bool(precompute),
+        client_batched=client_batched)
     client_states = {k: algo.init_client_state(k, global_params)
                      for k in range(data.n_clients)}
     # a small server-side validation split: FedGKD-VOTE's coefficients
@@ -167,8 +180,16 @@ def run_federated(task: PaperTask, algo: Algorithm,
             client_states[k] = new_state
         server = algo.server_update(server, uploads, weights, model,
                                     val_batch, n_clients=data.n_clients)
+        if verbose and t == 0:
+            print(f"[{algo.name}] executor route: "
+                  f"{ctx.telemetry.get('route', exec_.name)}")
 
-        acc, loss = evaluate(model, server["global"], data.test_x, data.test_y)
+        if (t + 1) % eval_every == 0 or t == rounds - 1:
+            acc, loss = evaluate(model, server["global"], data.test_x,
+                                 data.test_y)
+        else:
+            acc, loss = ((records[-1].test_acc, records[-1].test_loss)
+                         if records else (0.0, 0.0))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         records.append(RoundRecord(t + 1, acc, loss,
@@ -176,6 +197,9 @@ def run_federated(task: PaperTask, algo: Algorithm,
                                    time.time() - t0, sampled=tuple(cids)))
         if round_callback is not None:
             round_callback(t + 1, server, model)
+        if verbose:
+            print(f"[{algo.name}] round {t + 1:3d}/{rounds} acc={acc:.4f} "
+                  f"loss={loss:.4f} local={np.mean(local_losses):.4f}")
 
     # paper Fig.2-style: accuracy of the last trained LOCAL model
     local_acc, _ = evaluate(model, uploads[-1]["params"], data.test_x,

@@ -1,11 +1,14 @@
-"""Classifier bundles for the paper's tasks: ResNet-8 (CIFAR) and the
-DistilBERT-class text encoder (AG News, SST5).
+"""Classifier bundles for the paper's tasks: ResNet-8 (CIFAR), ResNet-50
+(Tiny-ImageNet), the DistilBERT-class text encoder (AG News, SST5) and the
+TOY task's MLP.
 
 A ``ModelBundle`` exposes init/apply/features so the FL algorithms can
 drive a backbone.  ``client_batched`` says apply/features consume
 client-stacked params natively, which unlocks the executor's
-client-batched round body (the text encoder has none, so it trains
-through the sequential executor).
+client-batched round body (ResNet-8 and ResNet-50).  ``vmap_friendly``
+says the model is cheap to ``torch.func.vmap`` over stacked per-client
+weights (the MLP: its dense layers become batched matmuls), which
+``executor="auto"`` reads, as the reference's does.
 """
 from __future__ import annotations
 
@@ -25,7 +28,11 @@ class ModelBundle:
     apply: Callable             # (params, x) -> logits (B, C)
     features: Callable          # (params, x) -> penultimate features (B, F)
     has_projection_head: bool = False
+    vmap_friendly: bool = True
     client_batched: bool = False
+    # the params key of the classifier layer: ``apply`` is
+    # ``layers.dense(params[head_key], features(params, x))``
+    head_key: str = "fc"
 
 
 def _text_classifier(task: PaperTask, projection_head: bool) -> ModelBundle:
@@ -58,23 +65,37 @@ def _text_classifier(task: PaperTask, projection_head: bool) -> ModelBundle:
         return layers.dense(params["fc"], features(params, x))
 
     return ModelBundle(f"distilbert-{task.name}", init, apply, features,
-                       projection_head)
+                       projection_head, vmap_friendly=False)
 
 
 def make_model(task: PaperTask, projection_head: bool = False,
                width: int = 16) -> ModelBundle:
-    """Build the paper's backbone for a task (``width`` is ResNet-8's; the
-    text encoder takes its width from the task), with the MOON / FedGKD+
-    projection head where ``projection_head`` is set."""
+    """Build the paper's backbone for a task (``width`` is ResNet-8's and
+    sets the MLP's hidden widths, 4·width; ResNet-50 has no width knob and
+    the text encoder takes its width from the task), with the MOON /
+    FedGKD+ projection head where ``projection_head`` is set (the MLP has
+    none, as in the reference)."""
     if task.model == "resnet8":
         return ModelBundle(
             "resnet8",
             lambda gen: resnet.resnet8_init(gen, task.num_classes, width=width,
                                             projection_head=projection_head),
             resnet.resnet8_apply, resnet.resnet8_features, projection_head,
-            client_batched=True)
+            vmap_friendly=False, client_batched=True)
+    if task.model == "resnet50":
+        return ModelBundle(
+            "resnet50",
+            lambda gen: resnet.resnet50_init(gen, task.num_classes,
+                                             projection_head=projection_head),
+            resnet.resnet50_apply, resnet.resnet50_features, projection_head,
+            vmap_friendly=False, client_batched=True)
+    if task.model == "mlp":
+        h = 4 * width                    # width=16 default -> [64, 64]
+        return ModelBundle(
+            "mlp",
+            lambda gen: resnet.mlp_init(gen, task.feat_dim, [h, h],
+                                        task.num_classes),
+            resnet.mlp_apply, resnet.mlp_features, False, head_key="fc2")
     if task.model == "distilbert":
         return _text_classifier(task, projection_head)
-    raise NotImplementedError(
-        f"model {task.model!r} is not ported yet (ROADMAP A8b); the port "
-        f"has resnet8 and distilbert")
+    raise ValueError(f"unknown model {task.model!r}")

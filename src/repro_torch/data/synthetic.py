@@ -1,12 +1,13 @@
-"""Synthetic image and text datasets and LM token streams (offline
-stand-ins), numpy only.
+"""Synthetic image, text and tabular datasets and LM token streams
+(offline stand-ins), numpy only.
 
-A copy of the image and text generators and of ``lm_token_batches`` of
-``repro.data.synthetic``: the same seed gives byte-identical arrays.  Image (CIFAR): each class has a
-low-frequency template (random Fourier features); a sample is the template
+A copy of the generators and of ``lm_token_batches`` of
+``repro.data.synthetic``: the same seed gives byte-identical arrays.
+Image (CIFAR, Tiny-ImageNet): each class has a low-frequency template (random Fourier features); a sample is the template
 times a random contrast, plus a per-class channel bias, Gaussian noise and
 a random circular shift.  Text (AG News, SST5): int32 token sequences from
-a Zipfian background with class-indicative keywords mixed in.
+a Zipfian background with class-indicative keywords mixed in.  Tabular
+(TOY): Gaussian class blobs under a shared random rotation.
 """
 from __future__ import annotations
 
@@ -83,18 +84,38 @@ class SyntheticTextTask:
         return toks.astype(np.int32), labels.astype(np.int64)
 
 
+@dataclasses.dataclass(frozen=True)
+class SyntheticTabularTask:
+    """Gaussian class blobs under a shared random rotation: the light MLP
+    workload of the TOY task."""
+    num_classes: int
+    dim: int = 16
+    noise: float = 1.0
+    seed: int = 0
+
+    def generate(self, n: int, seed: int | None = None):
+        rng = np.random.default_rng(self.seed if seed is None else seed)
+        # class means fixed by a task-level rng so train/test share them
+        mrng = np.random.default_rng(self.seed + 77)
+        means = mrng.normal(0, 1, size=(self.num_classes, self.dim))
+        means *= 2.0 / (np.linalg.norm(means, axis=1, keepdims=True) + 1e-9)
+        rot, _ = np.linalg.qr(mrng.normal(0, 1, (self.dim, self.dim)))
+        labels = rng.integers(0, self.num_classes, size=n)
+        x = means[labels] + rng.normal(0, self.noise, (n, self.dim))
+        return (x @ rot).astype(np.float32), labels.astype(np.int64)
+
+
 def make_task_data(task: PaperTask, n_train: int, n_test: int, seed: int = 0):
-    """Generate (train_x, train_y, test_x, test_y) for an image or text
-    task; tabular data (the TOY task) is not ported yet (ROADMAP A8b)."""
+    """Generate (train_x, train_y, test_x, test_y) for an image, tabular or
+    text task."""
     if task.kind == "image":
         gen = SyntheticImageTask(task.num_classes, hw=task.image_hw, seed=seed)
-    elif task.kind == "text":
+    elif task.kind == "tabular":
+        gen = SyntheticTabularTask(task.num_classes, dim=task.feat_dim,
+                                   seed=seed)
+    else:
         gen = SyntheticTextTask(task.num_classes, vocab_size=task.vocab_size,
                                 seq_len=task.seq_len, seed=seed)
-    else:
-        raise NotImplementedError(
-            f"{task.kind!r} task data is not ported yet (ROADMAP A8b); the "
-            f"port generates image and text tasks")
     xtr, ytr = gen.generate(n_train, seed=seed)
     xte, yte = gen.generate(n_test, seed=seed + 10_000)
     return xtr, ytr, xte, yte

@@ -15,6 +15,11 @@ kernel recounts its shared memory and refuses a plan that disagrees.
 Backward: ``ref.grouped_conv_dx`` and ``ref.shift_gemm_dw``, per-tap
 K-batched matmuls on either device, as the reference's custom VJP computes
 them outside Pallas.
+
+Under ``torch.func.vmap`` (the executor's vmapped round body, the vmapped
+client hooks) the Function's vmap rule folds the vmapped axis into K: a
+vmapped single-client conv, K=1, becomes one launch over every vmapped
+client.  The backward is plain PyTorch and is vmapped as it stands.
 """
 from __future__ import annotations
 
@@ -167,23 +172,45 @@ def grouped_conv_fwd(x: torch.Tensor, w: torch.Tensor, stride: int,
 
 class _ClientBatchedConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, stride: int, padding: str):
-        ctx.save_for_backward(x, w)
-        ctx.stride, ctx.padding = stride, padding
+    def forward(x, w, stride: int, padding: str):
         return grouped_conv_fwd(x, w, stride, padding)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, stride, padding = inputs
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.padding = stride, padding
+
+    @staticmethod
     def backward(ctx, dy):
+        # plain PyTorch ops only, so the backward runs under torch.func.vmap;
+        # the named ranges let a profile total each gradient's device time
         x, w = ctx.saved_tensors
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = ref.grouped_conv_dx(dy, w, ctx.stride, x.shape[2],
-                                     x.shape[3], ctx.padding)
+            with torch.profiler.record_function("grouped_conv_dx"):
+                dx = ref.grouped_conv_dx(dy, w, ctx.stride, x.shape[2],
+                                         x.shape[3], ctx.padding)
         if ctx.needs_input_grad[1]:
-            dw = ref.shift_gemm_dw(x, dy, ctx.stride, w.shape[1], w.shape[2],
-                                   ctx.padding)
+            with torch.profiler.record_function("grouped_conv_dw"):
+                dw = ref.shift_gemm_dw(x, dy, ctx.stride, w.shape[1],
+                                       w.shape[2], ctx.padding)
         return dx, dw, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, stride, padding):
+        """Fold the vmapped axis B into the client axis: (B, K, ...) ->
+        (B·K, ...), one launch for every client of every vmapped slice
+        (an argument that is not vmapped is broadcast over B first)."""
+        b = info.batch_size
+        folded = []
+        for t, d in zip((x, w), in_dims[:2]):
+            t = (t.expand((b,) + tuple(t.shape)) if d is None
+                 else t.movedim(d, 0))
+            folded.append(t.reshape((-1,) + tuple(t.shape[2:])))
+        y = _ClientBatchedConv.apply(*folded, stride, padding)
+        return y.reshape((b, -1) + tuple(y.shape[1:])), 0
 
 
 def client_batched_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,

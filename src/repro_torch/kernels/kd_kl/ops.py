@@ -13,6 +13,12 @@ g·softmax(l / T) / T.
 On a CUDA tensor the wrappers launch the kernels of ``csrc/kd_kl.cu``
 (built at first use) and raise if a launch fails; on a CPU tensor they take
 the plain versions in ``ref.py``.  Nothing falls back from one to the other.
+
+Under ``torch.func`` (``grad``, ``vmap`` and their compositions, as the
+executor's vmapped round body runs them) the Functions' vmap rules fold
+the vmapped axis into the row axis — B1, B2 and B6 are row-wise, so that
+is exact — and launch the same kernels once over all rows; B1's backward
+runs B2 through a Function of its own for the same reason.
 """
 from __future__ import annotations
 
@@ -75,19 +81,69 @@ def kd_kl_bwd(lt, ls, lse_t, lse_s, g, temperature: float) -> torch.Tensor:
     return dls
 
 
-class _KdKlRows(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, lt, ls, temperature: float):
-        kl, lse_t, lse_s = kd_kl_fwd(lt, ls, temperature)
-        ctx.save_for_backward(lt, ls, lse_t, lse_s)
-        ctx.temperature = temperature
-        return kl
+def _fold_rows(info, in_dims, *args):
+    """The vmap rules' common step: each tensor argument with its vmapped
+    axis moved to the front (broadcast there where it is not vmapped) and
+    folded into the row axis, (B, T, ...) -> (B·T, ...).  The kernels are
+    row-wise, so this is exact."""
+    out = []
+    for a, d in zip(args, in_dims):
+        a = (a.expand((info.batch_size,) + tuple(a.shape)) if d is None
+             else a.movedim(d, 0))
+        out.append(a.reshape((-1,) + tuple(a.shape[2:])))
+    return out
+
+
+class _KdKlBwd(torch.autograd.Function):
+    """B2 as a Function of its own, so that B1's backward is made of
+    Functions with vmap rules and runs under ``torch.func.vmap`` of
+    ``torch.func.grad`` (a kernel has no batched form of its pointers)."""
 
     @staticmethod
-    def backward(ctx, g):
+    def forward(lt, ls, lse_t, lse_s, g, temperature: float):
+        return kd_kl_bwd(lt, ls, lse_t, lse_s, g.contiguous(), temperature)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, lt, ls, lse_t, lse_s, g, temperature):
+        b = info.batch_size
+        flat = _fold_rows(info, in_dims[:5], lt, ls, lse_t, lse_s, g)
+        dls = _KdKlBwd.apply(*flat, temperature)
+        return dls.reshape((b, -1) + tuple(dls.shape[1:])), 0
+
+
+class _KdKlRows(torch.autograd.Function):
+    """B1 forward, B2 backward; the row logsumexps ride out as outputs the
+    loss does not differentiate (a Function under ``torch.func`` may save
+    only its inputs and outputs)."""
+
+    @staticmethod
+    def forward(lt, ls, temperature: float):
+        return kd_kl_fwd(lt, ls, temperature)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        lt, ls, temperature = inputs
+        _, lse_t, lse_s = output
+        ctx.mark_non_differentiable(lse_t, lse_s)
+        ctx.save_for_backward(lt, ls, lse_t, lse_s)
+        ctx.temperature = temperature
+
+    @staticmethod
+    def backward(ctx, g, _g_lse_t, _g_lse_s):
         lt, ls, lse_t, lse_s = ctx.saved_tensors
-        dls = kd_kl_bwd(lt, ls, lse_t, lse_s, g.contiguous(), ctx.temperature)
+        dls = _KdKlBwd.apply(lt, ls, lse_t, lse_s, g, ctx.temperature)
         return None, dls.to(ls.dtype), None
+
+    @staticmethod
+    def vmap(info, in_dims, lt, ls, temperature):
+        b = info.batch_size
+        kl, lse_t, lse_s = _KdKlRows.apply(
+            *_fold_rows(info, in_dims[:2], lt, ls), temperature)
+        return tuple(t.reshape(b, -1) for t in (kl, lse_t, lse_s)), (0, 0, 0)
 
 
 def kd_kl_loss(teacher_logits: torch.Tensor, student_logits: torch.Tensor,
@@ -99,7 +155,7 @@ def kd_kl_loss(teacher_logits: torch.Tensor, student_logits: torch.Tensor,
                          f"{tuple(student_logits.shape)}")
     lt = teacher_logits.detach().reshape(-1, shape[-1])
     ls = student_logits.reshape(-1, shape[-1])
-    return _KdKlRows.apply(lt, ls, float(temperature)).reshape(shape[:-1])
+    return _KdKlRows.apply(lt, ls, float(temperature))[0].reshape(shape[:-1])
 
 
 def row_lse_fwd(logits: torch.Tensor, temperature: float) -> torch.Tensor:
@@ -121,11 +177,14 @@ def row_lse_fwd(logits: torch.Tensor, temperature: float) -> torch.Tensor:
 
 class _RowLogsumexp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits, temperature: float):
-        lse = row_lse_fwd(logits, temperature)
-        ctx.save_for_backward(logits, lse)
+    def forward(logits, temperature: float):
+        return row_lse_fwd(logits, temperature)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        logits, temperature = inputs
+        ctx.save_for_backward(logits, output)
         ctx.temperature = temperature
-        return lse
 
     @staticmethod
     def backward(ctx, g):
@@ -134,6 +193,12 @@ class _RowLogsumexp(torch.autograd.Function):
         # in place after the first op: one (T, V) temporary, not four
         grad = (logits.to(torch.float32) / t).sub_(lse[:, None]).exp_()
         return grad.mul_((g / t)[:, None]).to(logits.dtype), None
+
+    @staticmethod
+    def vmap(info, in_dims, logits, temperature):
+        (flat,) = _fold_rows(info, in_dims[:1], logits)
+        return _RowLogsumexp.apply(flat, temperature).reshape(
+            info.batch_size, -1), 0
 
 
 def row_logsumexp(logits: torch.Tensor, *, temperature: float = 1.0) -> torch.Tensor:

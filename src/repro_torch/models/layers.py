@@ -1,8 +1,8 @@
-"""Core layers over plain-dict params: initializers, dense, norms,
-embeddings, rotary position embeddings and the GELU MLP.
+"""Core layers over plain-dict params: initializers, dense, norms, the
+SAME max-pool, embeddings, rotary position embeddings and the GELU MLP.
 
-The port of the parts of ``repro.models.layers`` that ResNet-8, the
-DistilBERT-class text encoder and the Mamba-2 LM use.  Dense weights are
+The port of the parts of ``repro.models.layers`` that ResNet-8/50, the
+TOY MLP, the DistilBERT-class text encoder and the Mamba-2 LM use.  Dense weights are
 ``(in, out)`` and applied as ``x @ w``; client-stacked params (``w``
 (K, in, out), ``b`` (K, out)) against ``x`` (K, B, in) ride the same line
 as a K-batched matmul.
@@ -72,6 +72,24 @@ def groupnorm(params: Params, x: torch.Tensor, num_groups: int,
         scale = scale[:, None, None, None, :]
         bias = bias[:, None, None, None, :]
     return (x * scale + bias).to(dtype)
+
+
+def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """Max over ``window`` x ``window`` windows of ``(..., H, W, C)`` with
+    JAX's SAME padding by ``-inf`` (``lax.reduce_window`` with ``"SAME"``):
+    ``lo = pad // 2`` before and the rest after, so 3x3 stride 2 on 32
+    pads (0, 1), where ``max_pool2d(padding=1)`` would pad (1, 1) and
+    shift every window by one.  Any leading axes; ``torch.func.vmap``-safe."""
+    *lead, h, w, c = x.shape
+    pads = []
+    for size in (w, h):                     # F.pad lists the last axis first
+        out = -(-size // stride)
+        pad = max((out - 1) * stride + window - size, 0)
+        pads += [pad // 2, pad - pad // 2]
+    y = torch.nn.functional.pad(x.movedim(-1, -3), pads, value=-math.inf)
+    y = torch.nn.functional.max_pool2d(y.reshape((-1,) + tuple(y.shape[-3:])),
+                                       window, stride)
+    return y.reshape(tuple(lead) + tuple(y.shape[-3:])).movedim(-3, -1)
 
 
 def layernorm_init(d: int) -> Params:

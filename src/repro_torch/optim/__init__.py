@@ -1,4 +1,6 @@
 from repro_torch.optim.optimizers import (AdamState, Optimizer, adam,
-                                          apply_updates, sgd)
+                                          apply_updates, clip_by_global_norm,
+                                          global_norm, sgd)
 
-__all__ = ["AdamState", "Optimizer", "adam", "apply_updates", "sgd"]
+__all__ = ["AdamState", "Optimizer", "adam", "apply_updates",
+           "clip_by_global_norm", "global_norm", "sgd"]

@@ -33,6 +33,18 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
 
 
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                          for x in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """Scale every leaf by min(1, max_norm / (global_norm + 1e-9))."""
+    scale = torch.clamp(max_norm / (global_norm(grads) + 1e-9), max=1.0)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads)
+
+
 def sgd(momentum: float = 0.0, weight_decay: float = 0.0,
         nesterov: bool = False) -> Optimizer:
     """SGD with optional heavy-ball momentum and coupled L2 weight decay —

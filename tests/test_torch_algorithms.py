@@ -611,26 +611,46 @@ def test_auto_executor_matches_reference(model_name, n_sample):
 
 
 def test_vmap_executor_refuses_the_client_hooks():
+    """The vmap executor no longer refuses the five algorithms with client
+    hooks: with no client-stacked loss they take the vmapped round body,
+    and ``client_finalize`` / ``update_client_state`` run as
+    ``torch.func.vmap`` over the stacked params.  A round of 2 clients
+    (every batch full, so FedGen draws at one batch size on both routes)
+    equals the sequential executor's: uploads, states and losses."""
+    data = fixture_data()[3]
+    clients = [data.clients[i] for i in (1, 2)]            # 9 and 12 rows
     for name in ("moon", "feddistill+", "fedgen", "feddyn", "scaffold"):
         algo = algorithms.make(name)
         m = models(algo.needs_projection_head)[1]
-        ctx = executor.RoundContext(algo=algo, model=m, opt=sgd(), lr=0.1,
-                                    batch_size=8, epochs=1,
-                                    device=torch.device("cpu"))
-        # none of them has a client-stacked loss, so the batched body is
-        # missing
-        with pytest.raises(NotImplementedError, match="A8b part 2"):
-            executor.VmapExecutor().run_round(ctx, None, (), [], [], None)
-        # SCAFFOLD keeps the default hooks: its c_k never changes on the
-        # client (the control variates move in server_update)
-        assert (ctx.has_finalize or ctx.has_state_update) == (
-            name != "scaffold")
-        if name == "scaffold":
-            continue
-        # with a body supplied, the hooks still refuse
-        ctx.batched_local_update = object()
-        with pytest.raises(NotImplementedError, match="A8b part 2"):
-            executor.VmapExecutor().run_round(ctx, None, (), [], [], None)
+        init = T(reference_init(algo.needs_projection_head))
+        srv = (algo.init_server_with_probe(init, m, C,
+                                           torch.from_numpy(clients[0].x[:2]))
+               if name == "fedgen" else algo.init_server(init, m, C))
+        payload = algo.round_payload(srv)
+        states = [algo.init_client_state(k, init) for k in (1, 2)]
+        out = {}
+        for exec_ in (executor.VmapExecutor(), executor.SequentialExecutor()):
+            ctx = executor.RoundContext(algo=algo, model=m, opt=sgd(), lr=0.1,
+                                        batch_size=8, epochs=1,
+                                        device=torch.device("cpu"))
+            assert ctx.batched_local_update is None
+            # SCAFFOLD keeps the default hooks: its c_k never changes on
+            # the client (the control variates move in server_update)
+            assert (ctx.has_finalize or ctx.has_state_update) == (
+                name != "scaffold")
+            out[exec_.name] = exec_.run_round(
+                ctx, init, payload, states, clients, np.random.default_rng(0),
+                client_ids=[1, 2])
+            if exec_.name == "vmap":
+                assert ctx.telemetry["round_body"] == "vmap"
+        v, s_ = out["vmap"], out["sequential"]
+        np.testing.assert_allclose(v.local_losses, s_.local_losses, rtol=0,
+                                   atol=TOL)
+        assert max_diff(bridge.params_to_numpy(v.uploads),
+                        bridge.params_to_numpy(s_.uploads)) < TOL
+        if name in ("moon", "feddyn"):
+            assert max_diff(bridge.params_to_numpy(v.client_states),
+                            bridge.params_to_numpy(s_.client_states)) < TOL
     ctx = executor.RoundContext(algo=algorithms.make("fedgkd"),
                                 model=models(False)[1], opt=sgd(), lr=0.1,
                                 batch_size=8, epochs=1,

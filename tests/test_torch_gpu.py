@@ -32,6 +32,7 @@ from repro_torch.kernels.kd_kl import ops as kd_ops  # noqa: E402
 from repro_torch.kernels.kd_kl import ref as kd_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
+from repro_torch.models.resnet import resnet50_convs  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-5
@@ -106,6 +107,74 @@ def test_grouped_conv_kernel_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert LAUNCHES["grouped_conv_fwd"] == before + 1
     _close(got, conv_ref.grouped_conv_ref(x, w, s, "SAME"))
+
+
+# ResNet-50's 23 distinct conv shapes at 64x64 inputs (H, Cin, Cout, k,
+# stride), each at the local step's K=4, N=64
+R50_CONVS = sorted({tuple(c[1:]) for c in resnet50_convs(64)})
+
+
+@pytest.mark.parametrize("shape", R50_CONVS, ids=str)
+def test_grouped_conv_kernel_at_resnet50_shapes(cuda, shape):
+    h, cin, cout, kk, s = shape
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(4, 64, h, h, cin, device=cuda, generator=gen)
+    w = torch.randn(4, kk, kk, cin, cout, device=cuda,
+                    generator=gen) / math.sqrt(kk * kk * cin)
+    before = LAUNCHES["grouped_conv_fwd"]
+    got = conv_ops.grouped_conv_fwd(x, w, s, "SAME")
+    torch.cuda.synchronize()
+    assert LAUNCHES["grouped_conv_fwd"] == before + 1
+    _close(got, conv_ref.grouped_conv_ref(x, w, s, "SAME"))
+
+
+def test_kd_kl_under_vmap_of_grad(cuda):
+    """B1/B2 under ``torch.func.vmap`` of ``grad`` over 8 clients: one
+    launch each for all of them, against the plain versions."""
+    from torch.func import grad, vmap
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    lt, ls = (torch.randn(8, 32, 10, device=cuda, generator=gen) * 2
+              for _ in range(2))
+    g = torch.randn(8, 32, device=cuda, generator=gen)
+    before = dict(LAUNCHES)
+    dls = vmap(grad(lambda b, a, w: torch.sum(kd_ops.kd_kl_loss(a, b) * w)))(
+        ls, lt, g)
+    torch.cuda.synchronize()
+    assert LAUNCHES["kd_kl_fwd"] == before["kd_kl_fwd"] + 1
+    assert LAUNCHES["kd_kl_bwd"] == before["kd_kl_bwd"] + 1
+    flat = [t.reshape(-1, 10) for t in (lt, ls)]
+    _, lse_t, lse_s = kd_ref.kd_kl_fwd_ref(*flat, 1.0)
+    _close(dls.reshape(-1, 10),
+           kd_ref.kd_kl_bwd_ref(*flat, lse_t, lse_s, g.reshape(-1), 1.0))
+
+
+@pytest.mark.parametrize("shape", [(16, 32, 64, 3, 2), (4, 1024, 256, 1, 1)],
+                         ids=str)
+def test_grouped_conv_under_vmap_of_grad(cuda, shape):
+    """B3 under ``torch.func.vmap`` of ``grad`` of a single-client conv over
+    K=4 clients: the rule folds the vmapped axis into K (one launch), and
+    the output and both gradients agree with the plain versions."""
+    from torch.func import grad, vmap
+
+    h, cin, cout, kk, s = shape
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(4, 16, h, h, cin, device=cuda, generator=gen)
+    w = torch.randn(4, kk, kk, cin, cout, device=cuda,
+                    generator=gen) / math.sqrt(kk * kk * cin)
+    oh = conv_ref.same_pads(h, kk, s)[0]
+    dy = torch.randn(4, 16, oh, oh, cout, device=cuda, generator=gen)
+
+    def one(xi, wi, dyi):
+        return torch.sum(conv_ops.client_batched_conv(
+            xi[None], wi[None], stride=s)[0] * dyi)
+
+    before = LAUNCHES["grouped_conv_fwd"]
+    dx, dw = vmap(grad(one, argnums=(0, 1)))(x, w, dy)
+    torch.cuda.synchronize()
+    assert LAUNCHES["grouped_conv_fwd"] == before + 1
+    _close(dx, conv_ref.grouped_conv_dx(dy, w, s, h, h, "SAME"))
+    _close(dw, conv_ref.shift_gemm_dw(x, dy, s, kk, kk, "SAME"))
 
 
 @pytest.mark.parametrize("case", [(2, 3, 11, 4, 4, 3, 2),

@@ -17,8 +17,10 @@ include path.  They are built with the port's ``nvcc`` flags into
 own (``repro_torch.kernels.build``).
 
 Both forms run on the same inputs at the ResNet-8 path's conv shapes
-(K=4, N=64; K=1 at N=256, 1024 and 788), at a 1x1 conv over 2,048 input
-channels (a deep reduction, for the error), at the text path's attention
+(K=4, N=64; K=1 at N=256, 1024 and 788), at ResNet-50's 23 distinct conv
+shapes at 64x64 (K=4, N=64; the group's totals count each shape as often
+as the network has it), at a 1x1 conv over 2,048 input channels (a deep
+reduction, for the error), at the text path's attention
 (B=64 and 256) and at the LM path's SSD scan (B = 4 and 8 of (B, 1023,
 80, 64, 1, 128, 256), inputs strided as ``mamba2_forward`` passes them).
 Each form's largest error against the plain version is printed beside its
@@ -54,7 +56,8 @@ ENTRY = {"grouped_conv.cu": "grouped_conv_fwd_f32",
          "ssd_scan.cu": "ssd_scan_fwd_f32"}
 SSD_BATCHES = (4, 8)       # the LM path's step and evaluation
 CONV_GROUPS = {"K=4 step": [(4, 64)], "K=1 eval": [(1, 256)],
-               "K=1 teacher": [(1, 1024), (1, 788)]}
+               "K=1 teacher": [(1, 1024), (1, 788)],
+               "R50 K=4 step": [(4, 64)]}
 # (name, H, Cin, Cout, k, stride) at K=1, N=2
 DEEP = ("1x1 over 2048", 8, 2048, 96, 1, 1)
 
@@ -96,7 +99,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from chip_smoke import LM_SEQ, RESNET8_CONVS, ssd_inputs, time_ms
+    from chip_smoke import (LM_SEQ, R50_HW, RESNET8_CONVS, resnet50_shapes,
+                            ssd_inputs, time_ms)
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -128,9 +132,11 @@ def main() -> int:
               else {})
     for group, calls in groups.items():
         tot_old = tot_new = 0.0
+        convs = ([DEEP + (1,)] if group == "deep"
+                 else resnet50_shapes(R50_HW) if group.startswith("R50")
+                 else [c + (1,) for c in RESNET8_CONVS])
         for k, n in calls:
-            for name, h, cin, cout, kk, s in ([DEEP] if group == "deep"
-                                              else RESNET8_CONVS):
+            for name, h, cin, cout, kk, s, count in convs:
                 x = torch.randn(k, n, h, h, cin, device=dev, generator=gen)
                 w = torch.randn(k, kk, kk, cin, cout, device=dev,
                                 generator=gen) / math.sqrt(kk * kk * cin)
@@ -155,9 +161,10 @@ def main() -> int:
                 e_old, e_new = errors(f"conv K={k} N={n} {name}", y_old,
                                       f_new(), ref.grouped_conv_ref(x, w, s, "SAME"))
                 t_old, t_new = turns(f_old, f_new)
-                tot_old += t_old
-                tot_new += t_new
-                print(f"  conv K={k} N={n:4d} {name:13s} old {t_old:.4f} ms "
+                tot_old += count * t_old
+                tot_new += count * t_new
+                print(f"  conv K={k} N={n:4d} {name:13s} x{count} old "
+                      f"{t_old:.4f} ms "
                       f"(err {e_old:.2e}) new {t_new:.4f} ms (err "
                       f"{e_new:.2e}) {t_old / t_new:.2f}x", flush=True)
         print(f"conv group {group}: old {tot_old:.4f} ms new {tot_new:.4f} ms "
