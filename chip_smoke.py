@@ -15,7 +15,9 @@ and nothing of JAX or of the JAX package, and
      FedDistill+'s (64, 10), (256, 100), (256, 200), a ragged (1000, 37),
      the text path's (64, 4) and (64, 5) and the LM path's (4092, 50280);
      the client-batched conv at all 9 ResNet-8 layers at K=4, N=64, at
-     K=1, N=64 (the sequential route's step), at K=1, N=256 and at K=1
+     K=1, N=64 (the sequential route's step), at K=2 and K=3, N=64 (the
+     async loop's refill waves and the fault-tolerant round's retried
+     subsets), at K=1, N=256 and at K=1
      with the teacher precompute's chunk sizes, and at ResNet-50's 23
      distinct shapes at 64x64 (53 convs) at K=4, N=64 and at K=1 with
      N=256 and the teacher's chunk sizes; flash attention at the text
@@ -38,7 +40,7 @@ and nothing of JAX or of the JAX package, and
      ``scaled_dot_product_attention``; ``torch.logsumexp``) on the device:
      CUDA-graph replays between CUDA events, so the host's enqueue cost is
      left out; an empty kernel is timed the same way (the launch floor).
-     The conv is totalled per group (K=4 step, K=1 step, K=1 eval, K=1
+     The conv is totalled per group (K=4, K=2, K=3 and K=1 steps, K=1 eval, K=1
      teacher; ResNet-50's K=4 step and K=1 teacher/eval, each shape as
      often as the network has it) against cuDNN, with the shapes where
      cuDNN is faster; the conv's, flash attention's and the SSD scan's
@@ -84,13 +86,31 @@ and nothing of JAX or of the JAX package, and
         vmapped too); ResNet-8 FedGKD with ``client_batched=False`` (B3
         and B1/B2 under vmap) for one round, held to 1e-5 against the
         client-batched route's round;
+     g. the resilience layer on the ResNet-8 path's setup
+        (``run_resilience``): FedGKD under DP (2 rounds; every clipped
+        delta within the clip norm), under the reference's CHAOS faults (3
+        rounds; the fault counters equal the CPU run's), killed after round
+        2 of 4 and resumed from its checkpoints (records equal and params
+        bitwise equal to the uninterrupted run's), and through the
+        buffered-async executor (B=2 of K=4, straggler tail, availability
+        windows; 6 aggregations: the virtual clock, versions, staleness and
+        buffers equal the CPU run's, pipelined within 1e-5 of
+        single-stream, seconds per aggregation of both; under CHAOS killed
+        after aggregation 3 and resumed, bitwise); the shapes B1, B2 and
+        B3 were called with in these runs recorded, and each kernel then
+        held to its plain version at every one of them (the K = 1-3 waves'
+        steps and teacher chunks among them); the LM run of c. also
+        reports its simulated straggler barrier (``sim_seconds``);
   5. profiles one steady-state round of each path (``torch.profiler``;
-     FedGKD, and MOON and FedGen for the baselines): host wall time, the
+     FedGKD, MOON and FedGen for the baselines, and an async aggregation
+     pipelined and not, each with its host synchronisations counted by
+     line in a run without the profiler): host wall time, the
      device's busy time and idle share, device time by kernel, and the
      device time inside the conv's gradients (``grouped_conv_dw``,
      ``grouped_conv_dx``) with their kernels by name;
   6. runs each path's first round on the card and on the CPU from the
-     same init (FedGKD, and each of the nine baselines) and holds the
+     same init (FedGKD, each of the nine baselines, and FedGKD under DP,
+     under faults and async's aggregation 1) and holds the
      card's parameters after that round to 1e-4 of the CPU's, where the
      round must have moved them by at least 1e-3 (the text path at Adam
      lr 1e-3 for this check: at its lr 1e-5 a round moves them by about
@@ -105,6 +125,7 @@ kernels' JSON record, the ``nvidia-smi`` line and
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -173,8 +194,19 @@ R50_CHECK_LR = 1e-3
 VMAP_ALGOS = ["fedgkd", "moon", "feddistill+", "scaffold", "feddyn", "fedgen"]
 VMAP_ROUNDS = 2
 VMAP_TOL = 1e-5            # the vmapped body against the client-batched one
-KD_SHAPES = [(256, 10), (64, 10), (256, 100), (256, 200), (1000, 37), (64, 4),
-             (64, 5), (4092, 50280)]
+# the resilience phase on the ResNet-8 path's setup: DP at the reference's
+# defaults, the reference's CHAOS fault profile (tests/test_faults.py), and
+# the buffered-async executor at B=2 of the K=4 cohort with a straggler
+# tail and staggered availability, for 6 aggregations
+RES_DP = dict(clip_norm=1.0, noise_multiplier=0.5)
+RES_CHAOS = dict(crash_prob=0.2, corrupt_prob=0.05)
+RES_DP_ROUNDS, RES_FAULT_ROUNDS, RES_KILL_ROUNDS, RES_AGGS = 2, 3, 4, 6
+PIPE_TOL = 1e-5            # pipelined against single-stream async, fp32
+# what a resumed run must reproduce exactly
+REC_FIELDS = ("round", "test_acc", "test_loss", "mean_local_loss",
+              "sim_time", "version", "mean_staleness", "sampled")
+KD_SHAPES = [(256, 10), (64, 10), (128, 10), (192, 10), (256, 100), (256, 200),
+             (1000, 37), (64, 4), (64, 5), (4092, 50280)]
 # the LM path (mamba2-2.7b at full width, 4 layers): batch 4 of 1,024-token
 # sequences, so 1,023 positions a step; evaluation on 8 such sequences
 LM_BATCH, LM_SEQ, LM_EVAL_BATCH = 4, 1024, 8
@@ -195,6 +227,9 @@ ROW_LSE_COVERAGE = [(1, 50280), (2, 50280), (300, 1100), (1, 7)]
 # 3 rounds of 4 clients x 2 batches (the CLI's defaults otherwise: SGD
 # momentum 0.9, lr 0.1, gamma 0.2, M = 3)
 LM_ARCH, LM_LAYERS, LM_ROUNDS = "mamba2-2.7b", 4, 3
+# the simulated straggler tail of the LM run (``run_serial``'s
+# ``sim_seconds``; virtual time, no device work)
+LM_STRAGGLER_FRAC = 0.25
 LM_RUN = dict(n_clients=4, batches_per_round=2, batch=LM_BATCH, seq=LM_SEQ,
               gamma=0.2, buffer_m=3, lr=0.1, seed=0)
 # its card-vs-CPU round check: 1 layer, 2 clients x 2 batches of 1 sequence
@@ -359,10 +394,11 @@ def check_kd_kl(dev) -> list[dict]:
 
 
 def check_conv(dev, teacher_ns: list[int], r50_teacher_ns: list[int]) -> dict:
-    """The conv in six groups.  At every ResNet-8 layer: K=4, N=64 (a local
-    step of the client-batched route), K=1, N=64 (a local step of the
-    sequential route), K=1, N=256 (an evaluation batch) and K=1 at
-    ``teacher_ns`` (the teacher precompute's chunks).  At every distinct
+    """The conv in eight groups.  At every ResNet-8 layer: K=4, N=64 (a
+    local step of the client-batched route), K=1, N=64 (a local step of the
+    sequential route), K=2 and K=3, N=64 (the async loop's refill waves and
+    the fault-tolerant round's retried subsets), K=1, N=256 (an evaluation
+    batch) and K=1 at ``teacher_ns`` (the teacher precompute's chunks).  At every distinct
     ResNet-50 shape at 64x64 (23 shapes, 53 convs): K=4, N=64 (a local
     step) and K=1 at N=256 and ``r50_teacher_ns`` (evaluation and the
     teacher's chunks); a ResNet-50 group's totals count each shape as often
@@ -378,6 +414,7 @@ def check_conv(dev, teacher_ns: list[int], r50_teacher_ns: list[int]) -> dict:
     r8 = [c + (1,) for c in RESNET8_CONVS]
     r50 = resnet50_shapes(R50_HW)
     groups = {"K=4 step": ([(4, 64)], r8), "K=1 step": ([(1, 64)], r8),
+              "K=2 step": ([(2, 64)], r8), "K=3 step": ([(3, 64)], r8),
               "K=1 eval": ([(1, 256)], r8),
               "K=1 teacher": ([(1, n) for n in teacher_ns], r8),
               "R50 K=4 step": ([(4, 64)], r50),
@@ -783,6 +820,8 @@ def profile_round(dev, label, run, algo: str = "FedGKD") -> dict:
 
     def window(rnd, *_):
         if rnd == 1:
+            # nothing of round 1 (an async refill) runs into the window
+            torch.cuda.synchronize(dev)
             prof.start()
             wall["t0"] = time.perf_counter()
         elif rnd == 2:
@@ -1204,6 +1243,452 @@ def run_vmap_body(dev) -> dict:
     return total
 
 
+def async_executor(pipelined: bool = True):
+    """The resilience phase's buffered-async executor: B=2 of the K=4
+    cohort, the fedgkd staleness scheme (cutoff 4), a straggler quarter 4x
+    slower, availability windows of 80% of a 24-unit period, the vmap
+    executor training each wave."""
+    from repro_torch.core import executor, systemsim
+
+    return executor.AsyncExecutor(
+        buffer_size=2, staleness="fedgkd", staleness_cutoff=4,
+        profile=systemsim.SpeedProfile(kind="straggler", straggler_frac=0.25,
+                                       straggler_slowdown=4.0),
+        availability=systemsim.Availability(period=24.0, duty=0.8),
+        inner="vmap", pipelined=pipelined)
+
+
+def capture_round(rnd: int, into: dict):
+    """A ``round_callback`` that keeps the global after round ``rnd`` as
+    numpy leaves in ``into["params"]``."""
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.tree import tree_leaves
+
+    def cb(t, server, model):
+        if t == rnd:
+            into["params"] = tree_leaves(params_to_numpy(server["global"]))
+    return cb
+
+
+def assert_same_history(label, a, b) -> float:
+    """Records equal field by field (``REC_FIELDS``); returns the final
+    params' max abs difference, which the caller gates."""
+    if len(a.records) != len(b.records):
+        raise AssertionError(f"{label}: {len(a.records)} against "
+                             f"{len(b.records)} records")
+    for ra, rb in zip(a.records, b.records):
+        for f in REC_FIELDS:
+            if getattr(ra, f) != getattr(rb, f):
+                raise AssertionError(f"{label}: record {ra.round} differs in "
+                                     f"{f}: {getattr(ra, f)!r} against "
+                                     f"{getattr(rb, f)!r}")
+    return params_diff(a.final_params, b.final_params)
+
+
+@contextlib.contextmanager
+def record_shapes():
+    """Record the shapes that B1, B2 and B3's wrappers are called with on
+    the card while the block runs: yields {wrapper name: set of (argument
+    shapes, constants)}; the wrappers are put back on exit."""
+    from repro_torch.kernels.grouped_conv import ops as conv_ops
+    from repro_torch.kernels.kd_kl import ops as kd_ops
+
+    seen = {"grouped_conv_fwd": set(), "kd_kl_fwd": set(), "kd_kl_bwd": set()}
+    keys = {"grouped_conv_fwd": lambda x, w, stride, padding: (
+                tuple(x.shape), tuple(w.shape), stride, padding),
+            "kd_kl_fwd": lambda lt, ls, temp: (tuple(lt.shape), temp),
+            "kd_kl_bwd": lambda lt, ls, lse_t, lse_s, g, temp: (
+                tuple(lt.shape), temp)}
+    wrapped = [(conv_ops, "grouped_conv_fwd"), (kd_ops, "kd_kl_fwd"),
+               (kd_ops, "kd_kl_bwd")]
+    originals = [getattr(mod, name) for mod, name in wrapped]
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            if args[0].is_cuda:
+                seen[name].add(keys[name](*args, **kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    for (mod, name), fn in zip(wrapped, originals):
+        setattr(mod, name, recorder(name, fn))
+    try:
+        yield seen
+    finally:
+        for (mod, name), fn in zip(wrapped, originals):
+            setattr(mod, name, fn)
+
+
+def check_path_shapes(dev, seen: dict) -> dict:
+    """B1, B2 and B3 against their plain versions, untimed, at every
+    distinct shape that ``record_shapes`` saw (the async waves' and the
+    retried subsets' K = 1-3 steps and their teacher chunks among them),
+    on random inputs.  Returns each kernel's max abs error."""
+    import torch
+
+    from repro_torch.kernels.grouped_conv import ops as conv_ops
+    from repro_torch.kernels.grouped_conv import ref as conv_ref
+    from repro_torch.kernels.kd_kl import ops as kd_ops
+    from repro_torch.kernels.kd_kl import ref as kd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    err = dict.fromkeys(seen, 0.0)
+    for xs, ws, stride, padding in sorted(seen["grouped_conv_fwd"]):
+        x = torch.randn(xs, device=dev, generator=gen)
+        w = torch.randn(ws, device=dev, generator=gen) / math.sqrt(
+            ws[1] * ws[2] * ws[3])
+        err["grouped_conv_fwd"] = max(err["grouped_conv_fwd"], compare(
+            f"grouped_conv x{xs} w{ws} stride {stride}",
+            conv_ops.grouped_conv_fwd(x, w, stride, padding),
+            conv_ref.grouped_conv_ref(x, w, stride, padding)))
+    for (rows, vocab), temp in sorted(seen["kd_kl_fwd"] | seen["kd_kl_bwd"]):
+        lt = torch.randn(rows, vocab, device=dev, generator=gen) * 2
+        ls = torch.randn(rows, vocab, device=dev, generator=gen) * 2
+        g = torch.randn(rows, device=dev, generator=gen)
+        kl, lse_t, lse_s = kd_ops.kd_kl_fwd(lt, ls, temp)
+        want = kd_ref.kd_kl_fwd_ref(lt, ls, temp)
+        err["kd_kl_fwd"] = max([err["kd_kl_fwd"]] + [
+            compare(f"kd_kl_fwd{(rows, vocab)} T={temp}:{n}", a, b)
+            for n, a, b in zip(("kl", "lse_t", "lse_s"),
+                               (kl, lse_t, lse_s), want)])
+        err["kd_kl_bwd"] = max(err["kd_kl_bwd"], compare(
+            f"kd_kl_bwd{(rows, vocab)} T={temp}",
+            kd_ops.kd_kl_bwd(lt, ls, lse_t, lse_s, g, temp),
+            kd_ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g, temp)))
+    conv_kn = sorted({xs[:2] for xs, *_ in seen["grouped_conv_fwd"]})
+    kd_rows = sorted({key[0] for key in seen["kd_kl_fwd"] | seen["kd_kl_bwd"]})
+    log(f"resilience path shapes against their plain versions: B3 at "
+        f"{len(seen['grouped_conv_fwd'])} shapes, (K, N) in {conv_kn}; B1/B2 "
+        f"at {kd_rows}; max abs err {err}")
+    return err
+
+
+def run_resilience(dev) -> tuple[dict, dict]:
+    """``resilience_runs`` with the shapes of B1, B2 and B3 recorded, then
+    each kernel checked against its plain version at every one of them
+    (``check_path_shapes``).  Returns the launch counts of the card runs
+    and each kernel's max abs error."""
+    with record_shapes() as seen:
+        total = resilience_runs(dev)
+    return total, check_path_shapes(dev, seen)
+
+
+def resilience_runs(dev) -> dict:
+    """The resilience layer at full ResNet-8 width (``resnet_setup``: 20
+    clients, K=4, batch 64, 5 batches a client), FedGKD throughout, each
+    card run with the launch counts set to 0 just before and read just
+    after (B1, B2 and B3 must launch):
+
+      1. DP (``RES_DP``), 2 rounds: every clipped delta's norm within
+         ``clip_norm`` (1 + 1e-5), and round 1 against the CPU's;
+      2. faults (``RES_CHAOS``), 3 rounds: the fault counters equal the
+         CPU run's, round 1 against the CPU's;
+      3. kill and resume: 4 rounds checkpointed every round, a callback
+         raising after round 2, then ``resume=True``, against the
+         uninterrupted run: equal records, the params' max abs difference
+         printed and gated at 0; the checkpoint writes timed;
+      4. async (``async_executor``), 6 aggregations: ``sim_time``,
+         ``version``, ``mean_staleness`` and ``sampled`` equal the CPU
+         run's, aggregation 1's global against the CPU's, pipelined against
+         single-stream within ``PIPE_TOL``, seconds per aggregation of both
+         (aggregations 2-6, the card synchronised at the start); then the
+         same run under ``RES_CHAOS`` killed after aggregation 3 and
+         resumed, against its uninterrupted run as in 3;
+      5. a profiled steady-state aggregation (the second), pipelined and
+         not: wall, busy, idle share, the kernels' launches; then, in a
+         run of its own each (so that no profile carries the debug mode's
+         cost), the host synchronisations of aggregation 2
+         (``torch.cuda.set_sync_debug_mode("warn")``), by line.
+
+    Returns the launch counts summed over the card runs."""
+    import tempfile
+    import traceback
+    import warnings
+
+    import torch
+
+    from repro_torch.checkpoint import recovery
+    from repro_torch.core import algorithms, fl_loop, privacy, systemsim
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.optim import global_norm
+    from repro_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    task, data, kw = resnet_setup()
+    total = dict.fromkeys(LAUNCHES, 0)
+    path_kernels = ("kd_kl_fwd", "kd_kl_bwd", "grouped_conv_fwd")
+
+    def fedgkd():
+        return algorithms.make("fedgkd", gamma=task.gamma,
+                               buffer_m=task.buffer_m)
+
+    def on_cpu(**run_kw):
+        return fl_loop.run_federated(task, fedgkd(), data, device="cpu",
+                                     **{**kw, **run_kw})
+
+    def drive(label, **run_kw):
+        reset_launches()
+        t0 = time.perf_counter()
+        hist = fl_loop.run_federated(task, fedgkd(), data, device=dev,
+                                     **{**kw, **run_kw})
+        launches = dict(LAUNCHES)
+        log(f"resilience {label}: {time.perf_counter() - t0:.2f} s, launches "
+            f"{ {k: n for k, n in launches.items() if n} }")
+        for r in hist.records:
+            log(f"  round {r.round}: {r.seconds:.3f} s test_acc "
+                f"{r.test_acc:.4f} local_loss {r.mean_local_loss:.4f} "
+                f"sim_time {r.sim_time!r} version {r.version} staleness "
+                f"{r.mean_staleness} sampled {list(r.sampled)}")
+        losses = [v for r in hist.records
+                  for v in (r.test_loss, r.mean_local_loss)]
+        if not (all(map(math.isfinite, losses))
+                and all_finite(hist.final_params)):
+            raise AssertionError(f"resilience {label}: non-finite loss or "
+                                 f"params {losses}")
+        missing = [k for k in path_kernels if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"resilience {label}: not launched "
+                                 f"{missing}")
+        for k, n in launches.items():
+            total[k] += n
+        return hist
+
+    def round_one(label, card: dict, cpu: dict) -> None:
+        init = on_cpu(rounds=0)
+        leaves = {("cpu", 0): tree_leaves_np(init.final_params),
+                  (str(dev), 1): card["params"], ("cpu", 1): cpu["params"]}
+        first_round_check(dev, label, task.lr,
+                          lambda device, rounds: leaves[(str(device), rounds)])
+
+    # 1. DP: the clipped deltas' norms, read where the loop clips
+    dp = privacy.DPConfig(**RES_DP)
+    norms = {"raw": [], "clipped": []}
+    clip = privacy.privatize_uploads
+
+    def clip_and_measure(uploads, anchor, dp_, t):
+        out = clip(uploads, anchor, dp_, t)
+        for key, ups in (("raw", uploads), ("clipped", out)):
+            norms[key] += [float(global_norm(tree_map(
+                lambda a, b: a.float() - b.float(), u["params"], anchor)))
+                for u in ups]
+        return out
+
+    card = {}
+    privacy.privatize_uploads = clip_and_measure
+    try:
+        drive("DP", rounds=RES_DP_ROUNDS, dp=dp,
+              round_callback=capture_round(1, card))
+    finally:
+        privacy.privatize_uploads = clip
+    log(f"resilience DP: delta norms before clipping {norms['raw']}, after "
+        f"{norms['clipped']} (clip_norm {dp.clip_norm})")
+    if not max(norms["clipped"]) <= dp.clip_norm * (1 + 1e-5):
+        raise AssertionError(f"DP: a clipped delta's norm "
+                             f"{max(norms['clipped'])} > {dp.clip_norm}")
+    cpu = {}
+    on_cpu(rounds=1, dp=dp, round_callback=capture_round(1, cpu))
+    round_one("ResNet-8 FedGKD under DP", card, cpu)
+
+    # 2. faults: the counters depend on the fault stream and the gate only
+    chaos = systemsim.FaultProfile(**RES_CHAOS)
+    card, cpu = {}, {}
+    t0 = time.perf_counter()
+    h_card = drive("faults", rounds=RES_FAULT_ROUNDS, faults=chaos,
+                   round_callback=capture_round(1, card))
+    fault_s = time.perf_counter() - t0
+    h_cpu = on_cpu(rounds=RES_FAULT_ROUNDS, faults=chaos,
+                   round_callback=capture_round(1, cpu))
+    log(f"resilience faults: card {h_card.telemetry['faults']}; CPU "
+        f"{h_cpu.telemetry['faults']}")
+    if h_card.telemetry["faults"] != h_cpu.telemetry["faults"]:
+        raise AssertionError("faults: the card's counters differ from the "
+                             "CPU's")
+    round_one("ResNet-8 FedGKD under CHAOS faults", card, cpu)
+    t0 = time.perf_counter()
+    drive("no faults (the faulted rounds' yardstick)",
+          rounds=RES_FAULT_ROUNDS)
+    log(f"resilience faults: {RES_FAULT_ROUNDS} faulted rounds "
+        f"{fault_s:.3f} s, unfaulted {time.perf_counter() - t0:.3f} s "
+        f"(host wall of the run, init and evaluation included)")
+
+    # 3. kill and resume, with the checkpoint writes timed
+    class Killed(Exception):
+        pass
+
+    def kill_after(rnd):
+        def cb(t, *_):
+            if t == rnd:
+                raise Killed
+        return cb
+
+    writes = []
+    save = recovery.save_run_state
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        path = save(*args, **kwargs)
+        writes.append((time.perf_counter() - t0, Path(path).stat().st_size))
+        return path
+
+    def kill_and_resume(label, rounds, kill_at, **run_kw):
+        full = drive(f"{label}, uninterrupted", rounds=rounds, **run_kw)
+        with tempfile.TemporaryDirectory() as ck:
+            recovery.save_run_state = timed_save
+            try:
+                try:
+                    drive(f"{label}, killed after {kill_at}", rounds=rounds,
+                          checkpoint_dir=ck, round_callback=kill_after(kill_at),
+                          **run_kw)
+                except Killed:
+                    pass
+                else:
+                    raise AssertionError(f"{label}: the run was not killed")
+            finally:
+                recovery.save_run_state = save
+            resumed = drive(f"{label}, resumed", rounds=rounds,
+                            checkpoint_dir=ck, resume=True, **run_kw)
+        diff = assert_same_history(label, full, resumed)
+        log(f"resilience {label}: resumed against uninterrupted, records "
+            f"equal, max abs param diff {diff!r}; checkpoint writes "
+            f"{[f'{s * 1e3:.3f} ms / {b} B' for s, b in writes]}")
+        if diff != 0.0:
+            raise AssertionError(f"{label}: the resumed run is {diff} from "
+                                 f"the uninterrupted one")
+        writes.clear()
+
+    kill_and_resume("kill and resume", RES_KILL_ROUNDS, 2)
+
+    # 4. async: the virtual clock against the CPU's, pipelined against
+    # single-stream, seconds per aggregation
+    def timed_async(into: dict, capture: dict):
+        first = capture_round(1, capture)
+
+        def cb(t, *args):
+            first(t, *args)
+            if t == 1:
+                torch.cuda.synchronize(dev)
+                into["t1"] = time.perf_counter()
+            elif t == RES_AGGS:
+                into["s"] = (time.perf_counter() - into["t1"]) / (RES_AGGS - 1)
+        return cb
+
+    runs, card, cpu = {}, {}, {}
+    hists = {}
+    for pipelined in (True, False):
+        runs[pipelined] = {}
+        hists[pipelined] = drive(
+            f"async, pipelined={pipelined}", rounds=RES_AGGS,
+            executor=async_executor(pipelined),
+            round_callback=timed_async(runs[pipelined],
+                                       card if pipelined else {}))
+    h_cpu = on_cpu(rounds=RES_AGGS, executor=async_executor(),
+                   round_callback=capture_round(1, cpu))
+    for rt, rc in zip(hists[True].records, h_cpu.records, strict=True):
+        for f in ("round", "sim_time", "version", "mean_staleness",
+                  "sampled"):
+            if getattr(rt, f) != getattr(rc, f):
+                raise AssertionError(f"async: aggregation {rt.round}'s {f} "
+                                     f"{getattr(rt, f)!r} on the card, "
+                                     f"{getattr(rc, f)!r} on the CPU")
+    log(f"resilience async: telemetry {hists[True].telemetry}")
+    round_one("ResNet-8 FedGKD async, aggregation 1", card, cpu)
+    pipe = max(abs(getattr(a, f) - getattr(b, f))
+               for a, b in zip(hists[True].records, hists[False].records)
+               for f in ("test_acc", "test_loss", "mean_local_loss"))
+    pipe = max(pipe, params_diff(hists[True].final_params,
+                                 hists[False].final_params))
+    log(f"resilience async: pipelined against single-stream, max abs diff "
+        f"{pipe:.3e} (limit {PIPE_TOL}); seconds per aggregation (2-{RES_AGGS}"
+        f") pipelined {runs[True]['s']:.6f}, single-stream "
+        f"{runs[False]['s']:.6f}")
+    if not pipe < PIPE_TOL:
+        raise AssertionError(f"async: pipelined is {pipe} from single-stream")
+    kill_and_resume("async under CHAOS faults, kill and resume", RES_AGGS, 3,
+                    executor=async_executor(), faults=chaos)
+
+    # 5. a steady-state aggregation, profiled, pipelined and not; its host
+    # syncs counted in an unprofiled run of each mode
+    def count_syncs(pipelined) -> dict:
+        syncs: dict = {}
+
+        def window(t, *_):
+            if t == 1:
+                torch.cuda.synchronize(dev)
+                torch.cuda.set_sync_debug_mode("warn")
+            elif t == 2:
+                torch.cuda.set_sync_debug_mode(0)
+
+        def record(message, *_args, **_kw):
+            # attributed to the innermost frame of the port or this
+            # script, with its function's name
+            if "synchroniz" not in str(message):
+                return
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if "repro_torch" in f.filename
+                      or f.filename.endswith("chip_smoke.py")]
+            f = frames[-1]
+            where = f"{Path(f.filename).name}:{f.lineno} {f.name}"
+            syncs[where] = syncs.get(where, 0) + 1
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            try:
+                fl_loop.run_federated(task, fedgkd(), data, device=dev,
+                                      rounds=3, round_callback=window,
+                                      executor=async_executor(pipelined),
+                                      **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return syncs
+
+    for pipelined in (True, False):
+        counts = {}
+
+        def run(cb, pipelined=pipelined):
+            def window(t, *args):
+                if t == 2:
+                    counts["end"] = dict(LAUNCHES)
+                cb(t, *args)
+                if t == 1:
+                    counts["start"] = dict(LAUNCHES)
+
+            fl_loop.run_federated(task, fedgkd(), data, device=dev, rounds=3,
+                                  round_callback=window,
+                                  executor=async_executor(pipelined), **kw)
+
+        label = (f"ResNet-8 async B=2 "
+                 f"({'pipelined' if pipelined else 'single-stream'})")
+        prof = profile_round(dev, label, run, algo="FedGKD aggregation")
+        launched = {k: counts["end"][k] - counts["start"][k]
+                    for k in path_kernels}
+        if prof:
+            log(f"{label}, aggregation 2: {prof['wall_ms'] / 1e3:.6f} s, busy "
+                f"{prof['busy_ms'] / 1e3:.6f} s, idle share "
+                f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f}, launches "
+                f"{launched}")
+        syncs = count_syncs(pipelined)
+        log(f"{label}: host synchronisations in aggregation 2 (a run without "
+            f"the profiler), by line: "
+            f"{sorted(syncs.items(), key=lambda kv: -kv[1])} "
+            f"({sum(syncs.values())} in all)")
+    log(f"resilience phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def tree_leaves_np(params) -> list:
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.tree import tree_leaves
+
+    return tree_leaves(params_to_numpy(params))
+
+
+def params_diff(a, b) -> float:
+    """The max abs difference of two params trees."""
+    return max(float(abs(x - y).max()) for x, y in zip(
+        tree_leaves_np(a), tree_leaves_np(b), strict=True))
+
+
 def lm_config(n_layers: int):
     """mamba2-2.7b at its published width, depth cut to ``n_layers``, in
     fp32 (the port's kernels are fp32; bf16 is later work)."""
@@ -1239,7 +1724,8 @@ def run_lm_path(dev) -> dict:
     reset_launches()
     t0 = time.perf_counter()
     out = run_serial(cfg, rounds=LM_ROUNDS, algo="fedgkd", device=dev,
-                     verbose=False, **LM_RUN)
+                     verbose=False, straggler_frac=LM_STRAGGLER_FRAC,
+                     **LM_RUN)
     launches = dict(LAUNCHES)
     log(f"{label}: FedGKD, {time.perf_counter() - t0:.2f} s, launches "
         f"{launches}, peak device memory "
@@ -1247,7 +1733,7 @@ def run_lm_path(dev) -> dict:
     for r in out["history"]:
         log(f"  round {r['round']}: {r['seconds']:.3f} s ppl {r['ppl']:.6g} "
             f"(eval CE {math.log(r['ppl']):.6f}) loss {r['loss']:.6f} "
-            f"kd {r['kd']:.6e}")
+            f"kd {r['kd']:.6e} sim_seconds {r['sim_seconds']!r}")
     values = [v for r in out["history"] for v in (r["ppl"], r["loss"], r["kd"])]
     if not (all(map(math.isfinite, values)) and all_finite(out["params"])):
         raise AssertionError(f"{label} FedGKD: non-finite ppl, loss or params "
@@ -1354,8 +1840,12 @@ def main() -> int:
         run_baselines(dev),
         run_resnet50(dev, *r50),
         run_vmap_body(dev)]
+    resilience_counts, resilience_errs = run_resilience(dev)
+    launches.append(resilience_counts)
     for k in kernels:
         k["launches"] = sum(counts[k["name"]] for counts in launches)
+        k["max_abs_err"] = max(k["max_abs_err"],
+                               resilience_errs.get(k["name"], 0.0))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
         f"included")
     print(json.dumps({"kernels": kernels}))

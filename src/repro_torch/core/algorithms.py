@@ -30,7 +30,8 @@ import torch
 
 from repro_torch.core import distillation as D
 from repro_torch.core.modelzoo import ModelBundle
-from repro_torch.core.server import ModelBuffer, weighted_average
+from repro_torch.core.server import (ModelBuffer, first_nonfinite_path,
+                                     weighted_average)
 from repro_torch.models import layers
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
@@ -74,6 +75,17 @@ class Algorithm:
         server = dict(server)
         server["global"] = new_global
         server["round"] += 1
+        return server
+
+    def absorb_stale(self, server: dict, uploads: list[dict],
+                     staleness: list[float], weights: list[float],
+                     model: ModelBundle | None = None,
+                     val_batch=None) -> dict:
+        """What to do with stale arrivals beyond down-weighting them: the
+        buffered async server calls this under the ``"fedgkd"`` staleness
+        scheme after ``server_update``, with the whole buffer, each
+        update's staleness and its data weight n_k.  The base discards
+        them; KD algorithms absorb them into the teacher buffer."""
         return server
 
     # -- client ------------------------------------------------------------
@@ -287,6 +299,23 @@ class FedGKD(Algorithm):
         server["buffer"].push(server["global"])
         return server
 
+    def absorb_stale(self, server, uploads, staleness, weights, model=None,
+                     val_batch=None):
+        """Late arrivals join the teacher ensemble: the stale client models
+        are fused by data weight into ONE buffer entry an aggregation, so
+        the buffer's version bumps once and the part caches recompute one
+        part.  A non-finite stale model never becomes a teacher (it is
+        skipped), nor does a fused result bitwise equal to the head
+        (``ModelBuffer.push`` refuses it)."""
+        stale = [(u["params"], w) for u, s, w in
+                 zip(uploads, staleness, weights) if s > 0]
+        stale = [(p, w) for p, w in stale if first_nonfinite_path(p) is None]
+        if not stale:
+            return server
+        server["buffer"].push(weighted_average([p for p, _ in stale],
+                                               [w for _, w in stale]))
+        return server
+
 
 class FedGKDPlus(FedGKD):
     """FedGKD on the projection-head model (the paper's MOON comparison)."""
@@ -434,6 +463,26 @@ class FedGKDVote(FedGKD):
         server = super().server_update(server, uploads, weights, model,
                                        val_batch, n_clients)
         self._refresh_val_losses(server, model, val_batch)
+        return server
+
+    def absorb_stale(self, server, uploads, staleness, weights, model=None,
+                     val_batch=None):
+        """An absorbed teacher needs a vote too: the validation losses are
+        recomputed over the buffer, or without a validation batch the new
+        entry is priced at the worst current loss (the smallest vote).  A
+        push is told by the newest version, not the length: a full buffer
+        keeps its length."""
+        newest = server["buffer"].versions[0]
+        server = super().absorb_stale(server, uploads, staleness, weights,
+                                      model, val_batch)
+        if server["buffer"].versions[0] == newest:
+            return server
+        if model is not None and val_batch is not None:
+            self._refresh_val_losses(server, model, val_batch)
+        else:
+            worst = max(server["val_losses"], default=0.0)
+            server["val_losses"] = (
+                [worst] + list(server["val_losses"]))[:len(server["buffer"])]
         return server
 
     def _refresh_val_losses(self, server, model, val_batch):

@@ -43,11 +43,15 @@ Ragged clients are exact, not approximate: every batch of a client has
 behind a zero example mask, and a client with fewer steps gets whole
 padded steps that leave its params and optimizer state untouched.
 
+``AsyncExecutor`` — buffered-asynchronous rounds on a simulated
+heterogeneous system: the configuration and the inner executor that trains
+each dispatch wave; the event loop is ``fl_loop._run_async``.
+
 ``executor="auto"`` picks the vmap executor for more than one sampled
 client of a ``vmap_friendly`` model (the MLP) or of a client-batched pair,
 the sequential executor otherwise (the text encoder; ResNet-8 with MOON,
-FedDistill+, SCAFFOLD, FedDyn or FedGen).  Shard_map and async execution
-are not ported yet; asking for them raises.
+FedDistill+, SCAFFOLD, FedDyn or FedGen).  The shard_map executor is not
+ported yet; asking for it raises.
 """
 from __future__ import annotations
 
@@ -76,7 +80,13 @@ class RoundContext:
     ``client_batched`` gates the vmap executor's client-batched round body:
     ``"auto"`` uses it whenever the model is ``client_batched`` and the
     algorithm has a ``batched_loss_fn``; ``False`` forces the vmapped
-    round body; ``True`` also raises where the pair has no such form."""
+    round body; ``True`` also raises where the pair has no such form.
+
+    ``deferred`` (the async loop's pipelined mode): the vmap executor
+    returns its per-client losses as a tensor on the device instead of
+    reading them back, and on the card uploads the wave's batches from
+    pinned memory without blocking, so a wave's launch does not wait for
+    the device; the loop reads the losses at aggregation."""
     algo: Algorithm
     model: ModelBundle
     opt: Optimizer
@@ -87,6 +97,7 @@ class RoundContext:
     max_batches: Optional[int] = None
     precompute: bool = True
     client_batched: "bool | str" = "auto"
+    deferred: bool = False
 
     def __post_init__(self):
         loss_fn = self.algo.loss_fn(self.model)
@@ -199,7 +210,17 @@ def _pad_and_stack(mats: list[MaterializedClient]):
                  for a in (xs, ys, ex_mask, picks, step_mask))
 
 
-def _pad_full_data(client_data: list[ClientData], device):
+def _upload(t: torch.Tensor, device: torch.device,
+            non_blocking: bool = False) -> torch.Tensor:
+    """A host tensor on ``device``; with ``non_blocking`` on the card it is
+    staged in pinned memory, so the host does not wait for the stream."""
+    if non_blocking and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _pad_full_data(client_data: list[ClientData], device,
+                   non_blocking: bool = False):
     """Each client's FULL shard stacked to (K, N_max, ...) + labels + mask,
     on ``device``; pad rows are zeros behind a zero mask."""
     n_max = max(d.n for d in client_data)
@@ -212,7 +233,8 @@ def _pad_full_data(client_data: list[ClientData], device):
         xs[i, :d.n] = d.x
         ys[i, :d.n] = d.y
         mask[i, :d.n] = 1.0
-    return tuple(torch.from_numpy(a).to(device) for a in (xs, ys, mask))
+    return tuple(_upload(torch.from_numpy(a), device, non_blocking)
+                 for a in (xs, ys, mask))
 
 
 # ---------------------------------------------------------------------------
@@ -375,7 +397,7 @@ class VmapExecutor:
         k = len(client_data)
         full = aux_full = None
         if ctx.has_precompute or ctx.has_finalize:
-            full = _pad_full_data(client_data, dev)
+            full = _pad_full_data(client_data, dev, ctx.deferred)
         if ctx.has_precompute:
             # the teacher forward needs no batch picks: it goes first, as in
             # the reference, so the device works while the host pads below
@@ -388,7 +410,8 @@ class VmapExecutor:
         mats = [materialize_client(rng, d, ctx.batch_size, ctx.epochs,
                                    ctx.max_batches) for d in client_data]
         host = _pad_and_stack(mats)
-        xs, ys, ex_mask, picks, step_mask = (t.to(dev) for t in host)
+        xs, ys, ex_mask, picks, step_mask = (_upload(t, dev, ctx.deferred)
+                                             for t in host)
         aux = {}
         if ctx.has_precompute:
             rows = torch.arange(k, device=dev)[:, None, None]
@@ -423,15 +446,109 @@ class VmapExecutor:
                     _tree_stack(client_states), params_stacked), k)
         uploads = [{"params": p, **e}
                    for p, e in zip(_tree_unstack(params_stacked, k), extras)]
+        # deferred: the losses stay on the device, a (K,) tensor whose
+        # entries the async loop reads at aggregation
         return RoundResult(uploads, [float(m.n) for m in mats],
-                           mloss.cpu().tolist(), new_states)
+                           mloss if ctx.deferred else mloss.cpu().tolist(),
+                           new_states)
 
 
-_EXECUTORS = {"sequential": SequentialExecutor, "vmap": VmapExecutor}
-_NOT_PORTED = {
-    "shard_map": "ROADMAP A8b and A13",
-    "async": "ROADMAP A10",
-}
+class AsyncExecutor:
+    """Straggler-aware buffered-asynchronous rounds.
+
+    Clients run on a simulated heterogeneous system
+    (``core.systemsim``), their uploads tagged with the global version they
+    started from, and the server aggregates a buffer of ``buffer_size``
+    completions with staleness weights
+    (``server.async_aggregation_weights``).  The loop lives in
+    ``fl_loop._run_async``; this class is its configuration and resolves
+    the inner executor that trains each dispatch wave.
+
+    Knobs (the reference's):
+      buffer_size       aggregation buffer B (default: the cohort size)
+      staleness         "constant" | "polynomial" | "fedgkd" (stale models
+                        also join the teacher buffer: ``absorb_stale``)
+      staleness_a       polynomial decay exponent, (1 + s)^(-a)
+      staleness_cutoff  fedgkd: staleness past this is dropped from the
+                        average (absorbed only); None = never dropped
+      profile           ``systemsim.SpeedProfile`` of per-client speeds
+      availability      optional ``systemsim.Availability`` duty cycle
+      inner             the wave trainer: spec or instance
+      base_step_time    virtual seconds per unit of local work
+                        (``systemsim.measure_step_time`` calibrates it)
+      pipelined         True (default): the inner executor defers its loss
+                        read back (``RoundContext.deferred``) and the loop
+                        dispatches the refill wave before the round's
+                        evaluation; False: the evaluation first, then the
+                        refill.  The values are the same either way.
+      wave_slots        "auto" (default), "variable", None or an int >= 1,
+                        validated as the reference does.  The reference
+                        pads each wave to that many client slots so one
+                        compiled body serves the run; eager PyTorch has no
+                        per-shape compile, so the port trains every wave
+                        at its own size and reports no ``compile_count``.
+
+    Faults compose from outside: ``run_federated(faults=...)``.
+    """
+
+    name = "async"
+
+    def __init__(self, buffer_size: Optional[int] = None,
+                 staleness: str = "polynomial", staleness_a: float = 0.5,
+                 staleness_cutoff: Optional[float] = None,
+                 profile=None, availability=None,
+                 inner="auto", base_step_time: float = 1.0,
+                 pipelined: bool = True,
+                 wave_slots: "int | str | None" = "auto"):
+        from repro_torch.core.server import STALENESS_SCHEMES
+        if staleness not in STALENESS_SCHEMES:
+            raise ValueError(f"unknown staleness scheme {staleness!r}; "
+                             f"available: {STALENESS_SCHEMES}")
+        if isinstance(inner, str) and inner == "async":
+            raise ValueError("AsyncExecutor cannot nest itself as inner")
+        if isinstance(wave_slots, str) and wave_slots not in ("auto",
+                                                              "variable"):
+            raise ValueError(f"wave_slots must be 'auto', 'variable', an "
+                             f"int or None, got {wave_slots!r}")
+        if isinstance(wave_slots, int) and wave_slots < 1:
+            raise ValueError(f"wave_slots must be >= 1, got {wave_slots}")
+        self.buffer_size = buffer_size
+        self.staleness = staleness
+        self.staleness_a = staleness_a
+        self.staleness_cutoff = staleness_cutoff
+        self.profile = profile
+        self.availability = availability
+        self.inner = inner
+        self.base_step_time = base_step_time
+        self.pipelined = pipelined
+        self.wave_slots = wave_slots
+
+    def resolve_inner(self, algo: Algorithm, n_sample: int,
+                      model: Optional[ModelBundle] = None):
+        resolved = get_executor(self.inner, algo, n_sample, model)
+        if isinstance(resolved, AsyncExecutor):
+            raise ValueError("AsyncExecutor cannot nest itself as inner")
+        return resolved
+
+    def resolve_wave_slots(self, buffer_size: int, inner) -> Optional[int]:
+        """The reference's fixed slot count: ``None`` for "variable", None
+        or a sequential inner, the buffer size for "auto", else the int."""
+        if self.wave_slots in (None, "variable"):
+            return None
+        if getattr(inner, "name", None) == "sequential":
+            return None
+        return buffer_size if self.wave_slots == "auto" else self.wave_slots
+
+    def run_round(self, ctx, global_params, payload, client_states,
+                  client_data, rng, client_ids=None) -> RoundResult:
+        raise NotImplementedError(
+            "AsyncExecutor rounds are event-driven, not cohort-at-a-time; "
+            "drive it through run_federated(..., executor=\"async\")")
+
+
+_EXECUTORS = {"sequential": SequentialExecutor, "vmap": VmapExecutor,
+              "async": AsyncExecutor}
+_NOT_PORTED = {"shard_map": "ROADMAP A8b and A13"}
 
 
 def available() -> list[str]:

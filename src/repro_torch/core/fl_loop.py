@@ -1,10 +1,16 @@
 """Algorithm-agnostic federated training loop (Alg. 1 ServerExecution).
 
-The port of the synchronous path of ``repro.core.fl_loop.run_federated``:
-per round, sample the cohort, build the broadcast payload, train the cohort
-through the executor, aggregate, evaluate.  The numpy generator is consumed
-in the reference's order and count (cohort draw, then each client's batch
-picks), so one seed samples the same cohorts and batches in both packages.
+The port of ``repro.core.fl_loop.run_federated``: per round, sample the
+cohort, build the broadcast payload, train the cohort through the
+executor, aggregate, evaluate; with ``executor="async"`` the buffered
+asynchronous loop (``_run_async``) instead.  Around the rounds: DP clipping
+and noise (``core.privacy``), fault injection with quorum, validation and
+retries (``core.systemsim``, ``core.server``), and checkpoint/resume of
+the full run state (``checkpoint.recovery``).  The numpy generator is
+consumed in the reference's order and count (cohort draw, then each
+client's batch picks), so one seed samples the same cohorts and batches in
+both packages; the simulator and the fault injector draw from their own
+child streams of the seed, as the reference's do.
 
 Runs on ``"cuda"`` unless the caller passes ``device="cpu"``; without a card
 and without that argument it raises rather than fall back.
@@ -18,12 +24,16 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import recovery
 from repro_torch.configs.paper import PaperTask
 from repro_torch.core import executor as executor_lib
+from repro_torch.core import privacy, systemsim
 from repro_torch.core.algorithms import Algorithm, FedGen
 from repro_torch.core.distillation import accuracy, cross_entropy
 from repro_torch.core.modelzoo import ModelBundle, make_model
-from repro_torch.data.pipeline import FederatedData
+from repro_torch.core.server import (FaultPolicy, async_aggregation_weights,
+                                     validate_update)
+from repro_torch.data.pipeline import FederatedData, num_batches
 from repro_torch.data.synthetic import make_task_data
 from repro_torch.optim import adam, sgd
 from repro_torch.tree import tree_leaves, tree_map
@@ -36,7 +46,12 @@ class RoundRecord:
     test_loss: float
     mean_local_loss: float
     seconds: float
-    sampled: tuple = ()          # client ids aggregated this round
+    # the async loop's (a synchronous round keeps the defaults)
+    sim_time: float = 0.0        # virtual clock at this aggregation
+    version: int = 0             # global model version after the update
+    mean_staleness: float = 0.0  # mean (version - start version) in buffer
+    sampled: tuple = ()          # client ids of the round's cohort (async:
+    #                              of the aggregated buffer)
 
 
 @dataclasses.dataclass
@@ -72,19 +87,22 @@ def resolve_device(device=None) -> torch.device:
 
 def evaluate(model: ModelBundle, params: Any, x: np.ndarray, y: np.ndarray,
              batch: int = 256) -> tuple[float, float]:
-    """(accuracy, mean CE) over a test set, ``batch`` rows per forward."""
+    """(accuracy, mean CE) over a test set, ``batch`` rows per forward, the
+    per-batch values read back once."""
     device = tree_leaves(params)[0].device
-    accs, losses, ns = [], [], []
+    stats, ns = [], []
     with torch.no_grad():
         for i in range(0, len(y), batch):
             xb = torch.from_numpy(np.ascontiguousarray(x[i:i + batch])).to(device)
             yb = torch.from_numpy(np.asarray(y[i:i + batch])).to(device)
             logits = model.apply(params, xb)
-            accs.append(float(accuracy(logits, yb)) * len(yb))
-            losses.append(float(cross_entropy(logits, yb)) * len(yb))
+            stats.append(torch.stack([accuracy(logits, yb),
+                                      cross_entropy(logits, yb)]))
             ns.append(len(yb))
+        read = torch.stack(stats).tolist()
     n = sum(ns)
-    return sum(accs) / n, sum(losses) / n
+    return (sum(a * k for (a, _), k in zip(read, ns)) / n,
+            sum(c * k for (_, c), k in zip(read, ns)) / n)
 
 
 def run_federated(task: PaperTask, algo: Algorithm,
@@ -95,7 +113,9 @@ def run_federated(task: PaperTask, algo: Algorithm,
                   verbose: bool = False, width: int = 16,
                   round_callback=None, dp=None, executor="auto",
                   precompute="auto", client_batched="auto",
-                  faults=None, checkpoint_dir: Optional[str] = None,
+                  faults=None, fault_policy=None,
+                  checkpoint_dir: Optional[str] = None,
+                  checkpoint_every: int = 1, resume: bool = False,
                   device=None) -> History:
     """Run T communication rounds of ``algo`` on the partitioned data.
 
@@ -107,22 +127,42 @@ def run_federated(task: PaperTask, algo: Algorithm,
     the last evaluation (0.0 before the first).  ``verbose`` prints the
     executor's route after round 1 and one line a round.  ``precompute``:
     the round-level teacher-precompute stage; ``"auto"`` turns it on
-    unless the resolved executor is the sequential one.
+    unless the executor that trains the clients is the sequential one.
     ``client_batched``: the vmap executor's client-batched round body
     (``"auto"``, ``True`` or ``False``, which forces the vmapped body; see
-    ``executor.RoundContext``).  The options the port does not have yet
-    raise ``NotImplementedError``: ``population=`` (ROADMAP A12),
-    ``faults=`` (A10), ``checkpoint_dir=`` (A11), ``dp=`` (A14) and the
-    shard_map and async executors (A13, A10).  ``device`` defaults to
+    ``executor.RoundContext``).
+
+    ``executor``: ``"sequential"``, ``"vmap"``, ``"async"`` or an
+    ``executor.AsyncExecutor(...)`` (buffered asynchronous aggregation on
+    a simulated heterogeneous system, see ``_run_async``; its records
+    carry ``sim_time``, ``version`` and ``mean_staleness``), or ``"auto"``.
+
+    ``dp=`` (a ``privacy.DPConfig``): every upload's delta is clipped and
+    the aggregate noised.  ``faults=`` (a ``systemsim.FaultProfile``):
+    per-dispatch crash / timeout / corrupt draws from the fault stream,
+    ``server.validate_update`` on every upload, quorum aggregation with
+    capped-backoff retries (``fault_policy=``, a ``server.FaultPolicy``)
+    and the counters in ``History.telemetry["faults"]``; a
+    zero-probability profile is bit-identical to ``faults=None``.
+    ``checkpoint_dir=`` saves the full run state every ``checkpoint_every``
+    rounds and after the last (the async loop's simulator with its
+    in-flight uploads included); ``resume=True`` restores the newest
+    loadable state there (torn files skipped) and continues as the
+    uninterrupted run would.
+
+    Not ported yet: ``population=`` (ROADMAP A12), multi-host host faults
+    (``FaultProfile.host_crash_prob``, A13) and the shard_map executor
+    (A13); they raise ``NotImplementedError``.  ``device`` defaults to
     ``"cuda"``.
     """
-    for arg, value, item in (("population", population, "A12"),
-                             ("faults", faults, "A10"),
-                             ("checkpoint_dir", checkpoint_dir, "A11"),
-                             ("dp", dp, "A14")):
-        if value is not None:
-            raise NotImplementedError(
-                f"run_federated({arg}=...) is not ported yet (ROADMAP {item})")
+    if population is not None:
+        raise NotImplementedError(
+            "run_federated(population=...) is not ported yet (ROADMAP A12); "
+            "this holds with executor='async' and faults= too")
+    if faults is not None and faults.host_crash_prob > 0.0:
+        raise NotImplementedError(
+            "FaultProfile.host_crash_prob: host faults need multi-host "
+            "placement, not ported yet (ROADMAP A13)")
     if data is None:
         raise ValueError("pass data= (a FederatedData)")
     dev = resolve_device(device)
@@ -149,8 +189,11 @@ def run_federated(task: PaperTask, algo: Algorithm,
 
     n_sample = max(1, int(round(task.participation * data.n_clients)))
     exec_ = executor_lib.get_executor(executor, algo, n_sample, model)
+    inner = None
+    if isinstance(exec_, executor_lib.AsyncExecutor):
+        inner = exec_.resolve_inner(algo, n_sample, model)
     if precompute == "auto":
-        precompute = exec_.name != "sequential"
+        precompute = (inner or exec_).name != "sequential"
     ctx = executor_lib.RoundContext(
         algo=algo, model=model, opt=opt, lr=task.lr,
         batch_size=task.batch_size, epochs=task.local_epochs, device=dev,
@@ -164,25 +207,66 @@ def run_federated(task: PaperTask, algo: Algorithm,
                  .to(dev), torch.from_numpy(np.asarray(data.test_y[:n_val]))
                  .to(dev))
 
+    injector = policy = None
+    if faults is not None:
+        injector = systemsim.FaultInjector(faults,
+                                           systemsim.derive_fault_rng(seed))
+        policy = fault_policy if fault_policy is not None else FaultPolicy()
+        ctx.telemetry["faults"] = _fault_counters(policy)
+
+    if resume and checkpoint_dir is None:
+        raise ValueError("resume=True requires checkpoint_dir=")
+
+    if inner is not None:
+        return _run_async(algo, data, model, server, ctx, exec_, inner,
+                          rng, seed=seed, rounds=rounds,
+                          eval_every=eval_every, verbose=verbose,
+                          round_callback=round_callback, dp=dp,
+                          n_sample=n_sample, client_states=client_states,
+                          val_batch=val_batch, injector=injector,
+                          policy=policy, checkpoint_dir=checkpoint_dir,
+                          checkpoint_every=checkpoint_every, resume=resume)
+
     records: list[RoundRecord] = []
     uploads: list[dict] = []
-    for t in range(rounds):
+    start_round = 0
+    if resume:
+        hit = recovery.load_latest_state(checkpoint_dir, device=dev)
+        if hit is not None:
+            state, meta, start_round = hit
+            server, records = _restore_run(state, meta, algo, rng, injector,
+                                           ctx, client_states)
+
+    for t in range(start_round, rounds):
         t0 = time.time()
         sampled = data.sample_cohort(rng, n_sample)
         payload = algo.round_payload(server)
         cids = [int(k) for k in sampled]
-        result = exec_.run_round(
-            ctx, server["global"], payload, [client_states[k] for k in cids],
-            [data.clients[k] for k in cids], rng, client_ids=cids)
-        uploads, weights = result.uploads, result.weights
-        local_losses = result.local_losses
-        for k, new_state in zip(cids, result.client_states):
-            client_states[k] = new_state
-        server = algo.server_update(server, uploads, weights, model,
-                                    val_batch, n_clients=data.n_clients)
-        if verbose and t == 0:
+        if injector is None:
+            result = exec_.run_round(
+                ctx, server["global"], payload,
+                [client_states[k] for k in cids],
+                [data.clients[k] for k in cids], rng, client_ids=cids)
+            uploads, weights = result.uploads, result.weights
+            local_losses = result.local_losses
+            for k, new_state in zip(cids, result.client_states):
+                client_states[k] = new_state
+        else:
+            uploads, weights, local_losses = _fault_tolerant_round(
+                exec_, ctx, server, payload, client_states, data, rng,
+                cids, injector, policy)
+        if verbose and t == start_round:
             print(f"[{algo.name}] executor route: "
                   f"{ctx.telemetry.get('route', exec_.name)}")
+
+        if not uploads:
+            # every client of the cohort crashed or was rejected through
+            # all retries: hold the global rather than aggregate nothing
+            ctx.telemetry["faults"]["skipped_rounds"] += 1
+        else:
+            server, uploads = _aggregate(algo, server, uploads, weights,
+                                         model, val_batch, data.n_clients,
+                                         dp, t)
 
         if (t + 1) % eval_every == 0 or t == rounds - 1:
             acc, loss = evaluate(model, server["global"], data.test_x,
@@ -192,9 +276,15 @@ def run_federated(task: PaperTask, algo: Algorithm,
                          if records else (0.0, 0.0))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        records.append(RoundRecord(t + 1, acc, loss,
-                                   float(np.mean(local_losses)),
-                                   time.time() - t0, sampled=tuple(cids)))
+        records.append(RoundRecord(
+            t + 1, acc, loss,
+            float(np.mean(local_losses)) if local_losses else 0.0,
+            time.time() - t0, sampled=tuple(cids)))
+        if checkpoint_dir is not None and (
+                (t + 1) % checkpoint_every == 0 or t == rounds - 1):
+            _save_checkpoint(checkpoint_dir, t + 1, algo, server, rng,
+                             injector, records, client_states,
+                             data.n_clients, ftel=ctx.telemetry.get("faults"))
         if round_callback is not None:
             round_callback(t + 1, server, model)
         if verbose:
@@ -202,8 +292,436 @@ def run_federated(task: PaperTask, algo: Algorithm,
                   f"loss={loss:.4f} local={np.mean(local_losses):.4f}")
 
     # paper Fig.2-style: accuracy of the last trained LOCAL model
-    local_acc, _ = evaluate(model, uploads[-1]["params"], data.test_x,
-                            data.test_y)
+    local_acc = 0.0
+    if uploads:
+        local_acc, _ = evaluate(model, uploads[-1]["params"], data.test_x,
+                                data.test_y)
+    if injector is not None:
+        ctx.telemetry["faults"].update(injector.counters)
+    return History(algo.name, records, server["global"], local_acc,
+                   dict(ctx.telemetry))
+
+
+def _aggregate(algo, server, uploads, weights, model, val_batch, n_clients,
+               dp, t):
+    """``server_update`` on the uploads, with DP's clipping before it and
+    its noise after it when ``dp`` is given; returns the server and the
+    uploads it aggregated (clipped under DP)."""
+    if dp is not None:
+        uploads = privacy.privatize_uploads(uploads, server["global"], dp, t)
+    server = algo.server_update(server, uploads, weights, model, val_batch,
+                                n_clients=n_clients)
+    if dp is not None:
+        server["global"] = privacy.noise_aggregate(server["global"], dp,
+                                                   len(uploads), t)
+    return server, uploads
+
+
+def _fault_counters(policy: FaultPolicy) -> dict:
+    """The zeroed ``History.telemetry["faults"]``; the injector's counters
+    merge in at the end of the run."""
+    return {"crashes": 0, "timeouts": 0, "corrupt_injected": 0,
+            "rejected_nonfinite": 0, "rejected_norm": 0,
+            "retries": 0, "redispatches": 0, "backoff_wait": 0.0,
+            "quorum_shortfalls": 0, "skipped_rounds": 0,
+            "dropped_clients": 0, "quorum_frac": policy.quorum_frac,
+            "host_crashes": 0, "host_timeouts": 0}
+
+
+def _fault_tolerant_round(exec_, ctx, server, payload, client_states, data,
+                          rng, cids, injector, policy):
+    """One synchronous round under fault injection: train the cohort, draw
+    a fault per dispatch, gate survivors through ``validate_update``, and
+    retry the failed subset (capped exponential backoff on the virtual
+    clock) until ``quorum_frac`` of the cohort survives or the retries run
+    out.  Returns ``(uploads, weights, local_losses)`` of the survivors in
+    cohort order; only survivors commit their client state."""
+    ftel = ctx.telemetry["faults"]
+    quorum = max(1, int(np.ceil(policy.quorum_frac * len(cids))))
+    uploads: list[dict] = []
+    weights: list[float] = []
+    losses: list[float] = []
+    state_commits: dict = {}
+    pending = list(cids)
+    attempt = 0
+    while pending:
+        drawn = [(k, injector.draw()) for k in pending]
+        # a crash or timeout never arrives: nothing to train for
+        failed = [k for k, f in drawn
+                  if f is not None and f[0] in ("crash", "timeout")]
+        alive = [(k, f) for k, f in drawn if f is None or f[0] == "corrupt"]
+        if alive:
+            ids = [k for k, _ in alive]
+            result = exec_.run_round(
+                ctx, server["global"], payload,
+                [client_states[k] for k in ids],
+                [data.clients[k] for k in ids], rng, client_ids=ids)
+            for i, (k, f) in enumerate(alive):
+                up = result.uploads[i]
+                if f is not None:
+                    up = dict(up, params=systemsim.corrupt_params(
+                        up["params"], f[1], injector.profile.huge_scale))
+                ok, reason = validate_update(
+                    up["params"], server["global"],
+                    max_norm_mult=policy.max_norm_mult)
+                if ok:
+                    uploads.append(up)
+                    weights.append(result.weights[i])
+                    losses.append(result.local_losses[i])
+                    state_commits[k] = result.client_states[i]
+                else:
+                    ftel["rejected_nonfinite" if reason.startswith("nonfinite")
+                         else "rejected_norm"] += 1
+                    failed.append(k)
+        if len(uploads) >= quorum or not failed \
+                or attempt >= policy.max_retries:
+            break
+        # redispatch the failed subset after the backoff, from the same
+        # round-frozen payload against the current global
+        attempt += 1
+        ftel["retries"] += 1
+        ftel["redispatches"] += len(failed)
+        ftel["backoff_wait"] += policy.backoff(attempt)
+        pending = failed
+    if len(uploads) < quorum:
+        ftel["quorum_shortfalls"] += 1
+    for k, s in state_commits.items():
+        client_states[k] = s
+    return uploads, weights, losses
+
+
+def _save_checkpoint(ckpt_dir, rnd, algo, server, rng, injector, records,
+                     client_states, n_clients, ftel=None, extra=None):
+    state = {
+        "server": server,
+        "np_rng": recovery.rng_state(rng),
+        "fault_rng": (recovery.rng_state(injector.rng)
+                      if injector is not None else None),
+        # the counters travel with the stream, so a resumed run's fault
+        # telemetry is the uninterrupted run's, not only the tail's
+        "fault_counters": (dict(injector.counters)
+                           if injector is not None else None),
+        "fault_telemetry": dict(ftel) if ftel is not None else None,
+        "records": [dataclasses.asdict(r) for r in records],
+        "client_states": [client_states[k] for k in range(n_clients)],
+    }
+    if extra:
+        state.update(extra)
+    recovery.save_run_state(ckpt_dir, rnd, state, meta={"algo": algo.name})
+
+
+def _restore_run(state, meta, algo, rng, injector, ctx, client_states):
+    """Put a loaded run state back in place: the rng streams, the fault
+    counters and telemetry, the client states; returns ``(server,
+    records)``.  A checkpoint of another algorithm is refused."""
+    if meta.get("algo") not in (None, algo.name):
+        raise ValueError(f"resume: checkpoint was written by algo "
+                         f"{meta.get('algo')!r}, this run is {algo.name!r}")
+    recovery.restore_rng(rng, state["np_rng"])
+    if injector is not None and state.get("fault_rng") is not None:
+        recovery.restore_rng(injector.rng, state["fault_rng"])
+        if state.get("fault_counters") is not None:
+            injector.counters.update(state["fault_counters"])
+        if state.get("fault_telemetry") is not None:
+            ctx.telemetry["faults"].update(state["fault_telemetry"])
+    for k, s in enumerate(state["client_states"]):
+        client_states[k] = s
+    return state["server"], [RoundRecord(**d) for d in state["records"]]
+
+
+def _read_losses(values: list) -> list[float]:
+    """Per-client losses as host floats; a deferred wave's device tensors
+    in one read back."""
+    if values and all(isinstance(v, torch.Tensor) for v in values):
+        return torch.stack(values).cpu().tolist()
+    return [float(v) for v in values]
+
+
+def _run_async(algo: Algorithm, data: FederatedData,
+               model: ModelBundle, server: dict,
+               ctx: "executor_lib.RoundContext",
+               exec_: "executor_lib.AsyncExecutor", inner,
+               rng: np.random.Generator, *, seed: int, rounds: int,
+               eval_every: int, verbose: bool, round_callback, dp,
+               n_sample: int, client_states: dict, val_batch,
+               injector=None, policy=None, checkpoint_dir=None,
+               checkpoint_every: int = 1, resume: bool = False) -> History:
+    """Buffered-asynchronous rounds on a simulated heterogeneous system;
+    one record per aggregation (global version bump).
+
+      * ``n_sample`` clients are always in flight.  Each dispatch wave
+        samples idle clients, trains them through the inner executor
+        against the current global (tagging the uploads with its version)
+        and schedules their completions at ``now + local_steps / speed``
+        on the virtual clock (``core.systemsim``).
+      * An aggregation takes the ``B`` earliest completions, weights them
+        by data size times staleness scale
+        (``server.async_aggregation_weights``), applies ``server_update``,
+        bumps the version and redials ``B`` clients.  Within a buffer the
+        updates aggregate in dispatch order.
+      * Under the ``"fedgkd"`` scheme stale arrivals are also absorbed into
+        the teacher buffer (``Algorithm.absorb_stale``).
+
+    With faults, each dispatch draws one from the fault stream; dead and
+    rejected completions are skipped by the buffer fill (which drains the
+    heap until it holds ``B`` validated updates), and the failed client is
+    redispatched after a capped backoff on the virtual clock, or dropped
+    after ``max_retries`` consecutive failures.  Corruption is applied at
+    buffer fill, never inside the heap, so a snapshot holds only finite
+    uploads.
+
+    Pipelined (``AsyncExecutor(pipelined=True)``): the inner executor
+    leaves its losses on the device (``RoundContext.deferred``) and the
+    refill wave is sampled, materialized, precomputed and launched before
+    the round's evaluation reads anything back; the losses are read at
+    aggregation.  The numbers are those of the single-stream order.
+
+    With ``checkpoint_dir`` every aggregation's checkpoint holds the
+    simulator (clock, heap with the in-flight uploads, dispatch sequence)
+    and the per-client retry counts, taken after the round's refill, so a
+    run killed mid-wave resumes into the same wave.
+    """
+    b = exec_.buffer_size if exec_.buffer_size is not None else n_sample
+    if not (1 <= b <= n_sample):
+        raise ValueError(
+            f"async buffer_size must be in [1, cohort={n_sample}]: a larger "
+            f"buffer than the in-flight fleet can never fill (got {b})")
+    sim = systemsim.SystemSim(
+        data.n_clients, profile=exec_.profile,
+        availability=exec_.availability, rng=systemsim.derive_rng(seed),
+        base_step_time=exec_.base_step_time)
+
+    def client_work(n: int) -> int:
+        """Local steps of a client of ``n`` examples: its virtual work."""
+        steps = num_batches(n, ctx.batch_size, ctx.epochs)
+        if ctx.max_batches is not None:
+            steps = min(steps, ctx.max_batches)
+        return steps
+
+    def work_of(k: int) -> int:
+        return client_work(data.client_n(k))
+
+    ctx.deferred = bool(exec_.pipelined and inner.name != "sequential")
+
+    in_flight: set[int] = set()
+    version = 0
+    stale_absorbed = 0
+    max_stale = 0.0
+    records: list[RoundRecord] = []
+    uploads: list[dict] = []
+    ftel = ctx.telemetry.get("faults")
+    fail_count: dict[int, int] = {}     # consecutive failures per client
+
+    def launch(cids: "list[int]", delay: float = 0.0) -> None:
+        """Train ``cids`` against the current global and schedule their
+        completions, each with its fault draw: a faulted dispatch still
+        occupies the heap (for the timeout factor's longer duration on a
+        timeout), its tag marks it dead."""
+        payload = algo.round_payload(server)
+        result = inner.run_round(
+            ctx, server["global"], payload,
+            [client_states[k] for k in cids],
+            [data.clients[k] for k in cids], rng, client_ids=cids)
+        for i, k in enumerate(cids):
+            fault = injector.draw() if injector is not None else None
+            if fault is None:
+                # a failed client's local work is lost
+                client_states[k] = result.client_states[i]
+            slowdown = (injector.profile.timeout_factor
+                        if fault is not None and fault[0] == "timeout"
+                        else 1.0)
+            in_flight.add(k)
+            sim.dispatch(k, work_of(k), tag={
+                "upload": result.uploads[i], "weight": result.weights[i],
+                "loss": result.local_losses[i], "version": version,
+                "fault": fault}, delay=delay, slowdown=slowdown)
+
+    def dispatch_wave(k_count: int) -> None:
+        if k_count == 0:
+            return
+        # with nothing in flight this is the synchronous loop's draw
+        sampled = data.sample_cohort(rng, k_count, exclude=in_flight)
+        launch([int(k) for k in sampled])
+
+    def fill_buffer() -> list:
+        """Drain the heap until it yields ``b`` validated completions; dead
+        and rejected ones are skipped and their clients redispatched or
+        dropped.  May return fewer than ``b`` (even none) when the whole
+        fleet fails out."""
+        out: list = []
+        while len(out) < b and sim.in_flight > 0:
+            c = sim.pop()
+            fault = c.tag.get("fault")
+            if fault is not None and fault[0] == "corrupt":
+                up = c.tag["upload"]
+                c.tag["upload"] = dict(up, params=systemsim.corrupt_params(
+                    up["params"], fault[1], injector.profile.huge_scale))
+            if fault is None or fault[0] == "corrupt":
+                ok, reason = validate_update(
+                    c.tag["upload"]["params"], server["global"],
+                    max_norm_mult=policy.max_norm_mult)
+                if ok:
+                    out.append(c)
+                    fail_count.pop(c.client, None)
+                    continue
+                ftel["rejected_nonfinite" if reason.startswith("nonfinite")
+                     else "rejected_norm"] += 1
+            # a dead completion: free the slot, retry or drop the client
+            in_flight.discard(c.client)
+            fails = fail_count.get(c.client, 0) + 1
+            fail_count[c.client] = fails
+            if fails <= policy.max_retries:
+                delay = policy.backoff(fails)
+                ftel["redispatches"] += 1
+                ftel["retries"] += 1
+                ftel["backoff_wait"] += delay
+                launch([c.client], delay=delay)
+            else:
+                ftel["dropped_clients"] += 1
+                fail_count.pop(c.client, None)
+        return out
+
+    def refill() -> None:
+        if injector is None:
+            dispatch_wave(b)
+        else:
+            # dropped clients shrink the fleet below n_sample: top it up
+            dispatch_wave(max(0, min(n_sample - len(in_flight),
+                                     data.n_clients - len(in_flight))))
+
+    def save_ckpt(rnd: int) -> None:
+        """Checkpoint the async run state, after the round's refill: the
+        heap must hold the wave the uninterrupted run carries on with."""
+        if checkpoint_dir is None or (
+                rnd % checkpoint_every != 0 and rnd != rounds):
+            return
+        _save_checkpoint(
+            checkpoint_dir, rnd, algo, server, rng, injector, records,
+            client_states, data.n_clients, ftel=ftel,
+            extra={"sim": sim.state(), "in_flight": sorted(in_flight),
+                   "version": version, "stale_absorbed": stale_absorbed,
+                   "max_stale": max_stale,
+                   "fail_count": sorted(fail_count.items())})
+
+    start_round = 0
+    if resume:
+        hit = recovery.load_latest_state(checkpoint_dir, device=ctx.device)
+        if hit is not None:
+            state, meta, start_round = hit
+            server, records = _restore_run(state, meta, algo, rng, injector,
+                                           ctx, client_states)
+            sim.restore(state["sim"], device=ctx.device)
+            in_flight = set(int(k) for k in state["in_flight"])
+            version = int(state["version"])
+            stale_absorbed = int(state["stale_absorbed"])
+            max_stale = float(state["max_stale"])
+            fail_count.update({int(k): int(v)
+                               for k, v in state["fail_count"]})
+
+    # with checkpointing on, the last round refills too: its checkpoint is
+    # then the one a longer run writes there, so a finished run can be
+    # extended by resuming with more rounds
+    def wants_refill(t: int) -> bool:
+        return t < rounds - 1 or checkpoint_dir is not None
+
+    if start_round == 0:
+        dispatch_wave(n_sample)
+    for t in range(start_round, rounds):
+        t0 = time.time()
+        if injector is None:
+            completions = sim.pop_batch(b)
+        else:
+            completions = fill_buffer()
+            if not completions:
+                # the whole fleet failed out: hold the global, record the
+                # skipped event, redial
+                ftel["skipped_rounds"] += 1
+                acc, loss = ((records[-1].test_acc, records[-1].test_loss)
+                             if records else
+                             evaluate(model, server["global"], data.test_x,
+                                      data.test_y))
+                records.append(RoundRecord(
+                    t + 1, acc, loss, 0.0, time.time() - t0,
+                    sim_time=sim.now, version=version))
+                if wants_refill(t):
+                    dispatch_wave(min(b, data.n_clients - len(in_flight)))
+                save_ckpt(t + 1)
+                continue
+        # the aggregation order: the dispatch sequence
+        completions.sort(key=lambda c: c.seq)
+        staleness = [version - c.tag["version"] for c in completions]
+        max_stale = max(max_stale, float(max(staleness)))
+        data_weights = [c.tag["weight"] for c in completions]
+        weights = async_aggregation_weights(
+            data_weights, staleness, exec_.staleness, a=exec_.staleness_a,
+            cutoff=exec_.staleness_cutoff, normalize=False)
+        # a deferred wave's losses are read here, once for the buffer
+        local_losses = _read_losses([c.tag["loss"] for c in completions])
+        if verbose and t == start_round:
+            print(f"[{algo.name}] executor route: async/"
+                  f"{ctx.telemetry.get('route', inner.name)} (buffer B={b}, "
+                  f"staleness={exec_.staleness}, "
+                  f"profile={sim.profile.kind})")
+
+        uploads = [c.tag["upload"] for c in completions]
+        server, uploads = _aggregate(algo, server, uploads, weights, model,
+                                     val_batch, data.n_clients, dp, t)
+        if exec_.staleness == "fedgkd":
+            n_stale = sum(1 for s in staleness if s > 0)
+            if n_stale:
+                stale_absorbed += n_stale
+                server = algo.absorb_stale(server, uploads, staleness,
+                                           data_weights, model=model,
+                                           val_batch=val_batch)
+        version += 1
+        for c in completions:
+            in_flight.discard(c.client)
+
+        refilled = False
+        if ctx.deferred and wants_refill(t):
+            # pipelined: the refill wave goes out before the evaluation
+            # reads anything back (it consumes no rng, so the sampled
+            # history is unchanged)
+            refill()
+            refilled = True
+        if (t + 1) % eval_every == 0 or t == rounds - 1:
+            acc, loss = evaluate(model, server["global"], data.test_x,
+                                 data.test_y)
+        else:
+            acc, loss = ((records[-1].test_acc, records[-1].test_loss)
+                         if records else (0.0, 0.0))
+        if wants_refill(t) and not refilled:
+            refill()
+        # no synchronize here: the refill wave trains on while the next
+        # aggregation starts, so ``seconds`` is the host's time
+        records.append(RoundRecord(
+            t + 1, acc, loss, float(np.mean(local_losses)),
+            time.time() - t0, sim_time=sim.now, version=version,
+            mean_staleness=float(np.mean(staleness)),
+            sampled=tuple(c.client for c in completions)))
+        save_ckpt(t + 1)
+        if round_callback is not None:
+            round_callback(t + 1, server, model)
+        if verbose:
+            print(f"[{algo.name}] agg {t + 1:3d}/{rounds} v{version} "
+                  f"acc={acc:.4f} loss={loss:.4f} "
+                  f"local={np.mean(local_losses):.4f} "
+                  f"sim_t={sim.now:.1f} stale={np.mean(staleness):.2f}")
+
+    ctx.telemetry.update(
+        route="async", inner_route=ctx.telemetry.get("route", inner.name),
+        buffer_size=b, staleness_scheme=exec_.staleness,
+        aggregations=rounds, final_version=version,
+        stale_absorbed=stale_absorbed,
+        mean_staleness=float(np.mean([r.mean_staleness for r in records])),
+        max_staleness=max_stale, sim=sim.stats())
+    if injector is not None:
+        ftel.update(injector.counters)
+
+    local_acc = 0.0
+    if uploads:
+        local_acc, _ = evaluate(model, uploads[-1]["params"], data.test_x,
+                                data.test_y)
     return History(algo.name, records, server["global"], local_acc,
                    dict(ctx.telemetry))
 

@@ -47,10 +47,19 @@ class FederatedData:
         clients = [ClientData(x[idx], y[idx]) for idx in parts]
         return cls(clients, test_x, test_y, partition_stats(y, parts))
 
-    def sample_cohort(self, rng: np.random.Generator, k: int) -> np.ndarray:
-        """Uniform draw of ``k`` distinct clients: one ``rng.choice`` over
-        the whole population, as the reference's synchronous loop draws."""
-        return rng.choice(self.n_clients, size=k, replace=False)
+    def client_n(self, cid: int) -> int:
+        return self.clients[int(cid)].n
+
+    def sample_cohort(self, rng: np.random.Generator, k: int,
+                      exclude=None) -> np.ndarray:
+        """Uniform draw of ``k`` distinct clients, as the reference draws:
+        one ``rng.choice`` over the whole population, or over the sorted
+        ids not in ``exclude`` (the async loop's in-flight clients)."""
+        if not exclude:
+            return rng.choice(self.n_clients, size=k, replace=False)
+        idle = np.setdiff1d(np.arange(self.n_clients, dtype=np.int64),
+                            np.fromiter(exclude, np.int64))
+        return idle[rng.choice(len(idle), size=k, replace=False)]
 
 
 def num_batches(n: int, batch_size: int, epochs: int) -> int:

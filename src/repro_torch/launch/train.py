@@ -14,8 +14,11 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
         --smoke --rounds 2 --clients 2 --device cpu
 
-Not ported yet: ``--sharded`` (ROADMAP A13), ``--straggler-frac`` (A10),
-full configs in bf16 (A15).  ``--fl-task`` is the path of
+``--straggler-frac`` simulates a straggler tail (``make_round_clock``):
+each round reports ``sim_seconds``, the virtual time the round's barrier
+waits for its slowest client; it adds no device work.
+
+Not ported yet: ``--sharded`` (ROADMAP A13), full configs in bf16 (A15).  ``--fl-task`` is the path of
 ``repro_torch.core.fl_loop.run_federated`` (A8, A9), not wired to this CLI.
 """
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import systemsim
 from repro_torch.core.distillation import ensemble_average
 from repro_torch.core.fl_loop import resolve_device
 from repro_torch.core.server import ModelBuffer, weighted_average
@@ -62,19 +66,43 @@ def eval_ppl(params, cfg, tokens: torch.Tensor) -> float:
         return float(torch.exp(ce.to(torch.float64)))
 
 
+def make_round_clock(n_clients: int, *, straggler_frac: float,
+                     straggler_slowdown: float, seed: int):
+    """``None`` (no simulation), or a function of a round's work (batches
+    per client) to the synchronous barrier's cost: the virtual seconds
+    until the round's slowest client finishes, with speeds of the
+    straggler profile drawn from the seed's simulation stream
+    (``core.systemsim``)."""
+    if straggler_frac <= 0.0:
+        return None
+    sim = systemsim.SystemSim(
+        n_clients,
+        systemsim.SpeedProfile(kind="straggler",
+                               straggler_frac=straggler_frac,
+                               straggler_slowdown=straggler_slowdown),
+        rng=systemsim.derive_rng(seed))
+    return lambda work: max(sim.duration(k, work) for k in range(n_clients))
+
+
 def run_serial(cfg, *, rounds: int, n_clients: int, batches_per_round: int,
                batch: int, seq: int, algo: str = "fedgkd", gamma: float = 0.2,
                buffer_m: int = 3, lr: float = 0.1, seed: int = 0,
                verbose: bool = True, device=None,
-               round_callback: Optional[Callable] = None) -> dict:
+               round_callback: Optional[Callable] = None,
+               straggler_frac: float = 0.0,
+               straggler_slowdown: float = 4.0) -> dict:
     """``rounds`` rounds of ``algo`` ("fedgkd" or "fedavg"), every client
     training ``batches_per_round`` steps of SGD (momentum 0.9) from the
     global model; returns ``{"history": [per-round dicts], "params"}``,
     each dict holding the round's ``ppl``, its last step's ``loss`` (and
-    ``kd`` under FedGKD) and its ``seconds``.
+    ``kd`` under FedGKD), its ``seconds`` and, with ``straggler_frac > 0``,
+    its ``sim_seconds`` (``make_round_clock``).
     ``round_callback(round, params)`` runs after each round's evaluation,
     once the device has finished it."""
     dev = resolve_device(device)
+    round_clock = make_round_clock(n_clients, straggler_frac=straggler_frac,
+                                   straggler_slowdown=straggler_slowdown,
+                                   seed=seed)
     opt = sgd(momentum=0.9)
     kd_mode = "teacher" if algo == "fedgkd" else "none"
     step = steps_lib.make_train_step(cfg, opt, kd_mode=kd_mode, gamma=gamma,
@@ -115,6 +143,8 @@ def run_serial(cfg, *, rounds: int, n_clients: int, batches_per_round: int,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         rec["seconds"] = time.perf_counter() - t0
+        if round_clock is not None:
+            rec["sim_seconds"] = round_clock(batches_per_round)
         history.append(rec)
         if verbose:
             print(f"[{algo}] round {t + 1}/{rounds} ppl={ppl:.2f} "
@@ -144,7 +174,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded", action="store_true",
                     help="clients in parallel on a mesh (not ported)")
     ap.add_argument("--straggler-frac", type=float, default=0.0,
-                    help="simulated straggler tail (not ported)")
+                    help="simulate a straggler tail: this fraction of "
+                         "clients runs --straggler-slowdown x slower and "
+                         "each round reports sim_seconds (the synchronous "
+                         "barrier's virtual cost)")
     ap.add_argument("--straggler-slowdown", type=float, default=4.0)
     ap.add_argument("--device", default=None,
                     help="torch device; default the CUDA card, 'cpu' to run "
@@ -157,9 +190,6 @@ def main(argv=None) -> int:
             "run_federated (ROADMAP A8, A9); this CLI does not wire it")
     if args.sharded:
         raise NotImplementedError("--sharded is not ported yet (ROADMAP A13)")
-    if args.straggler_frac > 0:
-        raise NotImplementedError(
-            "--straggler-frac is not ported yet (ROADMAP A10)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.param_dtype != "float32" or cfg.activation_dtype != "float32":
         raise NotImplementedError(
@@ -171,8 +201,15 @@ def main(argv=None) -> int:
                      batches_per_round=args.batches_per_round,
                      batch=args.batch, seq=args.seq, gamma=args.gamma,
                      buffer_m=args.buffer_m, lr=args.lr, algo=args.algo,
-                     device=args.device)
+                     device=args.device, straggler_frac=args.straggler_frac,
+                     straggler_slowdown=args.straggler_slowdown)
     print("final ppl:", out["history"][-1]["ppl"])
+    if args.straggler_frac > 0:
+        total = sum(r["sim_seconds"] for r in out["history"])
+        print(f"simulated round-barrier time: {total!r} virtual s over "
+              f"{args.rounds} rounds (straggler tail "
+              f"{args.straggler_frac:.0%} at "
+              f"{args.straggler_slowdown:g}x slowdown)")
     return 0
 
 

@@ -191,6 +191,74 @@ def test_grouped_conv_kernel_valid_padding(cuda, case):
     _close(got, conv_ref.grouped_conv_ref(x, w, s, "VALID"))
 
 
+# ResNet-8's 9 convs at width 16 (H, Cin, Cout, k, stride) at the wave
+# sizes the async loop and the fault-tolerant round add: K = 2 (a refill of
+# B = 2) and K = 3 (a retried subset), N = 64
+RESNET8_CONVS = [(32, 3, 16, 3, 1), (32, 16, 16, 3, 1), (32, 16, 32, 3, 2),
+                 (16, 32, 32, 3, 1), (32, 16, 32, 1, 2), (16, 32, 64, 3, 2),
+                 (8, 64, 64, 3, 1), (16, 32, 64, 1, 2)]
+
+
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("shape", RESNET8_CONVS, ids=str)
+def test_grouped_conv_kernel_at_wave_sizes(cuda, k, shape):
+    h, cin, cout, kk, s = shape
+    gen = torch.Generator(device=cuda).manual_seed(k + sum(shape))
+    x = torch.randn(k, 64, h, h, cin, device=cuda, generator=gen)
+    w = torch.randn(k, kk, kk, cin, cout, device=cuda,
+                    generator=gen) / math.sqrt(kk * kk * cin)
+    before = LAUNCHES["grouped_conv_fwd"]
+    got = conv_ops.grouped_conv_fwd(x, w, s, "SAME")
+    torch.cuda.synchronize()
+    assert LAUNCHES["grouped_conv_fwd"] == before + 1
+    _close(got, conv_ref.grouped_conv_ref(x, w, s, "SAME"))
+
+
+def test_dp_noise_is_the_same_on_card_and_cpu(cuda):
+    """DP's default noise is drawn on the CPU and moved: the card adds the
+    CPU's draws, bit for bit."""
+    from repro_torch.core import privacy
+
+    params = {"w": torch.zeros(64, 33), "b": torch.ones(7)}
+    dp = privacy.DPConfig(clip_norm=1.0, noise_multiplier=0.5, seed=4)
+    on_cpu = privacy.noise_aggregate(params, dp, 4, 2)
+    on_card = privacy.noise_aggregate(
+        {k: v.to(cuda) for k, v in params.items()}, dp, 4, 2)
+    for k in params:
+        assert on_card[k].device.type == "cuda"
+        assert torch.equal(on_card[k].cpu(), on_cpu[k])
+
+
+def test_deferred_wave_returns_device_losses(cuda):
+    """A deferred vmap wave leaves its per-client losses on the card, one
+    (K,) tensor, equal to the undeferred wave's host floats."""
+    import numpy as np
+
+    from repro_torch.core import executor, modelzoo
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_map
+
+    task = scaled(CIFAR10, 0.02, rounds=1, local_epochs=1)
+    data = fl_loop.make_federated_data(task, alpha=0.5, seed=0, n_test=64)
+    algo = algorithms.make("fedgkd")
+    model = modelzoo.make_model(task, width=16)
+    gp = tree_map(lambda t: t.to(cuda),
+                  model.init(torch.Generator().manual_seed(0)))
+    srv = algo.init_server(gp, model, task.num_classes)
+    out = []
+    for deferred in (True, False):
+        ctx = executor.RoundContext(
+            algo=algo, model=model, opt=sgd(), lr=0.05,
+            batch_size=task.batch_size, epochs=1, device=cuda, max_batches=2,
+            deferred=deferred)
+        out.append(executor.VmapExecutor().run_round(
+            ctx, gp, algo.round_payload(srv), [(), ()], data.clients[:2],
+            np.random.default_rng(0), client_ids=[0, 1]).local_losses)
+    assert isinstance(out[0], torch.Tensor) and out[0].device.type == "cuda"
+    assert out[0].shape == (2,)
+    np.testing.assert_allclose(out[0].tolist(), out[1], rtol=0, atol=TOL)
+
+
 def test_short_fedgkd_run_launches_every_kernel(cuda):
     """The ResNet-8 path launches every kernel of its path."""
     task = scaled(CIFAR10, 0.02, rounds=1, local_epochs=1)

@@ -38,7 +38,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.ssd_scan.ops",
             "repro_torch.kernels.ssd_scan.ref", "repro_torch.models.ssm",
             "repro_torch.configs.base", "repro_torch.configs.mamba2_2_7b",
-            "repro_torch.launch.steps", "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.steps", "repro_torch.launch.train",
+            "repro_torch.core.privacy", "repro_torch.core.systemsim",
+            "repro_torch.checkpoint.io",
+            "repro_torch.checkpoint.recovery"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

@@ -338,9 +338,23 @@ def test_cli_defaults_to_the_card_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--arch", ARCH, "--smoke", "--rounds", "1"])
     for flags, item in [(["--sharded"], "A13"),
-                        (["--straggler-frac", "0.5"], "A10"),
                         (["--fl-task", "cifar10"], "A8")]:
         with pytest.raises(NotImplementedError, match=item):
             train.main(["--arch", ARCH, "--smoke", *flags])
     with pytest.raises(NotImplementedError, match="A15"):
         train.main(["--arch", ARCH, "--device", "cpu"])        # bf16
+
+
+def test_cli_straggler_tail_reports_the_references_sim_seconds():
+    """``--straggler-frac 0.5`` on the CPU: the run finishes and its
+    simulated barrier time is the reference clock's over the rounds."""
+    out = _cli("--device", "cpu", "--straggler-frac", "0.5",
+               "--straggler-slowdown", "3.0", "--rounds", "2")
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert math.isfinite(float(lines[-2].split(":")[1]))
+    total = float(lines[-1].split(":")[1].split()[0])
+    clock = jax_train.make_round_clock(2, straggler_frac=0.5,
+                                       straggler_slowdown=3.0, seed=0)
+    assert total == 2 * clock(1)
+    assert total > 0.0

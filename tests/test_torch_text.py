@@ -212,4 +212,6 @@ def test_auto_executor_choice():
     no_vmap.supports_vmap = False
     assert isinstance(pick("auto", no_vmap, 4, resnet),
                       executor.SequentialExecutor)
-    assert executor.available() == ["sequential", "vmap", "auto"]
+    assert executor.available() == ["async", "sequential", "vmap", "auto"]
+    assert isinstance(pick("async", fedgkd, 4, resnet),
+                      executor.AsyncExecutor)
