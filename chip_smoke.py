@@ -12,7 +12,8 @@ and nothing of JAX or of the JAX package, and
      the build's seconds and the compiler's register report;
   3. holds every kernel against its plain PyTorch version on the card at
      the paths' shapes — KD-KL forward and backward at (256, 10),
-     FedDistill+'s (64, 10), (256, 100), (256, 200), a ragged (1000, 37),
+     FedDistill+'s (64, 10), the population phase's K=64 TOY cohort under
+     vmap (1024, 10), (256, 100), (256, 200), a ragged (1000, 37),
      the text path's (64, 4) and (64, 5) and the LM path's (4092, 50280);
      the client-batched conv at all 9 ResNet-8 layers at K=4, N=64, at
      K=1, N=64 (the sequential route's step), at K=2 and K=3, N=64 (the
@@ -101,9 +102,28 @@ and nothing of JAX or of the JAX package, and
         held to its plain version at every one of them (the K = 1-3 waves'
         steps and teacher chunks among them); the LM run of c. also
         reports its simulated straggler barrier (``sim_seconds``);
+     h. the population tier (``run_population``, ``run_federated(
+        population=)``): a million registered synthetic clients (the
+        reference's population bench: 245 shards, warm cap 256), the
+        sampler's K=64 draw timed against a 10k-client control (within
+        2x), and FedGKD on the TOY task's MLP for 3 rounds of K=64 through
+        the vmap executor (B1/B2 under vmap), its cohorts and tier
+        counters equal to a CPU run's, the warm tier within its cap, the
+        cold loads within the cohorts and the probe client; the run again
+        in a child process started before phase a., after a 10k-client
+        run of the same task: its peak RSS before and after and the bytes
+        its warm tier holds;
+        ResNet-8 at full width from disk shards (warm cap 4),
+        with a one-shard sampler equal to the ``data=`` run within 1e-6
+        and with 4 shards evicting; FedDyn (the sequential route) with its
+        states spilled to disk and reloaded, equal to the ``data=`` run
+        within 1e-6; the async run of g. with ``population=``, killed after
+        aggregation 3 and resumed, bitwise, with no pin left; B1-B3 then
+        held to their plain versions at every shape these runs gave them;
   5. profiles one steady-state round of each path (``torch.profiler``;
-     FedGKD, MOON and FedGen for the baselines, and an async aggregation
-     pipelined and not, each with its host synchronisations counted by
+     FedGKD, MOON and FedGen for the baselines, an async aggregation
+     pipelined and not, and a population round of the TOY and the
+     disk-shard runs, each with its host synchronisations counted by
      line in a run without the profiler): host wall time, the
      device's busy time and idle share, device time by kernel, and the
      device time inside the conv's gradients (``grouped_conv_dw``,
@@ -117,7 +137,7 @@ and nothing of JAX or of the JAX package, and
      5e-5, so no check at 1e-4 could fail; the LM path at full width with
      1 layer, 2 clients x 1 batch of one 513-token sequence, which the CPU
      runs in reasonable time; ResNet-50 at lr 1e-3, ``R50_CHECK_LR``
-     says why; the TOY runs of phase f at the task's lr).
+     says why; the TOY runs of phases f and h at the task's lr).
 
 It exits non-zero on any failure.  The last lines of its output are the
 kernels' JSON record, the ``nvidia-smi`` line and
@@ -202,11 +222,27 @@ RES_DP = dict(clip_norm=1.0, noise_multiplier=0.5)
 RES_CHAOS = dict(crash_prob=0.2, corrupt_prob=0.05)
 RES_DP_ROUNDS, RES_FAULT_ROUNDS, RES_KILL_ROUNDS, RES_AGGS = 2, 3, 4, 6
 PIPE_TOL = 1e-5            # pipelined against single-stream async, fp32
+# the population phase (the reference's benchmarks/population_bench.py
+# setting): 1M registered synthetic clients (8-24 rows each) in 245 shards
+# of 4,096, a warm cap of 256, K=64 cohorts of the TOY task (batch 16, one
+# local epoch, 3 rounds); the sampler's K=64 draw at 1M timed against a
+# 10k-client control, within 2x; ResNet-8 from disk shards of 5 clients
+# with a warm cap of 4; FedDyn's states with a state warm cap of 2
+POP_CLIENTS, POP_K, POP_ROUNDS, POP_CONTROL = 1_000_000, 64, 3, 10_000
+POP_SYNTH = dict(warm_cap=256, shard_size=4096, min_n=8, max_n=24, seed=0,
+                 n_test=128)
+POP_SAMPLE_REPS, POP_SAMPLE_RATIO = 200, 2.0
+POP_DISK_SHARD, POP_DISK_WARM, POP_STATE_WARM = 5, 4, 2
+POP_EQ_TOL = 1e-6          # population= against data= on the card
+POP_KW = dict(seed=0, executor="vmap", width=16)
+# the flag that runs ``population_footprint``'s child process
+FOOTPRINT_FLAG = "--population-footprint"
 # what a resumed run must reproduce exactly
 REC_FIELDS = ("round", "test_acc", "test_loss", "mean_local_loss",
               "sim_time", "version", "mean_staleness", "sampled")
-KD_SHAPES = [(256, 10), (64, 10), (128, 10), (192, 10), (256, 100), (256, 200),
-             (1000, 37), (64, 4), (64, 5), (4092, 50280)]
+KD_SHAPES = [(256, 10), (64, 10), (128, 10), (192, 10), (1024, 10),
+             (256, 100), (256, 200), (1000, 37), (64, 4), (64, 5),
+             (4092, 50280)]
 # the LM path (mamba2-2.7b at full width, 4 layers): batch 4 of 1,024-token
 # sequences, so 1,023 positions a step; evaluation on 8 such sequences
 LM_BATCH, LM_SEQ, LM_EVAL_BATCH = 4, 1024, 8
@@ -1270,6 +1306,18 @@ def capture_round(rnd: int, into: dict):
     return cb
 
 
+class Killed(Exception):
+    """Raised by ``kill_after``'s callback: a run killed mid-way."""
+
+
+def kill_after(rnd: int):
+    """A ``round_callback`` that kills the run after round ``rnd``."""
+    def cb(t, *_):
+        if t == rnd:
+            raise Killed
+    return cb
+
+
 def assert_same_history(label, a, b) -> float:
     """Records equal field by field (``REC_FIELDS``); returns the final
     params' max abs difference, which the caller gates."""
@@ -1319,7 +1367,7 @@ def record_shapes():
             setattr(mod, name, fn)
 
 
-def check_path_shapes(dev, seen: dict) -> dict:
+def check_path_shapes(dev, seen: dict, phase: str) -> dict:
     """B1, B2 and B3 against their plain versions, untimed, at every
     distinct shape that ``record_shapes`` saw (the async waves' and the
     retried subsets' K = 1-3 steps and their teacher chunks among them),
@@ -1357,7 +1405,7 @@ def check_path_shapes(dev, seen: dict) -> dict:
             kd_ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g, temp)))
     conv_kn = sorted({xs[:2] for xs, *_ in seen["grouped_conv_fwd"]})
     kd_rows = sorted({key[0] for key in seen["kd_kl_fwd"] | seen["kd_kl_bwd"]})
-    log(f"resilience path shapes against their plain versions: B3 at "
+    log(f"{phase} path shapes against their plain versions: B3 at "
         f"{len(seen['grouped_conv_fwd'])} shapes, (K, N) in {conv_kn}; B1/B2 "
         f"at {kd_rows}; max abs err {err}")
     return err
@@ -1370,7 +1418,7 @@ def run_resilience(dev) -> tuple[dict, dict]:
     and each kernel's max abs error."""
     with record_shapes() as seen:
         total = resilience_runs(dev)
-    return total, check_path_shapes(dev, seen)
+    return total, check_path_shapes(dev, seen, "resilience")
 
 
 def resilience_runs(dev) -> dict:
@@ -1512,15 +1560,6 @@ def resilience_runs(dev) -> dict:
         f"(host wall of the run, init and evaluation included)")
 
     # 3. kill and resume, with the checkpoint writes timed
-    class Killed(Exception):
-        pass
-
-    def kill_after(rnd):
-        def cb(t, *_):
-            if t == rnd:
-                raise Killed
-        return cb
-
     writes = []
     save = recovery.save_run_state
 
@@ -1676,6 +1715,363 @@ def resilience_runs(dev) -> dict:
     return total
 
 
+def run_population(dev, footprint: "dict | None" = None
+                   ) -> tuple[dict, dict]:
+    """``population_runs`` with the shapes of B1, B2 and B3 recorded, then
+    each kernel checked against its plain version at every one of them
+    (``check_path_shapes``).  ``footprint``: ``population_footprint``'s
+    record, taken now when not given.  Returns the launch counts of the
+    card runs and each kernel's max abs error."""
+    with record_shapes() as seen:
+        total = population_runs(dev, footprint)
+    return total, check_path_shapes(dev, seen, "population")
+
+
+def sampler_ms(n_clients: int) -> float:
+    """Milliseconds of one K=``POP_K`` cohort draw over ``n_clients`` in
+    shards of ``POP_SYNTH["shard_size"]``, the median of 5 blocks of
+    ``POP_SAMPLE_REPS`` draws (the host's clock)."""
+    import numpy as np
+
+    from repro_torch.population import HierarchicalSampler, even_shard_sizes
+
+    sampler = HierarchicalSampler(
+        even_shard_sizes(n_clients, POP_SYNTH["shard_size"]))
+    rng = np.random.default_rng(0)
+    sampler.sample(rng, POP_K)
+    blocks = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(POP_SAMPLE_REPS):
+            sampler.sample(rng, POP_K)
+        blocks.append((time.perf_counter() - t0) / POP_SAMPLE_REPS * 1e3)
+    return sorted(blocks)[2]
+
+
+def host_peak_mb() -> tuple[float, str]:
+    """This process's peak resident set in MB and where it was read: VmHWM
+    (``population.peak_rss_mb``), or ``getrusage``'s ``ru_maxrss`` where
+    ``/proc/self/status`` has no VmHWM."""
+    import resource
+
+    from repro_torch.population import peak_rss_mb
+
+    mb = peak_rss_mb()
+    if math.isfinite(mb):
+        return mb, "VmHWM"
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0, \
+        "ru_maxrss"
+
+
+def pop_task(n_clients: int):
+    """The TOY task over ``n_clients`` with K=``POP_K`` cohorts, batch 16,
+    one local epoch, ``POP_ROUNDS`` rounds."""
+    from repro_torch.configs.paper import TOY
+
+    return dataclasses.replace(TOY, n_clients=n_clients,
+                               participation=POP_K / n_clients,
+                               rounds=POP_ROUNDS, local_epochs=1,
+                               batch_size=16)
+
+
+def pop_fedgkd(task):
+    from repro_torch.core import algorithms
+
+    return algorithms.make("fedgkd", gamma=task.gamma, buffer_m=task.buffer_m)
+
+
+def footprint_main() -> int:
+    """The child of ``population_footprint`` (``chip_smoke.py
+    --population-footprint``): in a process of its own, the 1M-client TOY
+    run on the card after a ``POP_CONTROL``-client run of the same task
+    (which brings in the CUDA context, the kernels and the vmapped body).
+    Prints one JSON line: the peak RSS at its start (Linux carries a
+    parent's peak across fork and exec into ``ru_maxrss``), before and
+    after the 1M run, the bytes the warm tier holds at its end, its tiers,
+    cohorts and seconds per round."""
+    import resource
+
+    inherited = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.core import fl_loop
+    from repro_torch.population import Population
+
+    dev = torch.device("cuda", 0)
+    control = pop_task(POP_CONTROL)
+    fl_loop.run_federated(control, pop_fedgkd(control), device=dev,
+                          population=Population.synthetic(POP_CONTROL,
+                                                          **POP_SYNTH),
+                          **POP_KW)
+    rss0, source = host_peak_mb()
+    task = pop_task(POP_CLIENTS)
+    pop = Population.synthetic(POP_CLIENTS, **POP_SYNTH)
+    hist = fl_loop.run_federated(task, pop_fedgkd(task), population=pop,
+                                 device=dev, **POP_KW)
+    rss1, _ = host_peak_mb()
+    print(json.dumps({
+        "rss_inherited_mb": inherited, "rss_before_mb": rss0,
+        "rss_after_mb": rss1, "source": source,
+        "warm_bytes": sum(c.x.nbytes + c.y.nbytes
+                          for c in pop.store.warm.values()),
+        "tiers": hist.telemetry["population"],
+        "sampled": [[int(c) for c in r.sampled] for r in hist.records],
+        "seconds": [r.seconds for r in hist.records]}, default=int))
+    return 0
+
+
+def population_footprint() -> dict:
+    """The 1M-client run's host footprint, read in a child process
+    (``footprint_main``).  ``main`` runs it before any phase: a child
+    starts with its parent's peak RSS, which the later phases' CPU checks
+    raise to ~20 GB.  Returns the child's record with its wall seconds."""
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            FOOTPRINT_FLAG], capture_output=True, text=True,
+                           timeout=300)
+    if child.returncode != 0:
+        raise AssertionError(f"population footprint: the child exited "
+                             f"{child.returncode}:\n{child.stderr[-4000:]}")
+    return dict(json.loads(child.stdout.strip().splitlines()[-1]),
+                wall=time.perf_counter() - t0)
+
+
+def check_footprint(foot: dict, h_card) -> None:
+    """Log the child's footprint; its cohorts and tiers must be the card
+    run ``h_card``'s."""
+    if (foot["sampled"] != [[int(c) for c in r.sampled]
+                            for r in h_card.records]
+            or foot["tiers"] != h_card.telemetry["population"]):
+        raise AssertionError(f"population footprint: the child's run "
+                             f"differs from the card run's: {foot}")
+    growth = f"{foot['rss_after_mb'] - foot['rss_before_mb']:.1f} MB"
+    if foot["rss_before_mb"] <= foot["rss_inherited_mb"]:
+        growth += ", not measurable: the peak is the inherited one"
+    log(f"population {POP_CLIENTS:,} clients, a child process "
+        f"({foot['wall']:.1f} s): peak RSS ({foot['source']}) "
+        f"{foot['rss_inherited_mb']:.1f} MB at its start, "
+        f"{foot['rss_before_mb']:.1f} MB after a {POP_CONTROL:,}-client "
+        f"run, {foot['rss_after_mb']:.1f} MB after the {POP_CLIENTS:,}-"
+        f"client run (growth {growth}); the warm tier holds "
+        f"{foot['tiers']['warm_resident']} clients, {foot['warm_bytes']:,} "
+        f"bytes; seconds per round {foot['seconds']}")
+
+
+def population_runs(dev, footprint: "dict | None" = None) -> dict:
+    """The population tier (``run_federated(population=)``), every card run
+    with the launch counts set to 0 just before and read just after:
+
+      1. a million registered clients (``Population.synthetic``, the
+         reference bench's setting): the sampler's K=64 draw at 1M within
+         ``POP_SAMPLE_RATIO`` of its time at 10k; FedGKD on the TOY task's
+         MLP through the vmap executor (B1/B2 under vmap) for 3 rounds of
+         K=64: cohorts and tier counters equal to a CPU run's of the same
+         population, ``peak_warm`` within the warm cap, cold loads at most
+         the cohorts and the probe client, round 1 against the CPU's; its
+         seconds per round, its host footprint in a child process
+         (``footprint``, or ``population_footprint`` now), a profiled
+         round;
+      2. ResNet-8 at full width (``resnet_setup``) written to disk shards of
+         ``POP_DISK_SHARD`` clients and trained with FedGKD from
+         ``DiskShardSource`` with a warm cap of ``POP_DISK_WARM``: with a
+         one-shard sampler equal to the ``data=`` run (the same cohorts,
+         params within ``POP_EQ_TOL``), with the 4-shard sampler evicting
+         from the warm tier and releasing every pin; a profiled round;
+      3. FedDyn (the sequential route, B3 at K=1) with a state warm cap of
+         ``POP_STATE_WARM`` for 3 rounds: equal to the ``data=`` run within
+         ``POP_EQ_TOL``, its dual states spilled to disk and reloaded;
+      4. the resilience phase's async run (``async_executor``) with
+         ``population=``: the ``data=`` run's buffers; killed after
+         aggregation 3 and resumed, bitwise equal to the uninterrupted run
+         with no pin left.
+
+    Returns the launch counts summed over the card runs."""
+    import tempfile
+
+    from repro_torch.core import algorithms, fl_loop
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.population import (DiskShardSource, HierarchicalSampler,
+                                        Population, write_population_shards)
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(LAUNCHES, 0)
+    kd = ["kd_kl_fwd", "kd_kl_bwd"]
+    path_kernels = kd + ["grouped_conv_fwd"]
+
+    def drive(label, task, algo, kernels, **run_kw):
+        reset_launches()
+        t0 = time.perf_counter()
+        hist = fl_loop.run_federated(task, algo, device=dev, **run_kw)
+        launches = dict(LAUNCHES)
+        log(f"population {label}: {time.perf_counter() - t0:.2f} s, "
+            f"launches { {k: n for k, n in launches.items() if n} }, tiers "
+            f"{hist.telemetry.get('population')}")
+        for r in hist.records:
+            log(f"  round {r.round}: {r.seconds:.3f} s test_acc "
+                f"{r.test_acc:.4f} local_loss {r.mean_local_loss:.4f} "
+                f"sampled {list(r.sampled)[:8]}"
+                f"{' ...' if len(r.sampled) > 8 else ''}")
+        losses = [v for r in hist.records
+                  for v in (r.test_loss, r.mean_local_loss)]
+        if not (all(map(math.isfinite, losses))
+                and all_finite(hist.final_params)):
+            raise AssertionError(f"population {label}: non-finite loss or "
+                                 f"params {losses}")
+        missing = [k for k in kernels if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"population {label}: not launched "
+                                 f"{missing}")
+        for k, n in launches.items():
+            total[k] += n
+        return hist
+
+    def same_cohorts(label, a, b) -> None:
+        if [r.sampled for r in a.records] != [r.sampled for r in b.records]:
+            raise AssertionError(f"population {label}: the cohorts differ")
+
+    def within(label, a, b, tol) -> None:
+        diff = params_diff(a.final_params, b.final_params)
+        log(f"population {label}: max abs param diff {diff:.3e} (limit "
+            f"{tol})")
+        if not diff <= tol:
+            raise AssertionError(f"population {label}: {diff} > {tol}")
+
+    # 1. a million registered clients
+    big, small = sampler_ms(POP_CLIENTS), sampler_ms(POP_CONTROL)
+    log(f"population sampler, K={POP_K}: {POP_CLIENTS:,} clients {big:.4f} "
+        f"ms, {POP_CONTROL:,} clients {small:.4f} ms, ratio "
+        f"{big / small:.3f} (limit {POP_SAMPLE_RATIO})")
+    if big > POP_SAMPLE_RATIO * small:
+        raise AssertionError(f"population: the draw at {POP_CLIENTS:,} "
+                             f"clients is {big / small:.3f}x the draw at "
+                             f"{POP_CONTROL:,}")
+    task, kw, fedgkd = pop_task(POP_CLIENTS), POP_KW, pop_fedgkd
+
+    def synthetic():
+        return Population.synthetic(POP_CLIENTS, **POP_SYNTH)
+
+    card, cpu = {}, {}
+    h_card = drive(f"{POP_CLIENTS:,} clients, TOY FedGKD K={POP_K}", task,
+                   fedgkd(task), kd, population=synthetic(),
+                   round_callback=capture_round(1, card), **kw)
+    stats = h_card.telemetry["population"]
+    log(f"population {POP_CLIENTS:,} clients: seconds per round "
+        f"{[r.seconds for r in h_card.records]}")
+    if not (stats["peak_warm"] <= POP_SYNTH["warm_cap"]
+            and stats["cold_loads"] <= POP_ROUNDS * POP_K + 1
+            and stats["pinned"] == 0 and stats["n_shards"] == 245):
+        raise AssertionError(f"population {POP_CLIENTS:,} clients: tiers "
+                             f"{stats}")
+    h_cpu = fl_loop.run_federated(task, fedgkd(task), population=synthetic(),
+                                  device="cpu",
+                                  round_callback=capture_round(1, cpu), **kw)
+    same_cohorts("1M clients, card against CPU", h_card, h_cpu)
+    if stats != h_cpu.telemetry["population"]:
+        raise AssertionError(f"population: the card's tiers {stats}, the "
+                             f"CPU's {h_cpu.telemetry['population']}")
+    check_footprint(footprint or population_footprint(), h_card)
+    init = fl_loop.run_federated(task, fedgkd(task), population=synthetic(),
+                                 device="cpu", rounds=0, **kw)
+    leaves = {("cpu", 0): tree_leaves_np(init.final_params),
+              (str(dev), 1): card["params"], ("cpu", 1): cpu["params"]}
+    first_round_check(dev, f"TOY FedGKD over {POP_CLIENTS:,} clients",
+                      task.lr,
+                      lambda device, rounds: leaves[(str(device), rounds)])
+    profile_round(dev, f"TOY population of {POP_CLIENTS:,}",
+                  lambda cb: fl_loop.run_federated(
+                      task, fedgkd(task), population=synthetic(), device=dev,
+                      rounds=2, round_callback=cb, **kw))
+
+    # 2. ResNet-8 at full width from disk shards
+    rtask, rdata, rkw = resnet_setup()
+    eager = drive("ResNet-8 FedGKD, data=", rtask, fedgkd(rtask),
+                  path_kernels, data=rdata, **rkw)
+    with tempfile.TemporaryDirectory() as root:
+        meta = write_population_shards(root, iter(rdata.clients),
+                                       shard_size=POP_DISK_SHARD)
+
+        def disk(one_shard: bool):
+            pop = Population(DiskShardSource(root), rdata.test_x,
+                             rdata.test_y, warm_cap=POP_DISK_WARM)
+            if one_shard:
+                # the sampler's geometry of the eager run: its cohorts
+                pop.sampler = HierarchicalSampler([pop.n_clients])
+            return pop
+
+        log(f"population disk shards: {meta['shard_sizes']}")
+        one = drive("ResNet-8 FedGKD from disk shards, one-shard sampler",
+                    rtask, fedgkd(rtask), path_kernels,
+                    population=disk(True), **rkw)
+        same_cohorts("disk shards against data=", one, eager)
+        within("disk shards (one-shard sampler) against data=", one, eager,
+               POP_EQ_TOL)
+        four = drive(f"ResNet-8 FedGKD from disk shards, "
+                     f"{len(meta['shard_sizes'])}-shard sampler",
+                     rtask, fedgkd(rtask), path_kernels,
+                     population=disk(False), **rkw)
+        tiers = four.telemetry["population"]
+        if not (tiers["warm_evictions"] > 0 and tiers["pinned"] == 0):
+            raise AssertionError(f"population disk shards: tiers {tiers}")
+        profile_round(dev, "ResNet-8 from disk shards", lambda cb:
+                      fl_loop.run_federated(
+                          rtask, fedgkd(rtask), population=disk(False),
+                          device=dev, rounds=2, round_callback=cb, **rkw))
+
+    # 3. FedDyn's dual states through the state tier's spills
+    dyn_eager = drive("ResNet-8 FedDyn, data=", rtask,
+                      algorithms.make("feddyn"), ["grouped_conv_fwd"],
+                      data=rdata, **rkw)
+    with tempfile.TemporaryDirectory() as state_dir:
+        dyn = drive(f"ResNet-8 FedDyn, state warm cap {POP_STATE_WARM}",
+                    rtask, algorithms.make("feddyn"), ["grouped_conv_fwd"],
+                    population=Population.from_federated(
+                        rdata, state_warm_cap=POP_STATE_WARM,
+                        state_dir=state_dir), **rkw)
+    same_cohorts("FedDyn against data=", dyn, dyn_eager)
+    within("FedDyn, spilled states, against data=", dyn, dyn_eager,
+           POP_EQ_TOL)
+    tiers = dyn.telemetry["population"]
+    if not (dyn.telemetry["route"] == "sequential"
+            and tiers["state_spills"] > 0 and tiers["state_loads"] > 0):
+        raise AssertionError(f"population FedDyn: route "
+                             f"{dyn.telemetry['route']}, tiers {tiers}")
+
+    # 4. async, killed and resumed, with population=
+    akw = dict(rkw, rounds=RES_AGGS)
+    a_eager = drive("async, data=", rtask, fedgkd(rtask), path_kernels,
+                    data=rdata, executor=async_executor(), **akw)
+    full = drive("async, population=", rtask, fedgkd(rtask), path_kernels,
+                 population=Population.from_federated(rdata),
+                 executor=async_executor(), **akw)
+    same_cohorts("async against data=", full, a_eager)
+    with tempfile.TemporaryDirectory() as ck:
+        try:
+            drive("async, population=, killed after 3", rtask, fedgkd(rtask),
+                  path_kernels, population=Population.from_federated(rdata),
+                  executor=async_executor(), checkpoint_dir=ck,
+                  round_callback=kill_after(3), **akw)
+        except Killed:
+            pass
+        else:
+            raise AssertionError("population async: the run was not killed")
+        resumed = drive("async, population=, resumed", rtask, fedgkd(rtask),
+                        path_kernels,
+                        population=Population.from_federated(rdata),
+                        executor=async_executor(), checkpoint_dir=ck,
+                        resume=True, **akw)
+    diff = assert_same_history("population async, resumed", full, resumed)
+    log(f"population async: resumed against uninterrupted, records equal, "
+        f"max abs param diff {diff!r}")
+    if diff != 0.0 or resumed.telemetry["population"]["pinned"] != 0:
+        raise AssertionError(f"population async resume: diff {diff}, tiers "
+                             f"{resumed.telemetry['population']}")
+    log(f"population phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def tree_leaves_np(params) -> list:
     from repro_torch.bridge import params_to_numpy
     from repro_torch.tree import tree_leaves
@@ -1815,6 +2211,8 @@ def main() -> int:
         elif "Used" in line or "spill" in line:
             log("      " + line.split(":", 1)[-1].strip())
 
+    # before anything raises this process's peak RSS, which a child inherits
+    footprint = population_footprint()
     resnet = resnet_setup()
     text = text_setup()
     r50 = resnet50_setup()
@@ -1840,12 +2238,16 @@ def main() -> int:
         run_baselines(dev),
         run_resnet50(dev, *r50),
         run_vmap_body(dev)]
-    resilience_counts, resilience_errs = run_resilience(dev)
-    launches.append(resilience_counts)
+    path_errs = []
+    for phase in (run_resilience,
+                  lambda d: run_population(d, footprint)):
+        counts, errs = phase(dev)
+        launches.append(counts)
+        path_errs.append(errs)
     for k in kernels:
         k["launches"] = sum(counts[k["name"]] for counts in launches)
-        k["max_abs_err"] = max(k["max_abs_err"],
-                               resilience_errs.get(k["name"], 0.0))
+        k["max_abs_err"] = max([k["max_abs_err"]] + [
+            errs.get(k["name"], 0.0) for errs in path_errs])
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
         f"included")
     print(json.dumps({"kernels": kernels}))
@@ -1857,4 +2259,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(footprint_main() if sys.argv[1:] == [FOOTPRINT_FLAG]
+             else main())

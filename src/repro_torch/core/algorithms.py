@@ -830,6 +830,11 @@ class SCAFFOLD(Algorithm):
 
         return loss
 
+    def update_client_state(self, client_state, params, payload=None):
+        # c_k is updated in server_update from the uploads; the override
+        # (the reference's) marks the state mutable for the population tier
+        return client_state
+
     def server_update(self, server, uploads, weights, model, val_batch=None,
                       n_clients=None):
         k_eta = self.local_steps_hint * self.lr

@@ -64,7 +64,7 @@ import torch
 from repro_torch.core import client as client_lib
 from repro_torch.core.algorithms import Algorithm
 from repro_torch.core.modelzoo import ModelBundle
-from repro_torch.data.pipeline import ClientData
+from repro_torch.data.pipeline import ClientData, ClientSlabStore
 from repro_torch.optim import Optimizer
 from repro_torch.tree import tree_map
 
@@ -86,7 +86,12 @@ class RoundContext:
     returns its per-client losses as a tensor on the device instead of
     reading them back, and on the card uploads the wave's batches from
     pinned memory without blocking, so a wave's launch does not wait for
-    the device; the loop reads the losses at aggregation."""
+    the device; the loop reads the losses at aggregation.
+
+    ``placement`` is the device-resident slab store
+    (``data.pipeline.ClientSlabStore``, uncapped); the population tier
+    attaches to it, and no executor of the port fills it yet (the
+    shard_map executor, ROADMAP A13, sizes and fills it)."""
     algo: Algorithm
     model: ModelBundle
     opt: Optimizer
@@ -130,6 +135,7 @@ class RoundContext:
         # cross-round cache of precompute parts, per client id and part
         # version: {cid: {key: (n, ...)}} (``VmapExecutor._incremental_aux``)
         self.aux_cache: dict = {}
+        self.placement = ClientSlabStore()
         # which route and body ran, parts recomputed: written by the
         # executor, read by tests and chip_smoke
         self.telemetry: dict = {}

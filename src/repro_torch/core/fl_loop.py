@@ -6,7 +6,11 @@ executor, aggregate, evaluate; with ``executor="async"`` the buffered
 asynchronous loop (``_run_async``) instead.  Around the rounds: DP clipping
 and noise (``core.privacy``), fault injection with quorum, validation and
 retries (``core.systemsim``, ``core.server``), and checkpoint/resume of
-the full run state (``checkpoint.recovery``).  The numpy generator is
+the full run state (``checkpoint.recovery``).  With ``population=`` (a
+``repro_torch.population.Population``) in place of ``data=``, clients come
+through the population tier: cohorts from its O(cohort) sampler, shards
+through its warm cache, per-client states from its state store, so nothing
+in the loop is O(population).  The numpy generator is
 consumed in the reference's order and count (cohort draw, then each
 client's batch picks), so one seed samples the same cohorts and batches in
 both packages; the simulator and the fault injector draw from their own
@@ -150,21 +154,29 @@ def run_federated(task: PaperTask, algo: Algorithm,
     loadable state there (torn files skipped) and continues as the
     uninterrupted run would.
 
-    Not ported yet: ``population=`` (ROADMAP A12), multi-host host faults
-    (``FaultProfile.host_crash_prob``, A13) and the shard_map executor
-    (A13); they raise ``NotImplementedError``.  ``device`` defaults to
-    ``"cuda"``.
+    ``population=`` (a ``repro_torch.population.Population``) takes the
+    place of ``data=``; exactly one of the two is given.  The cohort is
+    pinned in the population's tiers while it trains (in the async loop,
+    while it is in flight), ``History.telemetry["population"]`` holds the
+    tiers' counters, and a checkpoint holds the state store's snapshot
+    (warm states by value, spills by reference) instead of every client's
+    state.
+
+    Not ported yet: multi-host host faults (``FaultProfile.host_crash_prob``)
+    and placement over several hosts, and the shard_map executor (all
+    ROADMAP A13); they raise ``NotImplementedError``.  ``device`` defaults
+    to ``"cuda"``.
     """
-    if population is not None:
-        raise NotImplementedError(
-            "run_federated(population=...) is not ported yet (ROADMAP A12); "
-            "this holds with executor='async' and faults= too")
     if faults is not None and faults.host_crash_prob > 0.0:
         raise NotImplementedError(
             "FaultProfile.host_crash_prob: host faults need multi-host "
             "placement, not ported yet (ROADMAP A13)")
-    if data is None:
-        raise ValueError("pass data= (a FederatedData)")
+    if (data is None) == (population is None):
+        raise ValueError("pass exactly one of data= (a FederatedData) or "
+                         "population= (a repro_torch.population.Population)")
+    pop = population
+    if pop is not None:
+        data = pop      # it answers clients[cid], test_x, sample_cohort, ...
     dev = resolve_device(device)
     rounds = rounds if rounds is not None else task.rounds
     model = make_model(task, projection_head=algo.needs_projection_head,
@@ -173,8 +185,11 @@ def run_federated(task: PaperTask, algo: Algorithm,
     # the init is drawn on the CPU, so one seed gives one init on any device
     init_gen = torch.Generator().manual_seed(seed + 1)
     global_params = tree_map(lambda t: t.to(dev), model.init(init_gen))
+    # client 0 is read for every algorithm, as the reference reads it, so
+    # a population's tier counters equal the reference's
+    probe = data.clients[0]
     if isinstance(algo, FedGen):
-        probe_x = torch.from_numpy(data.clients[0].x[:2]).to(dev)
+        probe_x = torch.from_numpy(probe.x[:2]).to(dev)
         server = algo.init_server_with_probe(global_params, model,
                                              task.num_classes, probe_x)
     else:
@@ -199,8 +214,16 @@ def run_federated(task: PaperTask, algo: Algorithm,
         batch_size=task.batch_size, epochs=task.local_epochs, device=dev,
         max_batches=max_batches_per_client, precompute=bool(precompute),
         client_batched=client_batched)
-    client_states = {k: algo.init_client_state(k, global_params)
-                     for k in range(data.n_clients)}
+    if pop is not None:
+        # warm evictions drop device slabs, slab evictions count into the
+        # population's telemetry, the pinned set is shared
+        pop.attach_hot(ctx.placement)
+        # the lazy state store: the eager dict below is a model copy per
+        # client for the stateful algorithms
+        client_states = pop.make_client_states(algo, global_params)
+    else:
+        client_states = {k: algo.init_client_state(k, global_params)
+                         for k in range(data.n_clients)}
     # a small server-side validation split: FedGKD-VOTE's coefficients
     n_val = min(256, len(data.test_y) // 4)
     val_batch = (torch.from_numpy(np.ascontiguousarray(data.test_x[:n_val]))
@@ -225,7 +248,8 @@ def run_federated(task: PaperTask, algo: Algorithm,
                           n_sample=n_sample, client_states=client_states,
                           val_batch=val_batch, injector=injector,
                           policy=policy, checkpoint_dir=checkpoint_dir,
-                          checkpoint_every=checkpoint_every, resume=resume)
+                          checkpoint_every=checkpoint_every, resume=resume,
+                          pop=pop)
 
     records: list[RoundRecord] = []
     uploads: list[dict] = []
@@ -242,6 +266,10 @@ def run_federated(task: PaperTask, algo: Algorithm,
         sampled = data.sample_cohort(rng, n_sample)
         payload = algo.round_payload(server)
         cids = [int(k) for k in sampled]
+        if pop is not None:
+            # the cohort must not evict itself from the tiers while it is
+            # materialized and trained
+            pop.pin(cids)
         if injector is None:
             result = exec_.run_round(
                 ctx, server["global"], payload,
@@ -258,6 +286,9 @@ def run_federated(task: PaperTask, algo: Algorithm,
         if verbose and t == start_round:
             print(f"[{algo.name}] executor route: "
                   f"{ctx.telemetry.get('route', exec_.name)}")
+        if pop is not None:
+            pop.unpin(cids)
+            ctx.telemetry["population"] = pop.stats()
 
         if not uploads:
             # every client of the cohort crashed or was rejected through
@@ -403,11 +434,34 @@ def _save_checkpoint(ckpt_dir, rnd, algo, server, rng, injector, records,
                            if injector is not None else None),
         "fault_telemetry": dict(ftel) if ftel is not None else None,
         "records": [dataclasses.asdict(r) for r in records],
-        "client_states": [client_states[k] for k in range(n_clients)],
+        "client_states": _snapshot_client_states(client_states, n_clients),
     }
     if extra:
         state.update(extra)
     recovery.save_run_state(ckpt_dir, rnd, state, meta={"algo": algo.name})
+
+
+def _snapshot_client_states(client_states, n_clients):
+    """The checkpoint's per-client states: the eager dict's every state by
+    value; a population's ``ClientStateStore`` snapshots itself (warm
+    states by value, spills by reference, nothing for a stateless
+    algorithm), so the checkpoint is O(touched clients)."""
+    if hasattr(client_states, "snapshot"):
+        return client_states.snapshot()
+    return [client_states[k] for k in range(n_clients)]
+
+
+def _restore_client_states(client_states, saved) -> None:
+    if hasattr(client_states, "restore") and isinstance(saved, dict):
+        client_states.restore(saved)
+        return
+    if isinstance(saved, dict):
+        raise ValueError(
+            "the checkpoint holds a population state-store snapshot but "
+            "this run uses data=: resume with the population= it was "
+            "written under")
+    for k, s in enumerate(saved):
+        client_states[k] = s
 
 
 def _restore_run(state, meta, algo, rng, injector, ctx, client_states):
@@ -424,8 +478,7 @@ def _restore_run(state, meta, algo, rng, injector, ctx, client_states):
             injector.counters.update(state["fault_counters"])
         if state.get("fault_telemetry") is not None:
             ctx.telemetry["faults"].update(state["fault_telemetry"])
-    for k, s in enumerate(state["client_states"]):
-        client_states[k] = s
+    _restore_client_states(client_states, state["client_states"])
     return state["server"], [RoundRecord(**d) for d in state["records"]]
 
 
@@ -445,7 +498,8 @@ def _run_async(algo: Algorithm, data: FederatedData,
                eval_every: int, verbose: bool, round_callback, dp,
                n_sample: int, client_states: dict, val_batch,
                injector=None, policy=None, checkpoint_dir=None,
-               checkpoint_every: int = 1, resume: bool = False) -> History:
+               checkpoint_every: int = 1, resume: bool = False,
+               pop=None) -> History:
     """Buffered-asynchronous rounds on a simulated heterogeneous system;
     one record per aggregation (global version bump).
 
@@ -480,6 +534,10 @@ def _run_async(algo: Algorithm, data: FederatedData,
     simulator (clock, heap with the in-flight uploads, dispatch sequence)
     and the per-client retry counts, taken after the round's refill, so a
     run killed mid-wave resumes into the same wave.
+
+    With a population (``pop``) every dispatched client stays pinned in its
+    tiers until its completion aggregates, fails, or the run ends (and a
+    resumed run pins the in-flight clients it restores).
     """
     b = exec_.buffer_size if exec_.buffer_size is not None else n_sample
     if not (1 <= b <= n_sample):
@@ -498,8 +556,15 @@ def _run_async(algo: Algorithm, data: FederatedData,
             steps = min(steps, ctx.max_batches)
         return steps
 
+    # priced from client sizes (``client_n`` materializes nothing) and
+    # memoised per sampled client: no O(population) work
+    work_memo: dict[int, int] = {}
+
     def work_of(k: int) -> int:
-        return client_work(data.client_n(k))
+        w = work_memo.get(k)
+        if w is None:
+            w = work_memo[k] = client_work(data.client_n(k))
+        return w
 
     ctx.deferred = bool(exec_.pipelined and inner.name != "sequential")
 
@@ -518,6 +583,9 @@ def _run_async(algo: Algorithm, data: FederatedData,
         occupies the heap (for the timeout factor's longer duration on a
         timeout), its tag marks it dead."""
         payload = algo.round_payload(server)
+        if pop is not None:
+            # in flight until the completion aggregates
+            pop.pin(cids)
         result = inner.run_round(
             ctx, server["global"], payload,
             [client_states[k] for k in cids],
@@ -568,6 +636,8 @@ def _run_async(algo: Algorithm, data: FederatedData,
                      else "rejected_norm"] += 1
             # a dead completion: free the slot, retry or drop the client
             in_flight.discard(c.client)
+            if pop is not None:
+                pop.unpin([c.client])
             fails = fail_count.get(c.client, 0) + 1
             fail_count[c.client] = fails
             if fails <= policy.max_retries:
@@ -617,6 +687,10 @@ def _run_async(algo: Algorithm, data: FederatedData,
             max_stale = float(state["max_stale"])
             fail_count.update({int(k): int(v)
                                for k, v in state["fail_count"]})
+            if pop is not None:
+                # the restored in-flight clients hold their pins as they
+                # did when the checkpoint was cut
+                pop.pin(sorted(in_flight))
 
     # with checkpointing on, the last round refills too: its checkpoint is
     # then the one a longer run writes there, so a finished run can be
@@ -676,6 +750,9 @@ def _run_async(algo: Algorithm, data: FederatedData,
         version += 1
         for c in completions:
             in_flight.discard(c.client)
+        if pop is not None:
+            pop.unpin([c.client for c in completions])
+            ctx.telemetry["population"] = pop.stats()
 
         refilled = False
         if ctx.deferred and wants_refill(t):
@@ -708,6 +785,11 @@ def _run_async(algo: Algorithm, data: FederatedData,
                   f"local={np.mean(local_losses):.4f} "
                   f"sim_t={sim.now:.1f} stale={np.mean(staleness):.2f}")
 
+    if pop is not None and in_flight:
+        # clients still in flight at the end: a reused population would
+        # otherwise exempt them from eviction for good
+        pop.unpin(in_flight)
+        ctx.telemetry["population"] = pop.stats()
     ctx.telemetry.update(
         route="async", inner_route=ctx.telemetry.get("route", inner.name),
         buffer_size=b, staleness_scheme=exec_.staleness,

@@ -1,16 +1,26 @@
 """Federated data: per-client shards held on the host as numpy arrays.
 
-The port's counterpart of ``repro.data.pipeline`` for the single-device
-path.  Shards stay numpy on the host; the executor uploads each round's
-stacked batches to the device.  ``sample_cohort`` consumes the numpy
-generator exactly as the reference does, so one seed samples the same
-cohorts in both packages.
+The port's counterpart of ``repro.data.pipeline``.  Shards stay numpy on
+the host; the executors upload each round's stacked batches to the device.
+``sample_cohort`` consumes the numpy generator exactly as the reference
+does, so one seed samples the same cohorts in both packages.
+
+``ClientSlabStore`` is the device-resident tier of the reference's
+placement layer: zero-padded per-client slabs (``make_slab``) as tensors on
+a device, an LRU cap, pins, and the hooks the population tier couples to
+(``drop``, ``on_evict``).  No executor of the port fills it yet (the
+reference's shard_map executor does, ROADMAP A13, which also brings its
+multi-host ownership gate); the population tier attaches to it, so its
+eviction coherence and counters hold.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.data.dirichlet import dirichlet_partition, partition_stats
 
@@ -65,3 +75,102 @@ class FederatedData:
 def num_batches(n: int, batch_size: int, epochs: int) -> int:
     bs = min(batch_size, n)
     return epochs * int(np.ceil(n / bs))
+
+
+# ---------------------------------------------------------------------------
+# device-resident slabs (the placement layer's hot tier)
+# ---------------------------------------------------------------------------
+
+SLAB_QUANT = 64   # slab rows are multiples of this, as the reference's
+
+
+def slab_rows(n: int) -> int:
+    """Quantized slab row count: ``n`` rounded up to ``SLAB_QUANT``."""
+    return max(SLAB_QUANT, int(-(-n // SLAB_QUANT)) * SLAB_QUANT)
+
+
+def make_slab(data: ClientData, rows: int) -> tuple[np.ndarray, np.ndarray]:
+    """One client's shard zero-padded to ``rows`` (labels as int32); the
+    padded rows reach no loss (masks and batch picks skip them)."""
+    assert rows >= data.n, (rows, data.n)
+    x = np.zeros((rows,) + data.x.shape[1:], data.x.dtype)
+    y = np.zeros((rows,), np.int32)
+    x[:data.n] = data.x
+    y[:data.n] = data.y
+    return x, y
+
+
+class ClientSlabStore:
+    """Device-resident per-client slabs, keyed by stable client id.
+
+    ``get(cid, data, device)`` returns ``{"x", "y", "n", "rows",
+    "device"}`` with ``x``/``y`` tensors on ``device``.  A resident client
+    on that device is a hit (no host transfer); anything else uploads the
+    slab anew.  ``max_resident`` caps the resident clients, evicting the
+    least recently used (``None``: unbounded).
+
+    The population tier couples to the store three ways: ``drop(cid)``
+    invalidates a slab when the client leaves the warm host tier (counted
+    in ``drops``, not ``evictions``), ``on_evict(cid, entry)`` observes cap
+    evictions, and ids in ``pinned`` (shared by reference with the
+    population store) are never cap-evicted: with more pinned clients than
+    the cap the store exceeds it.
+    """
+
+    def __init__(self, max_resident: Optional[int] = None, on_evict=None):
+        self.slabs: "collections.OrderedDict" = collections.OrderedDict()
+        self.max_resident = max_resident
+        self.on_evict = on_evict        # called (cid, entry) on cap eviction
+        self.pinned: set = set()        # exempt from cap eviction
+        self.host_transfers = 0
+        self.hits = 0
+        self.evictions = 0
+        self.drops = 0                  # explicit drop(cid) invalidations
+        self.peak_resident = 0          # high-water of resident slabs
+
+    def get(self, cid, data: ClientData, device) -> dict:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            # "cuda" and "cuda:0" are one card: a hit, not a new upload
+            device = torch.device("cuda", torch.cuda.current_device())
+        entry = self.slabs.get(cid)
+        if (entry is not None and entry["n"] == data.n
+                and entry["device"] == device):
+            self.slabs.move_to_end(cid)
+            self.hits += 1
+            return entry
+        rows = slab_rows(data.n)
+        x, y = make_slab(data, rows)
+        entry = {"device": device, "x": torch.from_numpy(x).to(device),
+                 "y": torch.from_numpy(y).to(device), "n": data.n,
+                 "rows": rows}
+        self.slabs[cid] = entry
+        self.slabs.move_to_end(cid)
+        while (self.max_resident is not None
+               and len(self.slabs) > self.max_resident):
+            victim = next((k for k in self.slabs if k not in self.pinned),
+                          None)
+            if victim is None:          # everything pinned: exceed the cap
+                break
+            evicted = self.slabs.pop(victim)
+            self.evictions += 1
+            if self.on_evict is not None:
+                self.on_evict(victim, evicted)
+        self.peak_resident = max(self.peak_resident, len(self.slabs))
+        self.host_transfers += 1
+        return entry
+
+    def drop(self, cid) -> bool:
+        """Invalidate ``cid``'s slab: counted in ``drops``, never in
+        ``evictions``, and ``on_evict`` does not fire.  The client uploads
+        again on its next ``get``."""
+        if self.slabs.pop(cid, None) is None:
+            return False
+        self.drops += 1
+        return True
+
+    def stats(self) -> dict:
+        return {"resident_clients": len(self.slabs),
+                "host_transfers": self.host_transfers, "hits": self.hits,
+                "evictions": self.evictions, "drops": self.drops,
+                "peak_resident": self.peak_resident}

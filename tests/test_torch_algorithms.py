@@ -634,10 +634,10 @@ def test_vmap_executor_refuses_the_client_hooks():
                                         batch_size=8, epochs=1,
                                         device=torch.device("cpu"))
             assert ctx.batched_local_update is None
-            # SCAFFOLD keeps the default hooks: its c_k never changes on
-            # the client (the control variates move in server_update)
-            assert (ctx.has_finalize or ctx.has_state_update) == (
-                name != "scaffold")
+            # every one has a client hook; SCAFFOLD's state update is the
+            # reference's identity (c_k moves in server_update), which
+            # marks its state mutable for the population tier
+            assert ctx.has_finalize or ctx.has_state_update
             out[exec_.name] = exec_.run_round(
                 ctx, init, payload, states, clients, np.random.default_rng(0),
                 client_ids=[1, 2])
@@ -651,6 +651,10 @@ def test_vmap_executor_refuses_the_client_hooks():
         if name in ("moon", "feddyn"):
             assert max_diff(bridge.params_to_numpy(v.client_states),
                             bridge.params_to_numpy(s_.client_states)) < TOL
+        if name == "scaffold":
+            for res in (v, s_):
+                assert max_diff(bridge.params_to_numpy(res.client_states),
+                                bridge.params_to_numpy(states)) == 0
     ctx = executor.RoundContext(algo=algorithms.make("fedgkd"),
                                 model=models(False)[1], opt=sgd(), lr=0.1,
                                 batch_size=8, epochs=1,

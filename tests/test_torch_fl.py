@@ -29,7 +29,9 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.configs.paper import CIFAR10  # noqa: E402
 from repro_torch.core import algorithms, fl_loop  # noqa: E402
 from repro_torch.core import modelzoo  # noqa: E402
+from repro_torch.core.systemsim import FaultProfile  # noqa: E402
 from repro_torch.data.pipeline import ClientData, FederatedData  # noqa: E402
+from repro_torch.population import HostPlacement, Population  # noqa: E402
 
 SIZES = (5, 9, 12, 20, 8, 16)       # ragged, as tests/test_executor.py
 FIXTURE = dict(n_clients=len(SIZES), participation=1.0, batch_size=8,
@@ -196,12 +198,24 @@ def test_model_buffer_contract():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(population=object()), "A12"),
-    (dict(population=object(), executor="async"), "A12"),
-    (dict(population=object(), faults=object()), "A12"),
+    (dict(placement=HostPlacement(0, 2, exchange_dir="unused")), "A13"),
+    (dict(population=True, executor="async",
+          faults=FaultProfile(host_crash_prob=0.1)), "A13"),
+    (dict(population=True, executor="shard_map"), "A13"),
     (dict(executor="shard_map"), "A13")])
 def test_unported_options_raise(setup, kwargs, item):
+    """What is left unported raises, naming its ROADMAP item: placement
+    over several hosts, host faults and the shard_map executor, with
+    ``data=`` or with ``population=`` (the single-host population tier is
+    ported)."""
     _, _, task, data, _ = setup
+    kwargs = dict(kwargs)
+    placement = kwargs.pop("placement", None)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        fl_loop.run_federated(task, algorithms.make("fedavg"), data,
-                              device="cpu", **kwargs)
+        if placement is not None or kwargs.pop("population", False):
+            kwargs["population"] = Population.from_federated(
+                data, placement=placement)
+        else:
+            kwargs["data"] = data
+        fl_loop.run_federated(task, algorithms.make("fedavg"), device="cpu",
+                              **kwargs)

@@ -524,3 +524,62 @@ def test_baseline_client_step_on_card_matches_cpu(cuda, name):
     assert abs(loss_card - loss_cpu) < TOL * max(1.0, abs(loss_cpu))
     for a, b in zip(card, cpu, strict=True):
         _close(a, b)
+
+
+def test_client_slab_store_on_card(cuda):
+    """Slabs are tensors on the card holding ``make_slab``'s bytes; a
+    repeat is a hit, "cuda" and "cuda:0" are one device, a drop forces a
+    fresh upload, and the cap evicts the least recently used."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import (ClientData, ClientSlabStore,
+                                           make_slab, slab_rows)
+
+    seen = []
+    store = ClientSlabStore(max_resident=2,
+                            on_evict=lambda cid, entry: seen.append(cid))
+    rng = np.random.default_rng(0)
+    datas = [ClientData(rng.normal(size=(n, 3, 4)).astype(np.float32),
+                        rng.integers(0, 10, n)) for n in (5, 70, 130)]
+    for cid, data in enumerate(datas):
+        e = store.get(cid, data, "cuda")
+        x, y = make_slab(data, slab_rows(data.n))
+        assert e["x"].is_cuda and e["y"].dtype == torch.int32
+        assert e["rows"] == slab_rows(data.n)
+        np.testing.assert_array_equal(e["x"].cpu().numpy(), x)
+        np.testing.assert_array_equal(e["y"].cpu().numpy(), y)
+    assert seen == [0] and store.evictions == 1
+    store.get(2, datas[2], torch.device("cuda", 0))
+    assert store.hits == 1 and store.host_transfers == 3
+    assert store.drop(1) and store.stats()["resident_clients"] == 1
+    store.get(1, datas[1], "cuda")
+    assert store.host_transfers == 4 and store.peak_resident == 2
+
+
+def test_disk_population_equals_data_run_on_card(cuda, tmp_path):
+    """ResNet-8 FedGKD from disk shards with a one-shard sampler is the
+    ``data=`` run on the card: the same cohorts, params within 1e-6 (the
+    card's runs repeat bit for bit), every pin released."""
+    from repro_torch.population import (DiskShardSource, HierarchicalSampler,
+                                        Population, write_population_shards)
+    from repro_torch.tree import tree_leaves
+
+    task = scaled(CIFAR10, 0.02, rounds=2, local_epochs=1)
+    data = fl_loop.make_federated_data(task, alpha=0.5, seed=0, n_test=64)
+    write_population_shards(str(tmp_path), iter(data.clients), shard_size=3)
+    pop = Population(DiskShardSource(str(tmp_path)), data.test_x,
+                     data.test_y, warm_cap=2)
+    pop.sampler = HierarchicalSampler([pop.n_clients])
+    kw = dict(seed=0, max_batches_per_client=2)
+    reset_launches()
+    h1 = fl_loop.run_federated(task, algorithms.make("fedgkd"),
+                               population=pop, **kw)
+    for name in ("kd_kl_fwd", "kd_kl_bwd", "grouped_conv_fwd"):
+        assert LAUNCHES[name] > 0, LAUNCHES
+    h0 = fl_loop.run_federated(task, algorithms.make("fedgkd"), data, **kw)
+    assert [r.sampled for r in h0.records] == [r.sampled for r in h1.records]
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(h0.final_params), tree_leaves(h1.final_params),
+        strict=True))
+    assert diff <= 1e-6
+    assert h1.telemetry["population"]["pinned"] == 0
