@@ -120,6 +120,22 @@ and nothing of JAX or of the JAX package, and
         within 1e-6; the async run of g. with ``population=``, killed after
         aggregation 3 and resumed, bitwise, with no pin left; B1-B3 then
         held to their plain versions at every shape these runs gave them;
+     i. multi-host placement (``run_multihost``): h.'s ResNet-8 disk
+        shards placed over two host processes on the one card (fresh
+        interpreters, ``--multihost-child``), each owning 2 shards,
+        FedGKD at K=4: the hosts bitwise equal to each other (params,
+        accuracies, gathered telemetry) and within 1e-5 of the one-host
+        run; under host crashes and CHAOS faults the hosts bitwise and
+        their counters equal to their CPU run's; host 1 killed after
+        round 2 of 4 and both resumed, bitwise equal to the uninterrupted
+        run; the async run, bitwise between hosts, its clock and buffers
+        the one-host run's; two ranks of ``python -m
+        repro_torch.launch.distributed`` on gloo; in this process the
+        shard_map executor with two slices on the card at K=4 and K=3 (a
+        phantom client) against the vmap executor; the round walls of 2
+        hosts and 1, each host's publish and gather ms and round-2 idle
+        share; B1-B3 launched in every host and held to their plain
+        versions at the shapes the hosts and slices gave them;
   5. profiles one steady-state round of each path (``torch.profiler``;
      FedGKD, MOON and FedGen for the baselines, an async aggregation
      pipelined and not, and a population round of the TOY and the
@@ -149,6 +165,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -237,6 +254,17 @@ POP_EQ_TOL = 1e-6          # population= against data= on the card
 POP_KW = dict(seed=0, executor="vmap", width=16)
 # the flag that runs ``population_footprint``'s child process
 FOOTPRINT_FLAG = "--population-footprint"
+# the multi-host phase (``run_multihost``): the population phase's ResNet-8
+# disk shards over 2 host processes on the one card, FedGKD for 3 rounds,
+# the fault and kill runs for 4 (host 1 killed after round 2), the async
+# run for 4 aggregations; host crashes at 0.25 an attempt beside RES_CHAOS;
+# a peer's deadline 120 s, the kill's survivor's 10 s (paid once)
+MH_HOSTS, MH_ROUNDS, MH_KILL_ROUNDS, MH_AGGS = 2, 3, 4, 4
+MH_HOST_CRASH = 0.25
+MH_TIMEOUT_S, MH_KILL_TIMEOUT_S, MH_WAIT_S = 120.0, 10.0, 300.0
+MH_TOL = 1e-5              # of the one-host run's max |param|
+MH_CPU_BATCHES = 1         # the CPU fault run: its counters need no more
+MULTIHOST_FLAG = "--multihost-child"
 # what a resumed run must reproduce exactly
 REC_FIELDS = ("round", "test_acc", "test_loss", "mean_local_loss",
               "sim_time", "version", "mean_staleness", "sampled")
@@ -912,16 +940,22 @@ def profile_round(dev, label, run, algo: str = "FedGKD") -> dict:
     return out
 
 
-def resnet_setup():
-    """The ResNet-8 path's task, data and ``run_federated`` arguments: full
+def resnet_task():
+    """The ResNet-8 path's task and ``run_federated`` arguments: full
     width; depth cut to 4,500 examples, 1 local epoch, 5 batches per
     client, 3 rounds (the paper: 45,000, 20 epochs, 100 rounds)."""
     from repro_torch.configs.paper import CIFAR10, scaled
+
+    return (scaled(CIFAR10, 0.1, rounds=3, local_epochs=1),
+            dict(seed=0, max_batches_per_client=5, width=16))
+
+
+def resnet_setup():
+    """``resnet_task`` with its data."""
     from repro_torch.core import fl_loop
 
-    task = scaled(CIFAR10, 0.1, rounds=3, local_epochs=1)
-    data = fl_loop.make_federated_data(task, alpha=0.5, seed=0)
-    return task, data, dict(seed=0, max_batches_per_client=5, width=16)
+    task, kw = resnet_task()
+    return task, fl_loop.make_federated_data(task, alpha=0.5, seed=0), kw
 
 
 def text_setup():
@@ -2072,6 +2106,431 @@ def population_runs(dev, footprint: "dict | None" = None) -> dict:
     return total
 
 
+def keep_rounds(into: dict):
+    """A ``round_callback`` that keeps the global after every round as
+    numpy leaves in ``into[round]``."""
+    def cb(t, server, model):
+        into[t] = tree_leaves_np(server["global"])
+    return cb
+
+
+def run_multihost(dev) -> tuple[dict, dict]:
+    """``multihost_runs`` with the shapes of B1, B2 and B3 recorded in this
+    process and reported by the children, then each kernel checked against
+    its plain version at every one of them (``check_path_shapes``).
+    Returns the launch counts of the card runs (the children's included)
+    and each kernel's max abs error."""
+    with record_shapes() as seen:
+        total, child_seen = multihost_runs(dev)
+    for name, shapes in child_seen.items():
+        seen[name] |= shapes
+    return total, check_path_shapes(dev, seen, "multihost")
+
+
+def _tuples(obj):
+    """JSON's lists back to the tuples ``record_shapes`` keys by."""
+    return tuple(_tuples(v) for v in obj) if isinstance(obj, list) else obj
+
+
+def mh_population(root: Path, host=None, exchange=None,
+                  timeout_s: float = MH_TIMEOUT_S):
+    """The disk-shard population of the multi-host phase (``root/shards``,
+    the test split in ``root/test.npz``, warm cap ``POP_DISK_WARM``),
+    placed on ``host`` of ``MH_HOSTS`` over ``root/exchange/<exchange>``
+    when ``host`` is given."""
+    import numpy as np
+
+    from repro_torch.population import (DiskShardSource, HostPlacement,
+                                        Population)
+
+    placement = None
+    if host is not None:
+        placement = HostPlacement(
+            host, MH_HOSTS, exchange_dir=str(root / "exchange" / exchange),
+            timeout_s=timeout_s)
+    with np.load(root / "test.npz") as z:
+        test_x, test_y = z["x"], z["y"]
+    return Population(DiskShardSource(str(root / "shards")), test_x, test_y,
+                      warm_cap=POP_DISK_WARM, placement=placement)
+
+
+def mh_faults():
+    from repro_torch.core import systemsim
+
+    return systemsim.FaultProfile(host_crash_prob=MH_HOST_CRASH, **RES_CHAOS)
+
+
+def multihost_child(argv: list[str]) -> int:
+    """One host process of the multi-host phase (``chip_smoke.py
+    --multihost-child HOST ROOT STAGE DEVICE``), on the parent's device
+    beside its peer (``cuda:0``).
+    Stage ``main`` runs, each over its own exchange directory: FedGKD for
+    ``MH_ROUNDS`` rounds (timed), a profiled round 2, FedGKD under
+    ``mh_faults`` for ``MH_KILL_ROUNDS`` rounds, the async run for
+    ``MH_AGGS`` aggregations, the fault run again on the CPU (cut to
+    ``MH_CPU_BATCHES`` batch a client and one evaluation: the counters
+    depend only on the fault draws and the validation gate, which passes
+    every clean upload and rejects every corrupt one), and last the fault
+    run with
+    checkpoints, in which host 1 exits (code 17) right after round 2.
+    Stage ``resume`` restarts that run with ``resume=True``.  Every card
+    run's B1-B3 launches must be non-zero.  Each run's report (records,
+    telemetry, launches, the placement's exchange counters) goes to
+    ``ROOT/out/<run>_host<HOST>.json`` and its params to ``.npz`` beside
+    it; the shapes B1-B3 were called with to ``shapes_host<HOST>.json``."""
+    host, root, stage, device = int(argv[0]), Path(argv[1]), argv[2], argv[3]
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(4)
+    from repro_torch.core import fl_loop
+    from repro_torch.kernels import LAUNCHES, build, reset_launches
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        build.library()                 # built by the parent: a load
+    task, kw = resnet_task()
+    path_kernels = ("kd_kl_fwd", "kd_kl_bwd", "grouped_conv_fwd")
+
+    def run(name, device=dev, timeout_s=MH_TIMEOUT_S, exchange=None,
+            keep=False, **run_kw):
+        pop = mh_population(root, host, exchange or name, timeout_s)
+        kept: dict = {}
+        if keep:
+            run_kw["round_callback"] = keep_rounds(kept)
+        reset_launches()
+        hist = fl_loop.run_federated(task, pop_fedgkd(task), population=pop,
+                                     device=device, **{**kw, **run_kw})
+        if keep:
+            np.savez(root / "out" / f"{name}_rounds_host{host}.npz",
+                     **{f"r{t}_{i}": leaf for t, leaves in kept.items()
+                        for i, leaf in enumerate(leaves)})
+        launches = dict(LAUNCHES)
+        if (device == dev and dev.type == "cuda"
+                and not all(launches[k] for k in path_kernels)):
+            raise AssertionError(f"multihost host {host} {name}: B1-B3 "
+                                 f"not launched: {launches}")
+        np.savez(root / "out" / f"{name}_host{host}.npz",
+                 *tree_leaves_np(hist.final_params))
+        pl = pop.placement.stats
+        report = {
+            "records": [dataclasses.asdict(r) for r in hist.records],
+            "hosts": json.dumps(hist.telemetry["population"]["hosts"],
+                                sort_keys=True),
+            "faults": hist.telemetry.get("faults"), "launches": launches,
+            "publish_ms": pl.get("publish_ms", 0.0) / pl["exchanges"],
+            "gather_ms": pl.get("gather_ms", 0.0) / pl["exchanges"],
+            "exchanges": pl["exchanges"], "timeouts": pl.get("timeouts", 0)}
+        (root / "out" / f"{name}_host{host}.json").write_text(
+            json.dumps(report))
+        log(f"host {host} {name}: {dict(report, hosts='...')}")
+        return hist
+
+    with record_shapes() as seen:
+        if stage == "resume":
+            run("resumed", exchange="killed", rounds=MH_KILL_ROUNDS,
+                faults=mh_faults(), checkpoint_dir=str(root / "ck"),
+                resume=True)
+        else:
+            run("main", rounds=MH_ROUNDS, keep=True)
+            prof = profile_round(dev, f"multihost host {host}", lambda cb: (
+                fl_loop.run_federated(task, pop_fedgkd(task), device=dev,
+                                      population=mh_population(
+                                          root, host, "profile"),
+                                      rounds=2, round_callback=cb, **kw)))
+            (root / "out" / f"profile_host{host}.json").write_text(
+                json.dumps(prof))
+            run("faults", rounds=MH_KILL_ROUNDS, faults=mh_faults())
+            run("async", rounds=MH_AGGS, executor=async_executor(),
+                keep=True)
+            run("faults_cpu", device="cpu", rounds=MH_KILL_ROUNDS,
+                faults=mh_faults(), max_batches_per_client=MH_CPU_BATCHES,
+                eval_every=MH_KILL_ROUNDS)
+    (root / "out" / f"shapes_{stage}_host{host}.json").write_text(json.dumps(
+        {name: sorted(shapes) for name, shapes in seen.items()}))
+    if stage == "main":
+        # the kill: host 1 exits right after round 2's checkpoint; host 0
+        # misses its deadline once and runs on alone
+        def die(t, *_):
+            if host == 1 and t == 2:
+                os._exit(17)
+
+        run("killed", rounds=MH_KILL_ROUNDS, faults=mh_faults(),
+            checkpoint_dir=str(root / "ck"), round_callback=die,
+            timeout_s=MH_KILL_TIMEOUT_S)
+    return 0
+
+
+def spawn_hosts(root: Path, stage: str, dev) -> list:
+    """The ``MH_HOSTS`` host processes of ``stage`` on ``dev``, fresh
+    interpreters (nothing forks this process's CUDA context)."""
+    return [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), MULTIHOST_FLAG,
+         str(h), str(root), stage, str(dev)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for h in range(MH_HOSTS)]
+
+
+def wait_hosts(procs: list, label: str, expect_rc=None) -> None:
+    """Wait for the processes, relay their output, check their exit codes
+    (``expect_rc``: index -> code, default 0); a time-out kills them."""
+    try:
+        outs = [p.communicate(timeout=MH_WAIT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for h, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            log(f"  [{label} {h}] {line}")
+        want = (expect_rc or {}).get(h, 0)
+        if p.returncode != want:
+            raise AssertionError(f"multihost {label} {h} exited "
+                                 f"{p.returncode}, wanted {want}")
+
+
+def multihost_runs(dev) -> tuple[dict, dict]:
+    """Multi-host placement on the card: the population phase's ResNet-8
+    disk shards (4 shards of 5 clients, warm cap 4) placed over two host
+    processes on ``cuda:0``, each owning 2 shards, FedGKD with K=4 and
+    batch 64 (``resnet_task``):
+
+      1. one host in this process, the yardsticks: FedGKD for
+         ``MH_ROUNDS`` rounds and the async run (``async_executor``) for
+         ``MH_AGGS`` aggregations over the same population; then
+         ``ShardMapExecutor(strict=True)`` with the device list
+         ``["cuda:0", "cuda:0"]`` (two slices) at K=4 and at K=3 (one
+         phantom client), one round each against the vmap executor's,
+         within ``MH_TOL`` of its max |param|;
+      2. the two host processes (``multihost_child``, stage ``main``): the
+         hosts agree bitwise (params, accuracies, the gathered telemetry);
+         their global after round 1 equals the one-host run's within
+         ``MH_TOL`` of its max |param|, and every round's difference is
+         printed (a host trains K = 1-3 clients where one host trains
+         K=4, so cuBLAS may pick other weight-gradient algorithms: bitwise
+         is not assumed, and training amplifies the fp32 reorderings by
+         round 3 past ``MH_TOL``: 3.9e-5 in PR 20's first card run);
+         under host crashes and the CHAOS client faults the hosts agree
+         bitwise and their fault counters equal their CPU run's; the
+         async run's hosts agree bitwise, its clock and buffers equal the
+         one-host async run's exactly and its aggregation 1 within
+         ``MH_TOL``; the round walls (rounds 2-3) of 2 hosts and of 1,
+         each host's publish and gather ms an exchange, a host's round-2
+         idle share;
+      3. host 1 killed after round 2 of ``MH_KILL_ROUNDS``, then both
+         restarted with ``resume=True`` (stage ``resume``): equal to the
+         uninterrupted fault run bit for bit; beside it, two ranks of
+         ``python -m repro_torch.launch.distributed`` on gloo: the
+         stitched array's sum and one placed FedAvg round.
+
+    Returns the launch counts of every card run, the children's included,
+    and the shapes the children saw B1-B3 at."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import executor, fl_loop
+    from repro_torch.kernels import LAUNCHES, build, reset_launches
+    from repro_torch.launch.distributed import find_free_port
+    from repro_torch.population import write_population_shards
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        build.library()         # the children load it, they do not build
+    task, data, kw = resnet_setup()
+    total = dict.fromkeys(LAUNCHES, 0)
+    path_kernels = ("kd_kl_fwd", "kd_kl_bwd", "grouped_conv_fwd")
+
+    def drive(label, run_task=task, **run_kw):
+        reset_launches()
+        hist = fl_loop.run_federated(run_task, pop_fedgkd(run_task),
+                                     device=dev, **{**kw, **run_kw})
+        launches = dict(LAUNCHES)
+        if not all(launches[k] for k in path_kernels):
+            raise AssertionError(f"multihost {label}: B1-B3 not launched: "
+                                 f"{launches}")
+        for k, n in launches.items():
+            total[k] += n
+        return hist
+
+    def scaled_diff(label, got: list, want: list) -> float:
+        diff = max(float(abs(a - b).max()) for a, b in zip(got, want,
+                                                           strict=True))
+        scale = max(float(abs(b).max()) for b in want)
+        log(f"multihost {label}: max abs param diff {diff!r} (limit "
+            f"{MH_TOL} x {scale:.4f}; bitwise: {diff == 0.0})")
+        if not diff <= MH_TOL * scale:
+            raise AssertionError(f"multihost {label}: {diff}")
+        return diff
+
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "out").mkdir()
+        meta = write_population_shards(str(root / "shards"),
+                                       iter(data.clients),
+                                       shard_size=POP_DISK_SHARD)
+        np.savez(root / "test.npz", x=data.test_x, y=data.test_y)
+        log(f"multihost: shards {meta['shard_sizes']}, {MH_HOSTS} hosts on "
+            f"one card, host h owns the shards s with s % {MH_HOSTS} == h")
+
+        # 1. one host, and the shard_map executor in this process
+        one_rounds, one_async_rounds = {}, {}
+        one = drive("one host", population=mh_population(root),
+                    rounds=MH_ROUNDS,
+                    round_callback=keep_rounds(one_rounds))
+        one_async = drive("one host, async", population=mh_population(root),
+                          rounds=MH_AGGS, executor=async_executor(),
+                          round_callback=keep_rounds(one_async_rounds))
+        for part in (0.2, 0.15):
+            cut = dataclasses.replace(task, participation=part, rounds=1)
+            vm = drive(f"vmap, C={part}", run_task=cut, data=data,
+                       executor="vmap")
+            sm = drive(f"shard_map, C={part}", run_task=cut, data=data,
+                       executor=executor.ShardMapExecutor(
+                           strict=True, devices=[dev] * 2))
+            tele = sm.telemetry
+            log(f"multihost shard_map: K={tele['cohort']} padded to "
+                f"{tele['padded_to']} on {tele['n_devices']} slices, body "
+                f"{tele['round_body']}, slabs {tele['placement']}")
+            if tele["route"] != "shard_map":
+                raise AssertionError(f"multihost shard_map: route {tele}")
+            scaled_diff(f"shard_map K={tele['cohort']} against vmap",
+                        tree_leaves_np(sm.final_params),
+                        tree_leaves_np(vm.final_params))
+
+        # 2. two hosts
+        t0 = time.perf_counter()
+        wait_hosts(spawn_hosts(root, "main", dev), "host", expect_rc={1: 17})
+        log(f"multihost: the two host processes {time.perf_counter() - t0:.1f}"
+            f" s")
+
+        def report(name, host):
+            return json.loads((root / "out" /
+                               f"{name}_host{host}.json").read_text())
+
+        def params(name, host):
+            with np.load(root / "out" / f"{name}_host{host}.npz") as z:
+                return [z[f"arr_{i}"] for i in range(len(z.files))]
+
+        def against_one_host(label, name, want: dict) -> None:
+            """Host 0's global after every round against the one-host
+            run's: round 1 within ``MH_TOL`` of its max |param| (the
+            exchange and the aggregation in full), the later rounds
+            printed, fp32 reorderings amplified by training."""
+            with np.load(root / "out" / f"{name}_rounds_host0.npz") as z:
+                got = {t: [z[f"r{t}_{i}"] for i in range(len(leaves))]
+                       for t, leaves in want.items()}
+            diffs = {t: max(float(abs(a - b).max()) for a, b in zip(
+                got[t], want[t], strict=True)) for t in sorted(want)}
+            scale = max(float(abs(b).max()) for b in want[1])
+            log(f"multihost {label}: max abs param diff by round {diffs} "
+                f"(round 1's limit {MH_TOL} x {scale:.4f}); bitwise at the "
+                f"end: {diffs[max(diffs)] == 0.0}")
+            if not diffs[1] <= MH_TOL * scale or not all(
+                    map(math.isfinite, diffs.values())):
+                raise AssertionError(f"multihost {label}: {diffs}")
+
+        def hosts_agree(name):
+            r0, r1 = report(name, 0), report(name, 1)
+            # a record's seconds are its host's own
+            r0["walls"] = [[rec.pop("seconds") for rec in r["records"]]
+                           for r in (r0, r1)]
+            for field in ("records", "hosts", "faults"):
+                if r0[field] != r1[field]:
+                    raise AssertionError(f"multihost {name}: the hosts' "
+                                         f"{field} differ")
+            if not all(np.array_equal(a, b) for a, b in zip(
+                    params(name, 0), params(name, 1), strict=True)):
+                raise AssertionError(f"multihost {name}: the hosts' params "
+                                     f"differ")
+            for h in range(MH_HOSTS):
+                launches = report(name, h)["launches"]
+                for k, n in launches.items():
+                    total[k] += n
+            return r0
+
+        main = hosts_agree("main")
+        against_one_host("2 hosts against 1", "main", one_rounds)
+        log(f"multihost round walls, rounds 2-{MH_ROUNDS} (s): 2 hosts "
+            f"{[w[1:] for w in main['walls']]} (host 0, host 1), 1 host "
+            f"{[r.seconds for r in one.records[1:]]}")
+        for h in range(MH_HOSTS):
+            r = report("main", h)
+            log(f"multihost host {h}: publish {r['publish_ms']:.3f} ms, "
+                f"gather {r['gather_ms']:.3f} ms an exchange "
+                f"({r['exchanges']} exchanges, {r['timeouts']} time-outs)")
+            prof = json.loads((root / "out" /
+                               f"profile_host{h}.json").read_text())
+            if prof:
+                log(f"multihost host {h}, round 2: wall "
+                    f"{prof['wall_ms']:.3f} ms, busy {prof['busy_ms']:.3f} "
+                    f"ms, idle share "
+                    f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f}")
+        faults, cpu = hosts_agree("faults"), hosts_agree("faults_cpu")
+        log(f"multihost faults: card {faults['faults']}; CPU "
+            f"{cpu['faults']}")
+        if faults["faults"] != cpu["faults"]:
+            raise AssertionError("multihost faults: the card's counters "
+                                 "differ from the CPU's")
+        if not faults["faults"]["host_crashes"] > 0:
+            raise AssertionError("multihost faults: no host crashed")
+        asy = hosts_agree("async")
+        for ra, rb in zip(asy["records"], one_async.records, strict=True):
+            for f in ("round", "sim_time", "version", "mean_staleness"):
+                if ra[f] != getattr(rb, f):
+                    raise AssertionError(f"multihost async: aggregation "
+                                         f"{ra['round']}'s {f}")
+            if tuple(ra["sampled"]) != rb.sampled:
+                raise AssertionError(f"multihost async: aggregation "
+                                     f"{ra['round']}'s buffer")
+        against_one_host("async, 2 hosts against 1", "async",
+                         one_async_rounds)
+
+        # 3. the resume, and launch.distributed beside it
+        killed = report("killed", 0)
+        if killed["faults"]["host_timeouts"] != 1:
+            raise AssertionError(f"multihost kill: host 0 {killed}")
+        kept = sorted(p.name for p in (root / "ck").glob("*.npz"))
+        log(f"multihost kill: host 0 ran on alone after one time-out; "
+            f"checkpoints {kept}")
+        coord = f"127.0.0.1:{find_free_port()}"
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        ranks = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.distributed",
+             "--coordinator", coord, "--num-processes", "2", "--process-id",
+             str(r), "--exchange-dir", str(root / "exchange" / "distributed"),
+             "--device", str(dev)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(2)]
+        resumed = spawn_hosts(root, "resume", dev)
+        wait_hosts(ranks, "rank")
+        wait_hosts(resumed, "resumed host")
+        res = hosts_agree("resumed")
+        if res["records"] != faults["records"]:
+            raise AssertionError("multihost resume: the records differ from "
+                                 "the uninterrupted run's")
+        diff = max(float(abs(a - b).max()) for a, b in zip(
+            params("resumed", 0), params("faults", 0), strict=True))
+        log(f"multihost resume: records equal, max abs param diff against "
+            f"the uninterrupted run {diff!r}; counters {res['faults']}")
+        if diff != 0.0 or res["faults"] != faults["faults"]:
+            raise AssertionError(f"multihost resume: {diff}")
+        child_seen = {}
+        for stage in ("main", "resume"):
+            for h in range(MH_HOSTS):
+                got = json.loads((root / "out" /
+                                  f"shapes_{stage}_host{h}.json").read_text())
+                for name, shapes in got.items():
+                    child_seen.setdefault(name, set()).update(
+                        _tuples(shapes))
+    log(f"multihost phase: {time.perf_counter() - t_phase:.1f} s")
+    return total, child_seen
+
+
 def tree_leaves_np(params) -> list:
     from repro_torch.bridge import params_to_numpy
     from repro_torch.tree import tree_leaves
@@ -2240,7 +2699,7 @@ def main() -> int:
         run_vmap_body(dev)]
     path_errs = []
     for phase in (run_resilience,
-                  lambda d: run_population(d, footprint)):
+                  lambda d: run_population(d, footprint), run_multihost):
         counts, errs = phase(dev)
         launches.append(counts)
         path_errs.append(errs)
@@ -2259,5 +2718,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(footprint_main() if sys.argv[1:] == [FOOTPRINT_FLAG]
-             else main())
+    if sys.argv[1:] == [FOOTPRINT_FLAG]:
+        sys.exit(footprint_main())
+    if sys.argv[1:2] == [MULTIHOST_FLAG]:
+        sys.exit(multihost_child(sys.argv[2:]))
+    sys.exit(main())

@@ -99,14 +99,22 @@ def restore_rng(rng: np.random.Generator, state: dict) -> None:
     rng.bit_generator.state = state
 
 
+def _state_prefix(host: "int | None" = None) -> str:
+    """``state`` on one host; ``state_hostNNN`` for one rank of a
+    multi-host run, so hosts sharing a directory never overwrite each
+    other's files."""
+    return "state" if host is None else f"state_host{host:03d}"
+
+
 def save_run_state(ckpt_dir: str, rnd: int, state: dict,
-                   meta: dict | None = None) -> str:
-    """Persist one round's run state as ``state_NNNNNN.npz`` + ``.meta``:
-    any nesting of dict / list / tuple / tensors / numpy arrays / scalars
-    / ``ModelBuffer``."""
+                   meta: dict | None = None,
+                   host: "int | None" = None) -> str:
+    """Persist one round's run state as ``state_NNNNNN.npz`` + ``.meta``
+    (``state_hostNNN_NNNNNN`` with ``host``): any nesting of dict / list /
+    tuple / tensors / numpy arrays / scalars / ``ModelBuffer``."""
     arrays: dict = {}
     spec = _encode(state, arrays)
-    path = os.path.join(ckpt_dir, f"state_{rnd:06d}.npz")
+    path = os.path.join(ckpt_dir, f"{_state_prefix(host)}_{rnd:06d}.npz")
     io.save_pytree(path, arrays, meta={"round": rnd, "spec": spec,
                                        **(meta or {})})
     return path
@@ -120,12 +128,13 @@ def load_run_state(path: str, device="cpu") -> tuple[dict, dict]:
     return _decode(meta["spec"], arrays, device), meta
 
 
-def load_latest_state(ckpt_dir: str, device="cpu"
+def load_latest_state(ckpt_dir: str, device="cpu",
+                      host: "int | None" = None
                       ) -> "tuple[dict, dict, int] | None":
-    """``(state, meta, round)`` of the newest loadable state file, or
-    ``None`` when the directory holds none (a fresh run); unreadable files
-    are skipped, and all unreadable raises."""
-    hit = io.latest_loadable(ckpt_dir, "state",
+    """``(state, meta, round)`` of the newest loadable state file (of rank
+    ``host`` where given), or ``None`` when the directory holds none (a
+    fresh run); unreadable files are skipped, and all unreadable raises."""
+    hit = io.latest_loadable(ckpt_dir, _state_prefix(host),
                              lambda path: load_run_state(path, device))
     if hit is None:
         return None
@@ -133,9 +142,13 @@ def load_latest_state(ckpt_dir: str, device="cpu"
     return state, meta, rnd
 
 
-def load_state_at(ckpt_dir: str, rnd: int, device="cpu") -> tuple[dict, dict]:
-    """``(state, meta)`` of exactly round ``rnd``; no fallback."""
-    path = os.path.join(ckpt_dir, f"state_{rnd:06d}.npz")
+def load_state_at(ckpt_dir: str, rnd: int, device="cpu",
+                  host: "int | None" = None) -> tuple[dict, dict]:
+    """``(state, meta)`` of exactly round ``rnd``; no fallback.  A
+    multi-host resume restores the round all hosts agreed on, which may be
+    older than this host's newest file; checkpoints are never deleted, so
+    a miss here is real corruption."""
+    path = os.path.join(ckpt_dir, f"{_state_prefix(host)}_{rnd:06d}.npz")
     if not os.path.exists(path):
         raise FileNotFoundError(f"{path} missing: no state file for round "
                                 f"{rnd}")

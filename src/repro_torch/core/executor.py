@@ -1,6 +1,6 @@
 """Client execution: how one round's sampled clients are trained.
 
-Two of the reference's executors (``repro.core.executor``):
+The reference's executors (``repro.core.executor``):
 
 ``SequentialExecutor`` — the reference loop, clients one at a time in
 cohort order, one ``client.make_step`` per batch, no padding and no masks.
@@ -43,19 +43,27 @@ Ragged clients are exact, not approximate: every batch of a client has
 behind a zero example mask, and a client with fewer steps gets whole
 padded steps that leave its params and optimizer state untouched.
 
+``ShardMapExecutor`` — the vmap executor's round with the cohort split
+into one slice per device (phantom clients pad a cohort that does not
+divide the device count), each client's shard resident on its slice's
+device across rounds (``RoundContext.placement``), the slices' results
+gathered to the first device.
+
 ``AsyncExecutor`` — buffered-asynchronous rounds on a simulated
 heterogeneous system: the configuration and the inner executor that trains
 each dispatch wave; the event loop is ``fl_loop._run_async``.
 
+Every executor takes pre-drawn batch picks (``run_round(picks=)``): the
+multi-host round draws the whole cohort's and trains the owned slice.
 ``executor="auto"`` picks the vmap executor for more than one sampled
 client of a ``vmap_friendly`` model (the MLP) or of a client-batched pair,
 the sequential executor otherwise (the text encoder; ResNet-8 with MOON,
-FedDistill+, SCAFFOLD, FedDyn or FedGen).  The shard_map executor is not
-ported yet; asking for it raises.
+FedDistill+, SCAFFOLD, FedDyn or FedGen).
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, Optional
 
 import numpy as np
@@ -64,9 +72,11 @@ import torch
 from repro_torch.core import client as client_lib
 from repro_torch.core.algorithms import Algorithm
 from repro_torch.core.modelzoo import ModelBundle
-from repro_torch.data.pipeline import ClientData, ClientSlabStore
+from repro_torch.data.pipeline import ClientData, ClientSlabStore, slab_rows
 from repro_torch.optim import Optimizer
 from repro_torch.tree import tree_map
+
+_LOG = logging.getLogger(__name__)
 
 # rows per teacher-forward chunk of the precompute stage (K folded into N)
 PRECOMPUTE_CHUNK = 1024
@@ -89,9 +99,9 @@ class RoundContext:
     the device; the loop reads the losses at aggregation.
 
     ``placement`` is the device-resident slab store
-    (``data.pipeline.ClientSlabStore``, uncapped); the population tier
-    attaches to it, and no executor of the port fills it yet (the
-    shard_map executor, ROADMAP A13, sizes and fills it)."""
+    (``data.pipeline.ClientSlabStore``, uncapped): the shard_map executor
+    keeps each client's shard there across rounds, and the population tier
+    attaches to it (a warm eviction drops the slab)."""
     algo: Algorithm
     model: ModelBundle
     opt: Optimizer
@@ -188,8 +198,26 @@ def materialize_client(rng: np.random.Generator, data: ClientData,
                        batch_size: int, epochs: int,
                        max_batches: Optional[int] = None) -> MaterializedClient:
     """``materialize_picks`` plus the host-side row gather."""
-    sel = materialize_picks(rng, data, batch_size, epochs, max_batches)
+    return client_from_picks(data, materialize_picks(rng, data, batch_size,
+                                                     epochs, max_batches))
+
+
+def client_from_picks(data: ClientData,
+                      sel: np.ndarray) -> MaterializedClient:
+    """``materialize_client`` with the indices already drawn: the
+    multi-host round draws the picks of the whole cohort (the generator in
+    lockstep on every host) and hands the executor its owned slice."""
+    sel = np.asarray(sel, np.int32)
     return MaterializedClient(data.x[sel], data.y[sel], data.n, sel)
+
+
+def _client_mats(ctx: "RoundContext", client_data: list, rng, picks):
+    """Each client's batches: from ``picks`` where given, else drawn from
+    ``rng`` in cohort order."""
+    if picks is not None:
+        return [client_from_picks(d, p) for d, p in zip(client_data, picks)]
+    return [materialize_client(rng, d, ctx.batch_size, ctx.epochs,
+                               ctx.max_batches) for d in client_data]
 
 
 def _pad_and_stack(mats: list[MaterializedClient]):
@@ -267,13 +295,17 @@ class SequentialExecutor:
 
     def run_round(self, ctx: RoundContext, global_params, payload,
                   client_states, client_data, rng: np.random.Generator,
-                  client_ids=None) -> RoundResult:
+                  client_ids=None, picks=None) -> RoundResult:
+        """``picks``: each client's batch indices, drawn beforehand
+        (``materialize_picks``); without them they are drawn from ``rng``
+        in cohort order."""
         ctx.telemetry["route"] = "sequential"
         dev = ctx.device
         uploads, weights, losses, new_states = [], [], [], []
-        for state, cdata in zip(client_states, client_data):
-            mat = materialize_client(rng, cdata, ctx.batch_size, ctx.epochs,
-                                     ctx.max_batches)
+        # the generator serves only the picks: drawing every client's first
+        # consumes it as drawing them client by client would
+        mats = _client_mats(ctx, client_data, rng, picks)
+        for state, cdata, mat in zip(client_states, client_data, mats):
             xs, ys = (torch.from_numpy(a).to(dev) for a in (mat.xs, mat.ys))
             aux_steps = ()
             if ctx.has_precompute or ctx.has_finalize:
@@ -395,7 +427,7 @@ class VmapExecutor:
 
     def run_round(self, ctx: RoundContext, global_params, payload,
                   client_states, client_data, rng: np.random.Generator,
-                  client_ids=None) -> RoundResult:
+                  client_ids=None, picks=None) -> RoundResult:
         ctx.telemetry["route"] = "vmap"
         batched = ctx.batched_local_update is not None
         ctx.telemetry["round_body"] = "client_batched" if batched else "vmap"
@@ -413,8 +445,7 @@ class VmapExecutor:
                                               client_ids, client_data, full)
                         if parts_spec is not None
                         else self._precompute(ctx, payload, *full))
-        mats = [materialize_client(rng, d, ctx.batch_size, ctx.epochs,
-                                   ctx.max_batches) for d in client_data]
+        mats = _client_mats(ctx, client_data, rng, picks)
         host = _pad_and_stack(mats)
         xs, ys, ex_mask, picks, step_mask = (_upload(t, dev, ctx.deferred)
                                              for t in host)
@@ -455,6 +486,271 @@ class VmapExecutor:
         # deferred: the losses stay on the device, a (K,) tensor whose
         # entries the async loop reads at aggregation
         return RoundResult(uploads, [float(m.n) for m in mats],
+                           mloss if ctx.deferred else mloss.cpu().tolist(),
+                           new_states)
+
+
+def _to(tree: Any, device) -> Any:
+    """Every tensor of ``tree`` on ``device`` (no copy where it is)."""
+    return tree_map(lambda l: l.to(device) if isinstance(l, torch.Tensor)
+                    else l, tree)
+
+
+def _pad_and_stack_picks(picks: list[np.ndarray], k_pad: int):
+    """The per-client pick indices stacked to (k_pad, S, B) int64 with the
+    example mask (k_pad, S, B) and the step mask (k_pad, S), on the host:
+    the shard_map route's whole per-round upload besides the first sight
+    of a client's slab.  Rows past ``len(picks)`` are phantom clients,
+    whose all-zero masks make every step an identity."""
+    s = max(p.shape[0] for p in picks)
+    b = max(p.shape[1] for p in picks)
+    out = np.zeros((k_pad, s, b), np.int64)
+    ex_mask = np.zeros((k_pad, s, b), np.float32)
+    step_mask = np.zeros((k_pad, s), bool)
+    for i, p in enumerate(picks):
+        out[i, :p.shape[0], :p.shape[1]] = p
+        ex_mask[i, :p.shape[0], :p.shape[1]] = 1.0
+        step_mask[i, :p.shape[0]] = True
+    return out, ex_mask, step_mask
+
+
+class ShardMapExecutor(VmapExecutor):
+    """The reference's multi-device executor: the cohort split into one
+    slice per device, each client's shard resident on its slice's device
+    across rounds.
+
+    ``devices``: the devices of the slices, in order; by default every
+    card this host sees (``torch.cuda.device_count()``; under multi-host
+    placement each host splits its own slice of the cohort over its own
+    cards), or the run's one device on the CPU.  A device may repeat:
+    ``["cuda:0", "cuda:0"]`` runs two slices on one card, the counterpart
+    of the reference's forced host device count.  Per round:
+
+      1. the cohort of K clients is padded with phantom clients to
+         K_pad = ndev · ceil(K / ndev), slice d holding clients
+         [d·g, (d+1)·g); each real client's shard comes from the slab
+         store ``RoundContext.placement`` (uploaded the first time it is
+         seen, moved device to device when its slice's device changes),
+         padded to the slice's slab rows; phantom clients are zeros;
+      2. the batch picks are drawn on the host in cohort order (or given),
+         and each slice gathers its batches from its resident slabs on its
+         device, so the host uploads only indices and masks;
+      3. each slice runs the teacher precompute (or the part cache:
+         ``_incremental_aux_sharded``) and the round body of the vmap
+         executor (client-batched or vmapped) on its own clients; phantom
+         clients are fully masked, so their steps are identities;
+      4. the slices' params and losses are gathered to the first device,
+         the phantom clients sliced off, and the client hooks run there.
+
+    The slices run one after another on the current stream.  With one
+    device the split cannot run: ``strict=True`` raises, otherwise the
+    round degrades to the vmap executor's with a logged warning
+    (``telemetry["route"] == "vmap-fallback"``), as the reference does.
+    """
+
+    name = "shard_map"
+
+    def __init__(self, strict: bool = False, devices=None):
+        self.strict = strict
+        self.devices = devices
+
+    def _devices(self, ctx: RoundContext) -> list[torch.device]:
+        if self.devices is not None:
+            return [torch.device(d) for d in self.devices]
+        if ctx.device.type == "cuda":
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        return [ctx.device]
+
+    def run_round(self, ctx: RoundContext, global_params, payload,
+                  client_states, client_data, rng: np.random.Generator,
+                  client_ids=None, picks=None) -> RoundResult:
+        devices = self._devices(ctx)
+        if len(devices) == 1:
+            if self.strict:
+                raise RuntimeError(
+                    "ShardMapExecutor(strict=True): only one device, the "
+                    "cohort cannot be split; pass devices= (a device may "
+                    "repeat, e.g. ['cuda:0', 'cuda:0']) or drop strict to "
+                    "allow the vmap fallback")
+            _LOG.warning("shard_map executor: one device, degrading to the "
+                         "vmap computation (pass devices= to split the "
+                         "cohort)")
+            result = super().run_round(ctx, global_params, payload,
+                                       client_states, client_data, rng,
+                                       client_ids, picks)
+            ctx.telemetry.update(route="vmap-fallback", n_devices=1)
+            return result
+        return self._run_sharded(ctx, devices, global_params, payload,
+                                 client_states, client_data, rng, client_ids,
+                                 picks)
+
+    def _resident_cohort(self, ctx: RoundContext, devices, client_data,
+                         client_ids, g: int, rows: int) -> list[tuple]:
+        """Per slice, (g, rows, ...) x, (g, rows) int32 y and (g, rows)
+        mask on the slice's device, stacked from the resident slabs
+        (device work; the host uploads a shard only the first time a
+        client is seen); phantom clients are zeros."""
+        feat = client_data[0].x.shape[1:]
+        dtype = torch.from_numpy(client_data[0].x[:0]).dtype
+        out = []
+        for d, dev in enumerate(devices):
+            fx = torch.zeros((g, rows) + feat, dtype=dtype, device=dev)
+            fy = torch.zeros((g, rows), dtype=torch.int32, device=dev)
+            fmask = torch.zeros((g, rows), device=dev)
+            for j, i in enumerate(range(d * g, min((d + 1) * g,
+                                                   len(client_data)))):
+                cid = client_ids[i] if client_ids is not None else None
+                e = ctx.placement.get(cid, client_data[i], dev)
+                fx[j, :e["rows"]] = e["x"]
+                fy[j, :e["rows"]] = e["y"]
+                fmask[j, :e["n"]] = 1.0
+            out.append((fx, fy, fmask))
+        return out
+
+    def _incremental_aux_sharded(self, ctx: RoundContext, payloads,
+                                 parts_spec, client_ids, client_data, full,
+                                 g: int) -> list:
+        """The part cache on the slices: a version is computed (one teacher
+        forward per slice, counted once in ``parts_computed``) only when
+        some sampled client has not seen it; otherwise each slice's
+        (g, rows, ...) part is reassembled from the per-client cache
+        ``RoundContext.aux_cache`` (each client's real rows, as the vmap
+        executor keeps them).  Then ``precompute_combine`` per slice."""
+        keys, get_part = parts_spec
+        k = len(client_ids)
+        for cid in client_ids:
+            ctx.aux_cache.setdefault(cid, {})
+        slabs: dict = {}            # key -> [(g, rows, ...) per slice]
+        for m, key in enumerate(keys):
+            if key in slabs:
+                continue
+            if any(key not in ctx.aux_cache[cid] for cid in client_ids):
+                slabs[key] = [self._part_rows(ctx, _to(get_part(m), fx.device),
+                                              fx) for fx, _, _ in full]
+                ctx.telemetry["parts_computed"] = (
+                    ctx.telemetry.get("parts_computed", 0) + 1)
+                for i, cid in enumerate(client_ids):
+                    ctx.aux_cache[cid].setdefault(
+                        key, slabs[key][i // g][i % g, :client_data[i].n])
+                continue
+            slabs[key] = []
+            for d, (fx, _, _) in enumerate(full):
+                members = range(d * g, min((d + 1) * g, k))
+                first = ctx.aux_cache[client_ids[0]][key]
+                slab = first.new_zeros((g, fx.shape[1]) + tuple(
+                    first.shape[1:]), device=fx.device)
+                for j, i in enumerate(members):
+                    r = ctx.aux_cache[client_ids[i]][key]
+                    slab[j, :r.shape[0]] = r
+                slabs[key].append(slab)
+        keyset = set(keys)
+        for cid in client_ids:
+            ctx.aux_cache[cid] = {kk: v for kk, v in ctx.aux_cache[cid].items()
+                                  if kk in keyset}
+        out = []
+        for d, (fx, fy, fmask) in enumerate(full):
+            parts = torch.stack([slabs[key][d] for key in keys])
+            rows = fx.shape[1]
+            with torch.no_grad():
+                aux = ctx.algo.precompute_combine(
+                    payloads[d], parts.reshape((len(keys), g * rows)
+                                               + tuple(parts.shape[3:])),
+                    _fold(fx), _fold(fy), _fold(fmask))
+            out.append(tree_map(
+                lambda l: l.reshape((g, rows) + tuple(l.shape[1:])), aux))
+        return out
+
+    def _run_sharded(self, ctx: RoundContext, devices, global_params,
+                     payload, client_states, client_data, rng, client_ids,
+                     picks) -> RoundResult:
+        ndev, k = len(devices), len(client_data)
+        g = -(-k // ndev)
+        k_pad = g * ndev
+        rows = max(slab_rows(d.n) for d in client_data)
+        batched = ctx.batched_local_update is not None
+        full = self._resident_cohort(ctx, devices, client_data, client_ids,
+                                     g, rows)
+        payloads = [_to(payload, dev) for dev in devices]
+        aux_full: list = [()] * ndev
+        if ctx.has_precompute:
+            parts_spec = (ctx.algo.precompute_parts(payload)
+                          if client_ids is not None else None)
+            aux_full = (self._incremental_aux_sharded(
+                ctx, payloads, parts_spec, client_ids, client_data, full, g)
+                if parts_spec is not None else
+                [self._precompute(ctx, pl, *f)
+                 for pl, f in zip(payloads, full)])
+        picks_list = (list(picks) if picks is not None else
+                      [materialize_picks(rng, d, ctx.batch_size, ctx.epochs,
+                                         ctx.max_batches)
+                       for d in client_data])
+        pk, ex_mask, step_mask = _pad_and_stack_picks(picks_list, k_pad)
+        drawn = None
+        if not batched:
+            # inputs the loss draws on the host (FedGen's noise), over the
+            # padded cohort: the real clients' draws are the vmap body's
+            ys = np.zeros(pk.shape, np.int64)
+            for i, d in enumerate(client_data):
+                p = picks_list[i]
+                ys[i, :p.shape[0], :p.shape[1]] = d.y[p]
+            drawn = ctx.algo.host_step_inputs(payload, torch.from_numpy(ys),
+                                              torch.from_numpy(ex_mask))
+        phantom = tree_map(torch.zeros_like, client_states[0])
+        states = list(client_states) + [phantom] * (k_pad - k)
+        outs = []
+        for d, dev in enumerate(devices):
+            sl = slice(d * g, (d + 1) * g)
+            fx, fy, _ = full[d]
+            p_, em, sm = (torch.from_numpy(a[sl]).to(dev)
+                          for a in (pk, ex_mask, step_mask))
+            r = torch.arange(g, device=dev)[:, None, None]
+            xs, ys = fx[r, p_], fy[r, p_].long()
+            aux = (tree_map(lambda l: l[r, p_], aux_full[d])
+                   if ctx.has_precompute else {})
+            gp = _to(global_params, dev)
+            if batched:
+                outs.append(ctx.batched_local_update(
+                    gp, payloads[d], tuple(_to(states[sl], dev)), xs, ys,
+                    em, aux or (), sm, ctx.lr))
+                continue
+            if drawn:
+                aux = {**aux, **tree_map(lambda t: t[sl].to(dev), drawn)}
+            body = torch.func.vmap(ctx.local_update,
+                                   in_dims=(None, None, 0, 0, 0, 0, 0, 0,
+                                            None))
+            outs.append(body(gp, payloads[d],
+                             _to(_tree_stack(states[sl]), dev), xs, ys, em,
+                             aux or (), sm, ctx.lr))
+        dev0 = devices[0]
+        # gather to the first device and drop the phantom clients
+        params_stacked = tree_map(
+            lambda *ls: torch.cat([l.to(dev0) for l in ls])[:k],
+            *[p for p, _ in outs])
+        mloss = torch.cat([m.to(dev0) for _, m in outs])[:k]
+        extras = [{}] * k
+        if ctx.has_finalize:
+            fx, fy, fmask = (torch.cat([f[i].to(dev0) for f in full])[:k]
+                             for i in range(3))
+            pl0 = payloads[0]
+            extras = _tree_unstack(torch.func.vmap(
+                lambda p, x, y, m: ctx.algo.client_finalize(
+                    ctx.model, p, x, y, m, pl0))(params_stacked, fx,
+                                                 fy.long(), fmask), k)
+        new_states = list(client_states)
+        if ctx.has_state_update:
+            new_states = _tree_unstack(torch.func.vmap(
+                lambda st, p: ctx.algo.update_client_state(st, p,
+                                                           payloads[0]))(
+                    _to(_tree_stack(client_states), dev0), params_stacked), k)
+        uploads = [{"params": p, **e}
+                   for p, e in zip(_tree_unstack(params_stacked, k), extras)]
+        ctx.telemetry.update(route="shard_map", n_devices=ndev, cohort=k,
+                             padded_to=k_pad,
+                             round_body=("client_batched" if batched
+                                         else "vmap"),
+                             placement=ctx.placement.stats())
+        return RoundResult(uploads, [float(d.n) for d in client_data],
                            mloss if ctx.deferred else mloss.cpu().tolist(),
                            new_states)
 
@@ -553,8 +849,7 @@ class AsyncExecutor:
 
 
 _EXECUTORS = {"sequential": SequentialExecutor, "vmap": VmapExecutor,
-              "async": AsyncExecutor}
-_NOT_PORTED = {"shard_map": "ROADMAP A8b and A13"}
+              "shard_map": ShardMapExecutor, "async": AsyncExecutor}
 
 
 def available() -> list[str]:
@@ -579,7 +874,4 @@ def get_executor(spec, algo: Algorithm, n_sample: int,
         spec = "vmap" if batched_ok else "sequential"
     if spec in _EXECUTORS:
         return _EXECUTORS[spec]()
-    if spec in _NOT_PORTED:
-        raise NotImplementedError(
-            f"executor {spec!r} is not ported yet ({_NOT_PORTED[spec]})")
     raise ValueError(f"unknown executor {spec!r}; available: {available()}")

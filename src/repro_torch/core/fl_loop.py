@@ -10,7 +10,13 @@ the full run state (``checkpoint.recovery``).  With ``population=`` (a
 ``repro_torch.population.Population``) in place of ``data=``, clients come
 through the population tier: cohorts from its O(cohort) sampler, shards
 through its warm cache, per-client states from its state store, so nothing
-in the loop is O(population).  The numpy generator is
+in the loop is O(population).  With a population placed over several
+hosts (``HostPlacement(h, n_hosts > 1)``) every host replays the whole
+simulation (cohorts, batch picks, fault draws, the async event heap) and
+trains only the clients it owns; the uploads cross a filesystem exchange
+(``population.placement``) and every host aggregates the same inputs, so
+the hosts agree bit for bit (``_multihost_round``,
+``_multihost_fault_round``, ``_multihost_wave``).  The numpy generator is
 consumed in the reference's order and count (cohort draw, then each
 client's batch picks), so one seed samples the same cohorts and batches in
 both packages; the simulator and the fault injector draw from their own
@@ -40,6 +46,7 @@ from repro_torch.core.server import (FaultPolicy, async_aggregation_weights,
 from repro_torch.data.pipeline import FederatedData, num_batches
 from repro_torch.data.synthetic import make_task_data
 from repro_torch.optim import adam, sgd
+from repro_torch.population import placement as placement_lib
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -136,10 +143,13 @@ def run_federated(task: PaperTask, algo: Algorithm,
     (``"auto"``, ``True`` or ``False``, which forces the vmapped body; see
     ``executor.RoundContext``).
 
-    ``executor``: ``"sequential"``, ``"vmap"``, ``"async"`` or an
+    ``executor``: ``"sequential"``, ``"vmap"``, ``"shard_map"`` (the
+    cohort split into one slice per card, client shards resident on the
+    cards: ``executor.ShardMapExecutor``), ``"async"`` or an
     ``executor.AsyncExecutor(...)`` (buffered asynchronous aggregation on
     a simulated heterogeneous system, see ``_run_async``; its records
-    carry ``sim_time``, ``version`` and ``mean_staleness``), or ``"auto"``.
+    carry ``sim_time``, ``version`` and ``mean_staleness``), another
+    executor instance, or ``"auto"``.
 
     ``dp=`` (a ``privacy.DPConfig``): every upload's delta is clipped and
     the aggregate noised.  ``faults=`` (a ``systemsim.FaultProfile``):
@@ -160,23 +170,22 @@ def run_federated(task: PaperTask, algo: Algorithm,
     while it is in flight), ``History.telemetry["population"]`` holds the
     tiers' counters, and a checkpoint holds the state store's snapshot
     (warm states by value, spills by reference) instead of every client's
-    state.
-
-    Not ported yet: multi-host host faults (``FaultProfile.host_crash_prob``)
-    and placement over several hosts, and the shard_map executor (all
-    ROADMAP A13); they raise ``NotImplementedError``.  ``device`` defaults
-    to ``"cuda"``.
+    state.  A population whose placement spans several hosts trains only
+    this host's shards and exchanges the uploads with its peers (one
+    ``run_federated`` per host, each with its ``HostPlacement``); its
+    checkpoints are ``state_hostNNN_*`` files, a resume first agrees with
+    the peers on the round to restore (``placement.resume_barrier``), and
+    ``FaultProfile.host_crash_prob`` crashes whole hosts, whose slices then
+    fail as a block.  It does not compose with ``dp=``.  ``device``
+    defaults to ``"cuda"``.
     """
-    if faults is not None and faults.host_crash_prob > 0.0:
-        raise NotImplementedError(
-            "FaultProfile.host_crash_prob: host faults need multi-host "
-            "placement, not ported yet (ROADMAP A13)")
     if (data is None) == (population is None):
         raise ValueError("pass exactly one of data= (a FederatedData) or "
                          "population= (a repro_torch.population.Population)")
     pop = population
     if pop is not None:
         data = pop      # it answers clients[cid], test_x, sample_cohort, ...
+    multihost = pop is not None and getattr(pop, "multihost", False)
     dev = resolve_device(device)
     rounds = rounds if rounds is not None else task.rounds
     model = make_model(task, projection_head=algo.needs_projection_head,
@@ -186,8 +195,9 @@ def run_federated(task: PaperTask, algo: Algorithm,
     init_gen = torch.Generator().manual_seed(seed + 1)
     global_params = tree_map(lambda t: t.to(dev), model.init(init_gen))
     # client 0 is read for every algorithm, as the reference reads it, so
-    # a population's tier counters equal the reference's
-    probe = data.clients[0]
+    # a population's tier counters equal the reference's; a host that does
+    # not own it reads it from the cold source, past its warm tier
+    probe = pop.probe_client() if multihost else data.clients[0]
     if isinstance(algo, FedGen):
         probe_x = torch.from_numpy(probe.x[:2]).to(dev)
         server = algo.init_server_with_probe(global_params, model,
@@ -214,6 +224,12 @@ def run_federated(task: PaperTask, algo: Algorithm,
         batch_size=task.batch_size, epochs=task.local_epochs, device=dev,
         max_batches=max_batches_per_client, precompute=bool(precompute),
         client_batched=client_batched)
+    if multihost:
+        if dp is not None:
+            raise NotImplementedError(
+                "multi-host placement does not compose with dp= yet")
+        # this host's devices must never materialize an unowned slab
+        ctx.placement.owns = pop.owned
     if pop is not None:
         # warm evictions drop device slabs, slab evictions count into the
         # population's telemetry, the pinned set is shared
@@ -253,40 +269,59 @@ def run_federated(task: PaperTask, algo: Algorithm,
 
     records: list[RoundRecord] = []
     uploads: list[dict] = []
+    ckpt_host = pop.placement.host_id if multihost else None
+    dead_hosts: set = set()     # peers that missed an exchange deadline
     start_round = 0
     if resume:
-        hit = recovery.load_latest_state(checkpoint_dir, device=dev)
+        hit = recovery.load_latest_state(checkpoint_dir, device=dev,
+                                         host=ckpt_host)
+        if multihost:
+            hit = _agreed_restore(pop.placement, checkpoint_dir, hit, dev)
         if hit is not None:
             state, meta, start_round = hit
             server, records = _restore_run(state, meta, algo, rng, injector,
                                            ctx, client_states)
+        if multihost:
+            _confirm_restore(pop.placement, hit, start_round,
+                             {"algo": algo.name})
 
     for t in range(start_round, rounds):
         t0 = time.time()
         sampled = data.sample_cohort(rng, n_sample)
         payload = algo.round_payload(server)
         cids = [int(k) for k in sampled]
-        if pop is not None:
-            # the cohort must not evict itself from the tiers while it is
-            # materialized and trained
-            pop.pin(cids)
-        if injector is None:
-            result = exec_.run_round(
-                ctx, server["global"], payload,
-                [client_states[k] for k in cids],
-                [data.clients[k] for k in cids], rng, client_ids=cids)
-            uploads, weights = result.uploads, result.weights
-            local_losses = result.local_losses
-            for k, new_state in zip(cids, result.client_states):
-                client_states[k] = new_state
+        if multihost and injector is not None:
+            # a crashed or silent host is a fault over its whole slice;
+            # the quorum counts the surviving hosts' validated uploads
+            uploads, weights, local_losses = _multihost_fault_round(
+                exec_, ctx, pop, server, payload, client_states, rng, cids,
+                injector, policy, t, dead_hosts)
+        elif multihost:
+            uploads, weights, local_losses = _multihost_round(
+                ctx, exec_, pop, server["global"], payload, client_states,
+                cids, rng, t)
         else:
-            uploads, weights, local_losses = _fault_tolerant_round(
-                exec_, ctx, server, payload, client_states, data, rng,
-                cids, injector, policy)
+            if pop is not None:
+                # the cohort must not evict itself from the tiers while it
+                # is materialized and trained
+                pop.pin(cids)
+            if injector is None:
+                result = exec_.run_round(
+                    ctx, server["global"], payload,
+                    [client_states[k] for k in cids],
+                    [data.clients[k] for k in cids], rng, client_ids=cids)
+                uploads, weights = result.uploads, result.weights
+                local_losses = result.local_losses
+                for k, new_state in zip(cids, result.client_states):
+                    client_states[k] = new_state
+            else:
+                uploads, weights, local_losses = _fault_tolerant_round(
+                    exec_, ctx, server, payload, client_states, data, rng,
+                    cids, injector, policy)
         if verbose and t == start_round:
             print(f"[{algo.name}] executor route: "
                   f"{ctx.telemetry.get('route', exec_.name)}")
-        if pop is not None:
+        if pop is not None and not multihost:
             pop.unpin(cids)
             ctx.telemetry["population"] = pop.stats()
 
@@ -315,7 +350,8 @@ def run_federated(task: PaperTask, algo: Algorithm,
                 (t + 1) % checkpoint_every == 0 or t == rounds - 1):
             _save_checkpoint(checkpoint_dir, t + 1, algo, server, rng,
                              injector, records, client_states,
-                             data.n_clients, ftel=ctx.telemetry.get("faults"))
+                             data.n_clients, ftel=ctx.telemetry.get("faults"),
+                             host=ckpt_host)
         if round_callback is not None:
             round_callback(t + 1, server, model)
         if verbose:
@@ -422,7 +458,8 @@ def _fault_tolerant_round(exec_, ctx, server, payload, client_states, data,
 
 
 def _save_checkpoint(ckpt_dir, rnd, algo, server, rng, injector, records,
-                     client_states, n_clients, ftel=None, extra=None):
+                     client_states, n_clients, ftel=None, extra=None,
+                     host=None):
     state = {
         "server": server,
         "np_rng": recovery.rng_state(rng),
@@ -438,7 +475,8 @@ def _save_checkpoint(ckpt_dir, rnd, algo, server, rng, injector, records,
     }
     if extra:
         state.update(extra)
-    recovery.save_run_state(ckpt_dir, rnd, state, meta={"algo": algo.name})
+    recovery.save_run_state(ckpt_dir, rnd, state, meta={"algo": algo.name},
+                            host=host)
 
 
 def _snapshot_client_states(client_states, n_clients):
@@ -480,6 +518,306 @@ def _restore_run(state, meta, algo, rng, injector, ctx, client_states):
             ctx.telemetry["faults"].update(state["fault_telemetry"])
     _restore_client_states(client_states, state["client_states"])
     return state["server"], [RoundRecord(**d) for d in state["records"]]
+
+
+def _agreed_restore(placement, ckpt_dir, hit, device):
+    """The coordinated resume's restore point: the newest round every host
+    can load (the minimum over the hosts, ``placement.resume_barrier``),
+    this host's state at that round, or ``None`` when all start fresh."""
+    common = placement_lib.resume_barrier(
+        placement, hit[2] if hit is not None else None)
+    if common is None:
+        return None
+    if hit is None or hit[2] != common:
+        hit = (*recovery.load_state_at(ckpt_dir, common, device=device,
+                                       host=placement.host_id), common)
+    return hit
+
+
+def _confirm_restore(placement, hit, start_round, meta: dict) -> None:
+    """Retire this host's stale exchange files, then check that every
+    host restored the same state (``meta`` and the round) before the
+    first round runs."""
+    common = None if hit is None else start_round
+    placement_lib.clear_host_payloads(placement)
+    placement_lib.confirm_resume(placement, common,
+                                 {"round": common, **meta})
+
+
+class _SizeOnly:
+    """``materialize_picks`` reads only ``.n``: every host draws the whole
+    cohort's batch picks from the client sizes alone (``client_n``
+    materializes nothing), keeping the generator in lockstep."""
+
+    __slots__ = ("n",)
+
+    def __init__(self, n: int):
+        self.n = int(n)
+
+
+def _cohort_picks(ctx, pop, rng, cids) -> list[np.ndarray]:
+    """Every client's batch picks in cohort order, as a one-host executor
+    would draw them."""
+    return [executor_lib.materialize_picks(
+        rng, _SizeOnly(pop.client_n(c)), ctx.batch_size, ctx.epochs,
+        ctx.max_batches) for c in cids]
+
+
+def _host_stats(ctx, pop) -> dict:
+    """This host's tier, slab-store and exchange counters, for its peers."""
+    return dict(pop.stats(), host_rss_mb=placement_lib.peak_rss_mb(),
+                slab=ctx.placement.stats(), exchange=dict(pop.placement.stats))
+
+
+def _gathered_uploads(gathered) -> dict:
+    """``{cohort index: (upload, weight, loss)}`` from the live hosts'
+    payloads."""
+    got = {}
+    for g in gathered:
+        if g is None or g.get("crashed"):
+            continue
+        for jj, j in enumerate(g["idx"]):
+            got[int(j)] = (g["uploads"][jj], float(g["weights"][jj]),
+                           float(g["losses"][jj]))
+    return got
+
+
+def _train_owned(exec_, ctx, pop, global_params, payload, client_states,
+                 ids, picks, rng,
+                 in_flight: bool = False) -> tuple[dict, dict]:
+    """Train this host's clients ``ids`` with their pre-drawn ``picks``,
+    pinned in the tiers meanwhile (``in_flight``: left pinned, for the
+    async loop to release at completion); returns the exchange payload's
+    training part and the new states."""
+    pop.pin(ids)
+    result = exec_.run_round(
+        ctx, global_params, payload, [client_states[k] for k in ids],
+        [pop.clients[k] for k in ids], rng, client_ids=ids, picks=picks)
+    if not in_flight:
+        pop.unpin(ids)
+    return ({"uploads": result.uploads,
+             "weights": [float(w) for w in result.weights],
+             "losses": [float(v) for v in result.local_losses]},
+            dict(zip(ids, result.client_states)))
+
+
+def _multihost_round(ctx, exec_, pop, global_params, payload, client_states,
+                     cids, rng, t):
+    """One synchronous round under multi-host placement.
+
+    Every host arrives with the same generator, payload and cohort (the
+    sampler draws in lockstep).  Each draws the batch picks of the whole
+    cohort in cohort order (consuming the generator as a one-host executor
+    would), trains only the clients it owns, publishes their uploads
+    through the filesystem allgather, and rebuilds the full upload list in
+    cohort order from every host's payload (its own read back from its
+    file, so all hosts aggregate byte-identical inputs).  The hosts' tier
+    counters land in ``telemetry["population"]["hosts"]``, by host id."""
+    own_idx = [i for i, c in enumerate(cids) if pop.owned(c)]
+    own_cids = [cids[i] for i in own_idx]
+    picks_all = _cohort_picks(ctx, pop, rng, cids)
+    local: dict = {"idx": own_idx, "uploads": [], "weights": [],
+                   "losses": []}
+    if own_cids:            # a host that owns nobody still publishes
+        trained, new_states = _train_owned(
+            exec_, ctx, pop, global_params, payload, client_states, own_cids,
+            [picks_all[i] for i in own_idx], rng)
+        local.update(trained)
+        for k, st in new_states.items():
+            client_states[k] = st
+    local["stats"] = _host_stats(ctx, pop)
+    gathered = placement_lib.allgather(pop.placement, f"round{t:06d}", local,
+                                       device=ctx.device)
+    got = _gathered_uploads(gathered)
+    missing = [c for i, c in enumerate(cids) if i not in got]
+    if missing:
+        raise RuntimeError(
+            f"multi-host round {t}: no host owned clients "
+            f"{missing[:5]}{'...' if len(missing) > 5 else ''}: the "
+            f"placement does not partition the cohort")
+    ctx.telemetry["population"] = dict(
+        pop.stats(), hosts=[g["stats"] for g in gathered])
+    return ([got[i][0] for i in range(len(cids))],
+            [got[i][1] for i in range(len(cids))],
+            [got[i][2] for i in range(len(cids))])
+
+
+def _exchange_wave(pop, tag, local, injector, dead_hosts, ftel, device):
+    """Allgather one round attempt's or wave's payload.  With fault
+    injection a peer that misses the deadline joins ``missing`` instead of
+    raising (crash-stop: every survivor resolves the same set) and is
+    never polled for again (``dead_hosts``); without it the exchange stays
+    strict: a dead peer is an error, not a fault to tolerate."""
+    pl = pop.placement
+    if injector is None:
+        return placement_lib.allgather(pl, tag, local, device=device), ()
+    gathered, missing = placement_lib.allgather_partial(
+        pl, tag, local, skip_wait=dead_hosts, device=device)
+    new = [h for h in missing if h not in dead_hosts]
+    if new:
+        ftel["host_timeouts"] += len(new)
+        dead_hosts.update(new)
+    return gathered, missing
+
+
+def _owner_is_down(pop, cid, crashed, gathered) -> bool:
+    """Did the host that owns ``cid`` crash (drawn) or go silent?  A live
+    owner that published nothing for it is a placement bug: False."""
+    owner = pop.sampler.shard_of(int(cid)) % pop.placement.n_hosts
+    g = gathered[owner]
+    return owner in crashed or g is None or bool(g["crashed"])
+
+
+def _multihost_fault_round(exec_, ctx, pop, server, payload, client_states,
+                           rng, cids, injector, policy, t, dead_hosts):
+    """``_fault_tolerant_round`` under multi-host placement.
+
+    Every host replays the full fault and pick draws (the streams in
+    lockstep), trains only the live clients it owns, and exchanges the
+    results per attempt (tag ``roundTTTTTTaAA``).  A crashed host (drawn
+    from ``FaultProfile.host_crash_prob``, one uniform per host in host
+    order each attempt, or a peer that misses the deadline) fails its whole
+    slice as a block; the quorum counts the surviving hosts' validated
+    uploads and the retries redispatch the missing slice.  Uploads cross
+    the exchange clean and every host replays the corruption draw
+    (``corrupt_params`` is pure, ``validate_update`` deterministic), so all
+    survivors accept and reject the same updates.  With
+    ``host_crash_prob == 0`` and no missed deadline this is the one-host
+    round's result."""
+    pl = pop.placement
+    ftel = ctx.telemetry["faults"]
+    quorum = max(1, int(np.ceil(policy.quorum_frac * len(cids))))
+    uploads: list = []
+    weights: list = []
+    losses: list = []
+    state_commits: dict = {}
+    host_stats = None
+    pending = list(cids)
+    attempt = 0
+    while pending:
+        crashed = ()
+        if injector.profile.host_crash_prob > 0.0:
+            crashed = injector.draw_host_crashes(pl.n_hosts)
+        drawn = [(k, injector.draw()) for k in pending]
+        failed = [k for k, f in drawn
+                  if f is not None and f[0] in ("crash", "timeout")]
+        alive = [(k, f) for k, f in drawn if f is None or f[0] == "corrupt"]
+        alive_ids = [k for k, _ in alive]
+        picks = _cohort_picks(ctx, pop, rng, alive_ids)
+        own = [(j, k) for j, k in enumerate(alive_ids) if pop.owned(k)]
+        local: dict = {"idx": [], "uploads": [], "weights": [], "losses": [],
+                       "crashed": pl.host_id in crashed}
+        new_states: dict = {}
+        if own and not local["crashed"]:
+            trained, new_states = _train_owned(
+                exec_, ctx, pop, server["global"], payload, client_states,
+                [k for _, k in own], [picks[j] for j, _ in own], rng)
+            local.update(trained, idx=[j for j, _ in own])
+        local["stats"] = _host_stats(ctx, pop)
+        gathered, _ = _exchange_wave(
+            pop, f"round{t:06d}a{attempt:02d}", local, injector, dead_hosts,
+            ftel, ctx.device)
+        host_stats = [g["stats"] if g is not None else None
+                      for g in gathered]
+        got = _gathered_uploads(gathered)
+        for j, (k, f) in enumerate(alive):
+            hit = got.get(j)
+            if hit is None:
+                if _owner_is_down(pop, k, crashed, gathered):
+                    failed.append(k)        # a host fault over its slice
+                    continue
+                raise RuntimeError(
+                    f"multi-host fault round {t}: a live host published no "
+                    f"upload for client {k}: the placement does not "
+                    f"partition the cohort")
+            up, w, lv = hit
+            if f is not None:
+                up = dict(up, params=systemsim.corrupt_params(
+                    up["params"], f[1], injector.profile.huge_scale))
+            ok, reason = validate_update(up["params"], server["global"],
+                                         max_norm_mult=policy.max_norm_mult)
+            if ok:
+                uploads.append(up)
+                weights.append(w)
+                losses.append(lv)
+                if k in new_states:
+                    state_commits[k] = new_states[k]
+            else:
+                ftel["rejected_nonfinite" if reason.startswith("nonfinite")
+                     else "rejected_norm"] += 1
+                failed.append(k)
+        if len(uploads) >= quorum or not failed \
+                or attempt >= policy.max_retries:
+            break
+        attempt += 1
+        ftel["retries"] += 1
+        ftel["redispatches"] += len(failed)
+        ftel["backoff_wait"] += policy.backoff(attempt)
+        pending = failed
+    if len(uploads) < quorum:
+        ftel["quorum_shortfalls"] += 1
+    for k, st in state_commits.items():
+        client_states[k] = st
+    ctx.telemetry["population"] = dict(pop.stats(), hosts=host_stats)
+    return uploads, weights, losses
+
+
+def _multihost_wave(ctx, inner, pop, global_params, payload, client_states,
+                    cids, rng, tag, injector, dead_hosts, ftel):
+    """One async dispatch wave under multi-host placement.
+
+    Every host replays the whole simulation (sampling, the event heap, the
+    aggregations); only the training is split.  Each host draws the whole
+    wave's batch picks, then the wave's host crashes (one uniform per host
+    when ``host_crash_prob > 0``), trains the owned clients if it is
+    alive, publishes them under the wave's ``tag`` and reassembles the
+    wave.  The returned ``(upload, weight, loss, fault)`` per client is
+    byte-identical on every host, so the simulators' heaps stay in
+    lockstep with no other coordination.  A crashed or silent host gives
+    each client of its slice the fault ``("host_crash", "")``: the
+    dispatch occupies the heap with no upload and fails at the buffer
+    fill, whose retries redispatch it.  Returns the per-client results and
+    the hosts' stats."""
+    pl = pop.placement
+    crashed = ()
+    if injector is not None and injector.profile.host_crash_prob > 0.0:
+        crashed = injector.draw_host_crashes(pl.n_hosts)
+    picks = _cohort_picks(ctx, pop, rng, cids)
+    own = [(i, c) for i, c in enumerate(cids) if pop.owned(c)]
+    local: dict = {"idx": [], "uploads": [], "weights": [], "losses": [],
+                   "crashed": pl.host_id in crashed}
+    new_states: dict = {}
+    if own and not local["crashed"]:
+        trained, new_states = _train_owned(
+            inner, ctx, pop, global_params, payload, client_states,
+            [c for _, c in own], [picks[i] for i, _ in own], rng,
+            in_flight=True)
+        local.update(trained, idx=[i for i, _ in own])
+    local["stats"] = _host_stats(ctx, pop)
+    gathered, _ = _exchange_wave(pop, tag, local, injector, dead_hosts, ftel,
+                                 ctx.device)
+    # the per-client fault draws after training, in wave order: the
+    # one-host launch's consumption of the fault stream
+    per_fault = [injector.draw() if injector is not None else None
+                 for _ in cids]
+    got = _gathered_uploads(gathered)
+    out = []
+    for i, c in enumerate(cids):
+        hit = got.get(i)
+        if hit is None:
+            if _owner_is_down(pop, c, crashed, gathered):
+                out.append((None, 0.0, 0.0, ("host_crash", "")))
+                continue
+            raise RuntimeError(
+                f"multi-host wave {tag}: a live host published no upload "
+                f"for client {c}: the placement does not partition the "
+                f"wave")
+        up, w, lv = hit
+        if per_fault[i] is None and c in new_states:
+            # a healthy dispatch commits its owned client's state
+            client_states[c] = new_states[c]
+        out.append((up, w, lv, per_fault[i]))
+    return out, [g["stats"] if g is not None else None for g in gathered]
 
 
 def _read_losses(values: list) -> list[float]:
@@ -537,7 +875,12 @@ def _run_async(algo: Algorithm, data: FederatedData,
 
     With a population (``pop``) every dispatched client stays pinned in its
     tiers until its completion aggregates, fails, or the run ends (and a
-    resumed run pins the in-flight clients it restores).
+    resumed run pins the in-flight clients it restores).  Placed over
+    several hosts, each wave trains through ``_multihost_wave`` under its
+    own exchange tag (``wave_seq``, carried in the checkpoints) and the
+    simulator's dispatches are the same on every host, so the heaps, the
+    clock and the aggregations never diverge; the losses are read per wave
+    (the uploads cross the exchange at once), so nothing is deferred.
     """
     b = exec_.buffer_size if exec_.buffer_size is not None else n_sample
     if not (1 <= b <= n_sample):
@@ -566,7 +909,9 @@ def _run_async(algo: Algorithm, data: FederatedData,
             w = work_memo[k] = client_work(data.client_n(k))
         return w
 
-    ctx.deferred = bool(exec_.pipelined and inner.name != "sequential")
+    multihost = pop is not None and getattr(pop, "multihost", False)
+    ctx.deferred = bool(exec_.pipelined and inner.name != "sequential"
+                        and not multihost)
 
     in_flight: set[int] = set()
     version = 0
@@ -576,13 +921,41 @@ def _run_async(algo: Algorithm, data: FederatedData,
     uploads: list[dict] = []
     ftel = ctx.telemetry.get("faults")
     fail_count: dict[int, int] = {}     # consecutive failures per client
+    dead_hosts: set = set()     # peers that missed an exchange deadline
+    wave_seq = 0    # the waves' exchange tags, in lockstep on every host
+    mh_stats: dict = {"hosts": None}    # the hosts' latest tier counters
+    ckpt_host = pop.placement.host_id if multihost else None
+
+    def owned_only(ids):
+        """Under placement, the ids of this host's slice: only they are
+        pinned here."""
+        return [k for k in ids if pop.owned(k)] if multihost else list(ids)
+
+    def schedule(k, upload, weight, loss, fault, delay) -> None:
+        slowdown = (injector.profile.timeout_factor
+                    if fault is not None and fault[0] == "timeout" else 1.0)
+        in_flight.add(k)
+        sim.dispatch(k, work_of(k), tag={
+            "upload": upload, "weight": weight, "loss": loss,
+            "version": version, "fault": fault}, delay=delay,
+            slowdown=slowdown)
 
     def launch(cids: "list[int]", delay: float = 0.0) -> None:
         """Train ``cids`` against the current global and schedule their
         completions, each with its fault draw: a faulted dispatch still
         occupies the heap (for the timeout factor's longer duration on a
         timeout), its tag marks it dead."""
+        nonlocal wave_seq
         payload = algo.round_payload(server)
+        if multihost:
+            tag = f"wave{wave_seq:09d}"
+            wave_seq += 1
+            results, mh_stats["hosts"] = _multihost_wave(
+                ctx, inner, pop, server["global"], payload, client_states,
+                cids, rng, tag, injector, dead_hosts, ftel)
+            for k, (up, w, lv, fault) in zip(cids, results):
+                schedule(k, up, w, lv, fault, delay)
+            return
         if pop is not None:
             # in flight until the completion aggregates
             pop.pin(cids)
@@ -595,14 +968,8 @@ def _run_async(algo: Algorithm, data: FederatedData,
             if fault is None:
                 # a failed client's local work is lost
                 client_states[k] = result.client_states[i]
-            slowdown = (injector.profile.timeout_factor
-                        if fault is not None and fault[0] == "timeout"
-                        else 1.0)
-            in_flight.add(k)
-            sim.dispatch(k, work_of(k), tag={
-                "upload": result.uploads[i], "weight": result.weights[i],
-                "loss": result.local_losses[i], "version": version,
-                "fault": fault}, delay=delay, slowdown=slowdown)
+            schedule(k, result.uploads[i], result.weights[i],
+                     result.local_losses[i], fault, delay)
 
     def dispatch_wave(k_count: int) -> None:
         if k_count == 0:
@@ -637,7 +1004,7 @@ def _run_async(algo: Algorithm, data: FederatedData,
             # a dead completion: free the slot, retry or drop the client
             in_flight.discard(c.client)
             if pop is not None:
-                pop.unpin([c.client])
+                pop.unpin(owned_only([c.client]))
             fails = fail_count.get(c.client, 0) + 1
             fail_count[c.client] = fails
             if fails <= policy.max_retries:
@@ -670,12 +1037,17 @@ def _run_async(algo: Algorithm, data: FederatedData,
             client_states, data.n_clients, ftel=ftel,
             extra={"sim": sim.state(), "in_flight": sorted(in_flight),
                    "version": version, "stale_absorbed": stale_absorbed,
-                   "max_stale": max_stale,
-                   "fail_count": sorted(fail_count.items())})
+                   "max_stale": max_stale, "wave_seq": wave_seq,
+                   "fail_count": sorted(fail_count.items())},
+            host=ckpt_host)
 
     start_round = 0
     if resume:
-        hit = recovery.load_latest_state(checkpoint_dir, device=ctx.device)
+        hit = recovery.load_latest_state(checkpoint_dir, device=ctx.device,
+                                         host=ckpt_host)
+        if multihost:
+            hit = _agreed_restore(pop.placement, checkpoint_dir, hit,
+                                  ctx.device)
         if hit is not None:
             state, meta, start_round = hit
             server, records = _restore_run(state, meta, algo, rng, injector,
@@ -687,10 +1059,14 @@ def _run_async(algo: Algorithm, data: FederatedData,
             max_stale = float(state["max_stale"])
             fail_count.update({int(k): int(v)
                                for k, v in state["fail_count"]})
+            wave_seq = int(state.get("wave_seq", 0))
             if pop is not None:
                 # the restored in-flight clients hold their pins as they
                 # did when the checkpoint was cut
-                pop.pin(sorted(in_flight))
+                pop.pin(owned_only(sorted(in_flight)))
+        if multihost:
+            _confirm_restore(pop.placement, hit, start_round,
+                             {"version": version, "algo": algo.name})
 
     # with checkpointing on, the last round refills too: its checkpoint is
     # then the one a longer run writes there, so a finished run can be
@@ -751,8 +1127,8 @@ def _run_async(algo: Algorithm, data: FederatedData,
         for c in completions:
             in_flight.discard(c.client)
         if pop is not None:
-            pop.unpin([c.client for c in completions])
-            ctx.telemetry["population"] = pop.stats()
+            pop.unpin(owned_only([c.client for c in completions]))
+            ctx.telemetry["population"] = _pop_telemetry(pop, mh_stats)
 
         refilled = False
         if ctx.deferred and wants_refill(t):
@@ -788,8 +1164,8 @@ def _run_async(algo: Algorithm, data: FederatedData,
     if pop is not None and in_flight:
         # clients still in flight at the end: a reused population would
         # otherwise exempt them from eviction for good
-        pop.unpin(in_flight)
-        ctx.telemetry["population"] = pop.stats()
+        pop.unpin(owned_only(in_flight))
+        ctx.telemetry["population"] = _pop_telemetry(pop, mh_stats)
     ctx.telemetry.update(
         route="async", inner_route=ctx.telemetry.get("route", inner.name),
         buffer_size=b, staleness_scheme=exec_.staleness,
@@ -806,6 +1182,13 @@ def _run_async(algo: Algorithm, data: FederatedData,
                                 data.test_y)
     return History(algo.name, records, server["global"], local_acc,
                    dict(ctx.telemetry))
+
+
+def _pop_telemetry(pop, mh_stats: dict) -> dict:
+    """The population's counters, with every host's under placement."""
+    if getattr(pop, "multihost", False):
+        return dict(pop.stats(), hosts=mh_stats["hosts"])
+    return pop.stats()
 
 
 def make_federated_data(task: PaperTask, alpha: float, seed: int = 0,

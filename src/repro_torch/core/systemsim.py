@@ -114,9 +114,9 @@ class FaultProfile:
                         "huge" scales every parameter by ``huge_scale``
                         (finite, but a norm outlier)
         host_crash_prob  a correlated fault of a whole host under multi-host
-                        placement; validated here, but multi-host is not
-                        ported (ROADMAP A13) and ``run_federated`` refuses
-                        a profile that sets it
+                        placement, drawn per round attempt or async wave
+                        (``FaultInjector.draw_host_crashes``); without a
+                        placement over several hosts it draws nothing
 
     A profile with all probabilities zero is exactly equivalent to no
     profile: the fault stream is still drawn from, but from its OWN child
@@ -184,6 +184,20 @@ class FaultInjector:
             self.counters["corrupt_injected"] += 1
             return ("corrupt", mode)
         return None
+
+    def draw_host_crashes(self, n_hosts: int) -> "tuple[int, ...]":
+        """The host ids that crash this wave or attempt: one uniform per
+        host in host order (the same on every host replaying the stream).
+        Only for ``profile.host_crash_prob > 0``: at 0 it would consume
+        draws that a zero-probability run does not, and shift its stream."""
+        p = self.profile
+        assert p.host_crash_prob > 0.0, \
+            "draw_host_crashes with host_crash_prob == 0 would shift the " \
+            "fault stream of zero-probability runs"
+        crashed = tuple(h for h in range(n_hosts)
+                        if self.rng.random() < p.host_crash_prob)
+        self.counters["host_crashes"] += len(crashed)
+        return crashed
 
 
 def corrupt_params(params: Any, mode: str, huge_scale: float = 1e6) -> Any:

@@ -5,13 +5,11 @@ the host; the executors upload each round's stacked batches to the device.
 ``sample_cohort`` consumes the numpy generator exactly as the reference
 does, so one seed samples the same cohorts in both packages.
 
-``ClientSlabStore`` is the device-resident tier of the reference's
-placement layer: zero-padded per-client slabs (``make_slab``) as tensors on
-a device, an LRU cap, pins, and the hooks the population tier couples to
-(``drop``, ``on_evict``).  No executor of the port fills it yet (the
-reference's shard_map executor does, ROADMAP A13, which also brings its
-multi-host ownership gate); the population tier attaches to it, so its
-eviction coherence and counters hold.
+``ClientSlabStore`` is the device-resident tier of the placement layer:
+zero-padded per-client slabs (``make_slab``) as tensors on a device, an LRU
+cap, pins, moves between devices, the multi-host ownership gate, and the
+hooks the population tier couples to (``drop``, ``on_evict``).  The
+shard_map executor fills it (``core.executor.ShardMapExecutor``).
 """
 from __future__ import annotations
 
@@ -105,9 +103,11 @@ class ClientSlabStore:
 
     ``get(cid, data, device)`` returns ``{"x", "y", "n", "rows",
     "device"}`` with ``x``/``y`` tensors on ``device``.  A resident client
-    on that device is a hit (no host transfer); anything else uploads the
-    slab anew.  ``max_resident`` caps the resident clients, evicting the
-    least recently used (``None``: unbounded).
+    on that device is a hit (no host transfer); a resident client asked
+    for on another device is moved device to device (``device_moves``),
+    never uploaded from the host again; ``cid=None`` caches nothing (every
+    call is a fresh upload).  ``max_resident`` caps the resident clients,
+    evicting the least recently used (``None``: unbounded).
 
     The population tier couples to the store three ways: ``drop(cid)``
     invalidates a slab when the client leaves the warm host tier (counted
@@ -115,48 +115,68 @@ class ClientSlabStore:
     evictions, and ids in ``pinned`` (shared by reference with the
     population store) are never cap-evicted: with more pinned clients than
     the cap the store exceeds it.
+
+    Under multi-host placement (``population.placement``) a host's
+    devices own only its shards: ``owns`` is that membership predicate,
+    and the store refuses to materialize a slab for a client it does not
+    own, so a placement bug raises here instead of doubling the host's
+    device memory.
     """
 
-    def __init__(self, max_resident: Optional[int] = None, on_evict=None):
+    def __init__(self, max_resident: Optional[int] = None, on_evict=None,
+                 owns=None):
         self.slabs: "collections.OrderedDict" = collections.OrderedDict()
         self.max_resident = max_resident
         self.on_evict = on_evict        # called (cid, entry) on cap eviction
+        self.owns = owns                # optional cid -> bool ownership gate
         self.pinned: set = set()        # exempt from cap eviction
         self.host_transfers = 0
+        self.device_moves = 0
         self.hits = 0
         self.evictions = 0
         self.drops = 0                  # explicit drop(cid) invalidations
         self.peak_resident = 0          # high-water of resident slabs
 
     def get(self, cid, data: ClientData, device) -> dict:
+        if self.owns is not None and cid is not None and not self.owns(cid):
+            raise ValueError(
+                f"slab store: client {cid} is not owned by this host's "
+                f"placement: the multi-host round must slice the cohort "
+                f"to owned clients before materializing")
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             # "cuda" and "cuda:0" are one card: a hit, not a new upload
             device = torch.device("cuda", torch.cuda.current_device())
-        entry = self.slabs.get(cid)
-        if (entry is not None and entry["n"] == data.n
-                and entry["device"] == device):
+        entry = self.slabs.get(cid) if cid is not None else None
+        if entry is not None and entry["n"] == data.n:
             self.slabs.move_to_end(cid)
-            self.hits += 1
+            if entry["device"] == device:
+                self.hits += 1
+                return entry
+            entry = dict(entry, device=device, x=entry["x"].to(device),
+                         y=entry["y"].to(device))
+            self.slabs[cid] = entry
+            self.device_moves += 1
             return entry
         rows = slab_rows(data.n)
         x, y = make_slab(data, rows)
         entry = {"device": device, "x": torch.from_numpy(x).to(device),
                  "y": torch.from_numpy(y).to(device), "n": data.n,
                  "rows": rows}
-        self.slabs[cid] = entry
-        self.slabs.move_to_end(cid)
-        while (self.max_resident is not None
-               and len(self.slabs) > self.max_resident):
-            victim = next((k for k in self.slabs if k not in self.pinned),
-                          None)
-            if victim is None:          # everything pinned: exceed the cap
-                break
-            evicted = self.slabs.pop(victim)
-            self.evictions += 1
-            if self.on_evict is not None:
-                self.on_evict(victim, evicted)
-        self.peak_resident = max(self.peak_resident, len(self.slabs))
+        if cid is not None:
+            self.slabs[cid] = entry
+            self.slabs.move_to_end(cid)
+            while (self.max_resident is not None
+                   and len(self.slabs) > self.max_resident):
+                victim = next((k for k in self.slabs
+                               if k not in self.pinned), None)
+                if victim is None:      # everything pinned: exceed the cap
+                    break
+                evicted = self.slabs.pop(victim)
+                self.evictions += 1
+                if self.on_evict is not None:
+                    self.on_evict(victim, evicted)
+            self.peak_resident = max(self.peak_resident, len(self.slabs))
         self.host_transfers += 1
         return entry
 
@@ -171,6 +191,7 @@ class ClientSlabStore:
 
     def stats(self) -> dict:
         return {"resident_clients": len(self.slabs),
-                "host_transfers": self.host_transfers, "hits": self.hits,
+                "host_transfers": self.host_transfers,
+                "device_moves": self.device_moves, "hits": self.hits,
                 "evictions": self.evictions, "drops": self.drops,
                 "peak_resident": self.peak_resident}

@@ -18,7 +18,7 @@ Usage:
 each round reports ``sim_seconds``, the virtual time the round's barrier
 waits for its slowest client; it adds no device work.
 
-Not ported yet: ``--sharded`` (ROADMAP A13), full configs in bf16 (A15).  ``--fl-task`` is the path of
+Not ported yet: ``--sharded`` (ROADMAP A13b), full configs in bf16 (A15).  ``--fl-task`` is the path of
 ``repro_torch.core.fl_loop.run_federated`` (A8, A9), not wired to this CLI.
 """
 from __future__ import annotations
@@ -172,7 +172,8 @@ def main(argv=None) -> int:
     ap.add_argument("--buffer-m", type=int, default=3)
     ap.add_argument("--lr", type=float, default=0.1)
     ap.add_argument("--sharded", action="store_true",
-                    help="clients in parallel on a mesh (not ported)")
+                    help="clients in parallel, one per device (not ported: "
+                         "ROADMAP A13b)")
     ap.add_argument("--straggler-frac", type=float, default=0.0,
                     help="simulate a straggler tail: this fraction of "
                          "clients runs --straggler-slowdown x slower and "
@@ -189,7 +190,9 @@ def main(argv=None) -> int:
             "--fl-task: the paper tasks run through repro_torch.core.fl_loop."
             "run_federated (ROADMAP A8, A9); this CLI does not wire it")
     if args.sharded:
-        raise NotImplementedError("--sharded is not ported yet (ROADMAP A13)")
+        raise NotImplementedError(
+            "--sharded (make_parallel_round / run_sharded: one LM client per "
+            "device) is not ported yet (ROADMAP A13b)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.param_dtype != "float32" or cfg.activation_dtype != "float32":
         raise NotImplementedError(

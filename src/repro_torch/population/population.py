@@ -48,8 +48,13 @@ class Population:
       state_warm_cap: the same cap for mutable per-client algorithm states
         (default ``warm_cap``); evicted states spill to ``state_dir`` (a
         temporary directory when unset) and reload when sampled again.
-      placement: a ``HostPlacement``; only ``n_hosts == 1`` runs here, more
-        hosts are ROADMAP A13.
+      placement: multi-host ownership (``population.placement``).
+        ``warm_cap`` and ``state_warm_cap`` are global figures: with
+        ``n_hosts`` hosts each process keeps ``cap // n_hosts``.  The
+        sampler still draws over the whole population on every host (the
+        same streams); a host materializes only the clients of the shards
+        it owns.  ``n_hosts == 1`` (and ``None``) leave every path as it
+        was.
     """
 
     def __init__(self, source: ClientSource, test_x, test_y, *,
@@ -57,11 +62,11 @@ class Population:
                  state_warm_cap: Optional[int] = None,
                  state_dir: Optional[str] = None,
                  placement: Optional[HostPlacement] = None):
-        if placement is not None and placement.n_hosts > 1:
-            raise NotImplementedError(
-                "Population(placement=) with n_hosts > 1: multi-host "
-                "placement is not ported yet (ROADMAP A13)")
         self.placement = placement
+        if placement is not None:
+            warm_cap = placement.split_cap(warm_cap)
+            if state_warm_cap is not None:
+                state_warm_cap = placement.split_cap(state_warm_cap)
         self.store = PopulationStore(source, warm_cap=warm_cap)
         self.sampler = HierarchicalSampler(source.shard_sizes)
         self.clients = _ClientsView(self.store)
@@ -84,9 +89,34 @@ class Population:
     def client_n(self, cid: int) -> int:
         return self.store.client_n(cid)
 
+    def max_client_n(self) -> int:
+        """The largest client's example count, from the source's own bound
+        where it has one (no client is materialized)."""
+        fn = getattr(self.store.source, "max_client_n", None)
+        if fn is not None:
+            return int(fn())
+        return int(max(self.store.source.client_n(c)
+                       for c in range(self.n_clients)))
+
     def sample_cohort(self, rng: np.random.Generator, k: int,
                       exclude: Optional[Iterable[int]] = None) -> np.ndarray:
         return self.sampler.sample(rng, k, exclude)
+
+    # -- multi-host placement -----------------------------------------------
+    @property
+    def multihost(self) -> bool:
+        return self.placement is not None and self.placement.n_hosts > 1
+
+    def owned(self, cid: int) -> bool:
+        """Does this host's warm and hot tier own client ``cid``?"""
+        if self.placement is None:
+            return True
+        return self.placement.owns_shard(self.sampler.shard_of(int(cid)))
+
+    def probe_client(self):
+        """Client 0 straight from the cold source: a host that does not own
+        it must not pull it into its warm tier to probe shapes."""
+        return self.store.source.client(0)
 
     # -- the loop's wiring --------------------------------------------------
     def make_client_states(self, algo: Algorithm,

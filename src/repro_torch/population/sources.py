@@ -95,6 +95,9 @@ class InMemorySource:
         _check_cid(cid, self.n_clients)
         return self.clients[cid].n
 
+    def max_client_n(self) -> int:
+        return int(max(c.n for c in self.clients))
+
 
 class SyntheticClientSource:
     """Million-client populations from a seed: client ``cid`` comes from
@@ -137,6 +140,11 @@ class SyntheticClientSource:
         # without generating the feature arrays
         _check_cid(cid, self.n_clients)
         return int(self._rng(cid).integers(self.min_n, self.max_n + 1))
+
+    def max_client_n(self) -> int:
+        # sizes are uniform over [min_n, max_n]: the bound is exact without
+        # drawing a single client stream
+        return self.max_n
 
     def client(self, cid: int) -> ClientData:
         _check_cid(cid, self.n_clients)
@@ -248,6 +256,7 @@ class DiskShardSource:
         self.max_open = max_open
         self._open: "collections.OrderedDict[int, tuple]" = \
             collections.OrderedDict()
+        self.shard_opens = 0        # cold-tier file opens (telemetry)
 
     def _shard(self, s: int) -> tuple:
         handle = self._open.get(s)
@@ -257,6 +266,7 @@ class DiskShardSource:
         px, py, poff = _shard_paths(self.root, s)
         handle = (np.load(px, mmap_mode="r"), np.load(py, mmap_mode="r"),
                   np.load(poff))
+        self.shard_opens += 1
         self._open[s] = handle
         while len(self._open) > self.max_open:
             self._open.popitem(last=False)
@@ -271,6 +281,16 @@ class DiskShardSource:
         s, i = self._locate(cid)
         off = self._shard(s)[2]
         return int(off[i + 1] - off[i])
+
+    def max_client_n(self) -> int:
+        """The largest client from the shards' offset tables alone (the x
+        and y maps stay cold); through ``_shard``, so the handle LRU holds
+        and ``shard_opens`` counts these opens."""
+        best = 0
+        for s in range(len(self.shard_sizes)):
+            off = self._shard(s)[2]
+            best = max(best, int(np.max(np.diff(off))))
+        return best
 
     def client(self, cid: int) -> ClientData:
         s, i = self._locate(cid)

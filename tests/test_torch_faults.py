@@ -361,8 +361,24 @@ def test_corrupt_teacher_never_reaches_buffer():
 
 
 def test_host_faults_and_population_raise_naming_the_roadmap():
+    """Host faults need hosts: without a placement over several hosts
+    ``host_crash_prob`` draws nothing, so the run is the run without it,
+    as in the reference (host faults under placement:
+    ``test_torch_multihost.py``).  What still raises is placement with
+    DP, which the reference refuses too."""
+    from repro_torch.core.privacy import DPConfig
+    from repro_torch.population import HostPlacement, Population
+
     _, _, task, data = ragged_data()
-    with pytest.raises(NotImplementedError, match="A13"):
-        fl_loop.run_federated(task, algorithms.make("fedavg"), data,
-                              device="cpu",
-                              faults=FaultProfile(host_crash_prob=0.1))
+    runs = [run_own(algorithms.make("fedavg"), seed=2, rounds=2,
+                    executor="vmap", faults=FaultProfile(
+                        crash_prob=0.2, corrupt_prob=0.2, host_crash_prob=p))
+            for p in (0.0, 0.5)]
+    assert runs[1].telemetry["faults"] == runs[0].telemetry["faults"]
+    assert runs[1].telemetry["faults"]["host_crashes"] == 0
+    assert_histories_identical(runs[0], runs[1])
+    with pytest.raises(NotImplementedError, match="dp"):
+        fl_loop.run_federated(
+            task, algorithms.make("fedavg"), device="cpu", dp=DPConfig(),
+            population=Population.from_federated(
+                data, placement=HostPlacement(0, 2, exchange_dir="unused")))

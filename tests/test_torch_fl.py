@@ -197,21 +197,34 @@ def test_model_buffer_contract():
         buf.push({"w": torch.tensor([0.0, float("nan"), 1.0])})
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(placement=HostPlacement(0, 2, exchange_dir="unused")), "A13"),
-    (dict(population=True, executor="async",
-          faults=FaultProfile(host_crash_prob=0.1)), "A13"),
-    (dict(population=True, executor="shard_map"), "A13"),
-    (dict(executor="shard_map"), "A13")])
-def test_unported_options_raise(setup, kwargs, item):
-    """What is left unported raises, naming its ROADMAP item: placement
-    over several hosts, host faults and the shard_map executor, with
-    ``data=`` or with ``population=`` (the single-host population tier is
-    ported)."""
+def _placed():
+    return HostPlacement(0, 2, exchange_dir="unused")
+
+
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(placement=_placed(), dp=True), NotImplementedError, "dp"),
+    (dict(placement=_placed(), executor="async", dp=True,
+          faults=FaultProfile(host_crash_prob=0.1)), NotImplementedError,
+     "dp"),
+    (dict(population=True, strict_shard_map=True), RuntimeError,
+     "one device"),
+    (dict(strict_shard_map=True), RuntimeError, "one device")])
+def test_unported_options_raise(setup, kwargs, error, match):
+    """What the reference refuses, the port refuses: placement over
+    several hosts with DP (sync, and async under host faults), and the
+    strict shard_map executor with one device to split the cohort over,
+    with ``data=`` or with ``population=``."""
+    from repro_torch.core.executor import ShardMapExecutor
+    from repro_torch.core.privacy import DPConfig
+
     _, _, task, data, _ = setup
     kwargs = dict(kwargs)
     placement = kwargs.pop("placement", None)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+    if kwargs.pop("dp", False):
+        kwargs["dp"] = DPConfig()
+    if kwargs.pop("strict_shard_map", False):
+        kwargs["executor"] = ShardMapExecutor(strict=True)
+    with pytest.raises(error, match=match):
         if placement is not None or kwargs.pop("population", False):
             kwargs["population"] = Population.from_federated(
                 data, placement=placement)

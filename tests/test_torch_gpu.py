@@ -583,3 +583,109 @@ def test_disk_population_equals_data_run_on_card(cuda, tmp_path):
         strict=True))
     assert diff <= 1e-6
     assert h1.telemetry["population"]["pinned"] == 0
+
+
+def _resnet_fixture(n_clients=8, participation=0.5):
+    """A small ResNet-8 cut (32x32, 2 batches of 64 a client) of the
+    ResNet-8 path's setup: K = 4 of 8."""
+    import dataclasses
+
+    task = dataclasses.replace(scaled(CIFAR10, 0.02, rounds=2, local_epochs=1),
+                               n_clients=n_clients,
+                               participation=participation)
+    data = fl_loop.make_federated_data(task, alpha=0.5, seed=0, n_test=64)
+    return task, data, dict(seed=0, max_batches_per_client=2)
+
+
+def _max_diff(a, b):
+    from repro_torch.tree import tree_leaves
+
+    return max(float((x - y).abs().max()) for x, y in zip(
+        tree_leaves(a), tree_leaves(b), strict=True))
+
+
+@pytest.mark.parametrize("participation", [0.5, 0.375])
+def test_shard_map_two_slices_on_card_equal_vmap(cuda, participation):
+    """``ShardMapExecutor(strict=True)`` with two slices on one card, K=4
+    and K=3 (one phantom client): FedGKD within 1e-5 of the vmap
+    executor's run, B1-B3 launched, the slabs resident on the card."""
+    from repro_torch.core.executor import ShardMapExecutor
+
+    task, data, kw = _resnet_fixture(participation=participation)
+    hv = fl_loop.run_federated(task, algorithms.make("fedgkd"), data,
+                               executor="vmap", **kw)
+    reset_launches()
+    hs = fl_loop.run_federated(
+        task, algorithms.make("fedgkd"), data,
+        executor=ShardMapExecutor(strict=True, devices=["cuda:0"] * 2), **kw)
+    for name in ("kd_kl_fwd", "kd_kl_bwd", "grouped_conv_fwd"):
+        assert LAUNCHES[name] > 0, LAUNCHES
+    tele = hs.telemetry
+    assert tele["route"] == "shard_map" and tele["n_devices"] == 2
+    assert tele["padded_to"] == 4 and tele["round_body"] == "client_batched"
+    assert tele["placement"]["host_transfers"] > 0
+    assert [r.sampled for r in hs.records] == [r.sampled for r in hv.records]
+    assert _max_diff(hs.final_params, hv.final_params) < TOL
+
+
+_PLACED_WORKER = """\
+import json, sys
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+host, exch, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+sys.path.insert(0, sys.argv[4])
+from test_torch_gpu import _resnet_fixture
+from repro_torch.core import algorithms, fl_loop
+from repro_torch.kernels import LAUNCHES
+from repro_torch.population import HostPlacement, Population
+from repro_torch.tree import tree_leaves
+task, data, kw = _resnet_fixture()
+pop = Population.from_federated(data, n_shards=4, placement=HostPlacement(
+    host, 2, exchange_dir=exch, timeout_s=300))
+h = fl_loop.run_federated(task, algorithms.make("fedgkd"), population=pop,
+                          **kw)
+np.savez(out, acc=np.float64(h.final_acc), launches=np.asarray(
+    [LAUNCHES[k] for k in ("kd_kl_fwd", "kd_kl_bwd", "grouped_conv_fwd")]),
+    **{f"p{i:03d}": t.cpu().numpy()
+       for i, t in enumerate(tree_leaves(h.final_params))})
+"""
+
+
+def test_two_process_placement_on_card_equals_one_host(cuda, tmp_path):
+    """Two processes on the card, each owning 2 of 4 shards of the
+    population: they agree bitwise, each launched B1-B3, and they equal
+    the one-host run of the same population within 1e-5."""
+    import os
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from repro_torch.population import Population
+    from repro_torch.tree import tree_leaves
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(tests, "..", "src"))
+    worker = tmp_path / "worker.py"
+    worker.write_text(_PLACED_WORKER)
+    procs = [subprocess.Popen(
+        [sys.executable, str(worker), str(h), str(tmp_path / "exchange"),
+         str(tmp_path / f"host{h}.npz"), tests], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for h in range(2)]
+    for h, p in enumerate(procs):
+        out, _ = p.communicate(timeout=600)
+        assert p.returncode == 0, f"host {h}:\n{out[-4000:]}"
+    hosts = [dict(np.load(tmp_path / f"host{h}.npz")) for h in range(2)]
+    for k in hosts[0]:
+        np.testing.assert_array_equal(hosts[0][k], hosts[1][k], err_msg=k)
+    assert all(n > 0 for n in hosts[0]["launches"])
+    task, data, kw = _resnet_fixture()
+    one = fl_loop.run_federated(task, algorithms.make("fedgkd"),
+                                population=Population.from_federated(
+                                    data, n_shards=4), **kw)
+    diff = max(float(np.abs(t.cpu().numpy() - hosts[0][f"p{i:03d}"]).max())
+               for i, t in enumerate(tree_leaves(one.final_params)))
+    assert diff < TOL

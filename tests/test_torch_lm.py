@@ -337,7 +337,7 @@ def test_cli_defaults_to_the_card_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--arch", ARCH, "--smoke", "--rounds", "1"])
-    for flags, item in [(["--sharded"], "A13"),
+    for flags, item in [(["--sharded"], "A13b"),
                         (["--fl-task", "cifar10"], "A8")]:
         with pytest.raises(NotImplementedError, match=item):
             train.main(["--arch", ARCH, "--smoke", *flags])

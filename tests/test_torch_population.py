@@ -251,10 +251,8 @@ def slab_pair(**kw):
 
 
 def slab_stats(store) -> dict:
-    """The counters both slab stores keep (the reference's also counts
-    ``device_moves``, a move between devices the port's store makes as a
-    fresh upload)."""
-    return {k: v for k, v in store.stats().items() if k != "device_moves"}
+    """The counters both slab stores keep, ``device_moves`` among them."""
+    return store.stats()
 
 
 def test_population_store_counters_and_pins_match_the_reference():
@@ -474,9 +472,20 @@ def test_placement_and_peak_rss():
             HostPlacement(**bad)
         with pytest.raises(ValueError):
             jax_pop.HostPlacement(**bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        Population.from_federated(ragged_data()[3], placement=HostPlacement(
-            0, 2, exchange_dir="d"))
+    # several hosts: each keeps its share of the warm cap, as the
+    # reference's does
+    placed = [(Population.from_federated(ragged_data()[3], n_shards=3,
+                                         warm_cap=9, placement=HostPlacement(
+                                             h, 2, exchange_dir="d")),
+               jax_pop.Population.from_federated(
+                   ragged_data()[1], n_shards=3, warm_cap=9,
+                   placement=jax_pop.HostPlacement(h, 2, exchange_dir="d")))
+              for h in range(2)]
+    for port, ref in placed:
+        assert port.store.warm_cap == ref.store.warm_cap == 4
+        assert port.multihost and ref.multihost
+        assert [port.owned(c) for c in range(port.n_clients)] == [
+            ref.owned(c) for c in range(ref.n_clients)]
     data = ragged_data()[3]
     pop = Population.from_federated(data, placement=HostPlacement(0, 1))
     assert pop.stats()["n_hosts"] == 1

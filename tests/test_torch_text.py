@@ -212,6 +212,7 @@ def test_auto_executor_choice():
     no_vmap.supports_vmap = False
     assert isinstance(pick("auto", no_vmap, 4, resnet),
                       executor.SequentialExecutor)
-    assert executor.available() == ["async", "sequential", "vmap", "auto"]
+    assert executor.available() == ["async", "sequential", "shard_map",
+                                    "vmap", "auto"]
     assert isinstance(pick("async", fedgkd, 4, resnet),
                       executor.AsyncExecutor)
