@@ -136,6 +136,25 @@ and nothing of JAX or of the JAX package, and
         hosts and 1, each host's publish and gather ms and round-2 idle
         share; B1-B3 launched in every host and held to their plain
         versions at the shapes the hosts and slices gave them;
+     j. the LM serve path (``run_serve``), every model at its published
+        width in fp32: phi4-mini-3.8b (depth 32 -> 2) through one FedGKD
+        round of ``run_serial`` (2 clients x 1 batch of 2 x 1,024 tokens,
+        M = 3; B4, B6, B1/B2 at V = 200,064; its peak device memory under
+        70 GiB), a prefill of the last position (4 x 1,024), then from a
+        fresh init ``ServeLoop`` (8 requests in waves of 4, prompts of
+        4-12 tokens, 16 generated; tokens/s) and the sliding-window ring
+        buffer (window cut to 64, 160 tokens) against the windowed
+        forward; mamba2-2.7b (4 layers) and zamba2-1.2b (depth 38 -> 6,
+        one shared-block application; a prefill, B5 and B4) through
+        ``ServeLoop``; minitron-4b, granite-34b and internlm2-20b at depth
+        1; each architecture's greedy decode against its teacher-forced
+        forward within the reference's bar (2e-3 + 2e-3 |forward|), and
+        each ``ServeLoop``'s tokens against the CPU's (phi4-mini's at 1
+        layer), a difference passing only where the CPU's top-2 logit gap
+        is below the card-vs-CPU logit difference; then B4 and B5 held to
+        their plain versions at every shape the phase gave them, B5 from
+        an entering state, and B6, B1 and B2 at (2,048, 200,064), each
+        timed against its bound and a PyTorch call;
   5. profiles one steady-state round of each path (``torch.profiler``;
      FedGKD, MOON and FedGen for the baselines, an async aggregation
      pipelined and not, and a population round of the TOY and the
@@ -313,6 +332,38 @@ PORT_RANGES = ["ssd_scan_backward", "grouped_conv_dw", "grouped_conv_dx"]
 # own: GQA with a window, non-causal ragged at D = 128, one token
 FLASH_COVERAGE = [(4, 128, 8, 2, 64, True, 32), (8, 100, 4, 4, 128, False, None),
                   (64, 1, 4, 4, 32, True, None)]
+
+# the serve phase (``run_serve``): phi4-mini-3.8b at its published width,
+# depth 32 -> 2, one FedGKD round of run_serial (2 clients x 1 batch of 2
+# sequences of 1,024 positions, M = 3; its peak device memory under 70 GiB),
+# a prefill of the last position at 4 x 1,024, ServeLoop (8 requests in
+# waves of 4, prompts of 4-12 tokens, 16 generated), the ring buffer with
+# the window cut to 64 over 160 tokens; mamba2-2.7b at lm_config(4) and
+# zamba2-1.2b at depth 38 -> 6 (one shared-block application) through
+# ServeLoop (zamba2 also a prefill); minitron-4b, granite-34b and
+# internlm2-20b at depth 1: greedy decode of 8 tokens after an 8-token
+# prompt against the teacher-forced forward, within the reference's bar
+SERVE_PHI_LAYERS, SERVE_ZAMBA_LAYERS = 2, 6
+SERVE_FL = dict(n_clients=2, batches_per_round=1, batch=2, seq=1025,
+                gamma=0.2, buffer_m=3, lr=0.1, seed=0)
+SERVE_PEAK_GIB = 70.0
+SERVE_PREFILL = (4, 1024)
+SERVE_REQ = dict(requests=8, batch=4, prompt_len=12, gen=16)
+SERVE_CHECK_BATCH, SERVE_DECODE_PROMPT, SERVE_DECODE_STEPS = 2, 8, 8
+SERVE_WINDOW, SERVE_RING_TOKENS = 64, 160
+# decode against forward: the reference's bar, |decode - forward| <= 2e-3 +
+# 2e-3 |forward| (tests/test_arch_smoke.py:79, assert_allclose); at full
+# width a tied head's logits reach ~3,000 (the input token's own embedding
+# against itself, |e|^2 ~ d_model), where fp32 alone differs by ~1e-6 x that
+DECODE_TOL = 2e-3
+# B5 from an entering state at zamba2's width, and its timed prefill shape
+# ((B, L, H, P), (B, L, G, N), chunk); B6 and B1/B2 at phi4-mini's vocabulary
+# and a step's rows
+SERVE_SSD_INIT = ((2, 300, 64, 64), (2, 300, 1, 64), 256)
+SERVE_SSD_TIMED = ((4, 1024, 64, 64), (4, 1024, 1, 64), 256)
+SERVE_KD_ROWS, SERVE_VOCAB = 2 * 1024, 200_064
+SERVE_KERNELS = ["flash_attention_fwd", "ssd_scan_fwd", "row_logsumexp",
+                 "kd_kl_fwd", "kd_kl_bwd"]
 
 
 def log(msg: str) -> None:
@@ -865,6 +916,39 @@ def _range_kernels(event) -> dict:
     return out
 
 
+def device_busy(prof, what: str, wall_ms: float, top: int = 12):
+    """The device's busy time in a profiled window of ``wall_ms`` (the union
+    of its kernels' and copies' intervals, not the named ranges the
+    profiler also draws on the device's timeline), logged with the idle
+    share and the device time by kernel name (the ``top`` first, and every
+    hand-written kernel of the port); ``None``, logged as not measured,
+    where the profiler saw no device activity."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    if not spans:
+        log(f"profile ({what}): wall {wall_ms:.3f} ms; device busy time not "
+            f"measured (the profiler saw no device activity)")
+        return None
+    busy_us, end, by_name = 0.0, -math.inf, {}
+    for lo, hi, name in spans:
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + hi - lo, n + 1)
+    log(f"profile ({what}): wall {wall_ms:.3f} ms, device busy "
+        f"{busy_us / 1e3:.3f} ms, idle share "
+        f"{1 - busy_us / 1e3 / wall_ms:.4f}, {len(spans)} device ops")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for rank, (name, (t, n)) in enumerate(ranked):
+        if rank < top or any(k in name for k in PORT_KERNELS):
+            log(f"  {t / 1e3:8.3f} ms {n:5d}x  {name[:90]}")
+    return busy_us
+
+
 def profile_round(dev, label, run, algo: str = "FedGKD") -> dict:
     """Where a steady-state round of ``algo`` goes: round 2 of a 2-round
     run under ``torch.profiler``, its host wall time, the device's busy
@@ -894,31 +978,9 @@ def profile_round(dev, label, run, algo: str = "FedGKD") -> dict:
             prof.stop()
 
     run(window)
-    # device activity: kernels and copies, not the named ranges that the
-    # profiler also draws on the device's timeline
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
-    if not spans:
-        log(f"profile ({label}, {algo} round 2): wall {wall['ms']:.3f} ms; "
-            f"device busy time not measured (the profiler saw no device "
-            f"activity)")
+    busy_us = device_busy(prof, f"{label}, {algo} round 2", wall["ms"])
+    if busy_us is None:
         return {}
-    busy_us, end, by_name = 0.0, -math.inf, {}
-    for lo, hi, name in spans:
-        busy_us += max(0.0, hi - max(lo, end))
-        end = max(end, hi)
-        t, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (t + hi - lo, n + 1)
-    log(f"profile ({label}, {algo} round 2): wall {wall['ms']:.3f} ms, device "
-        f"busy {busy_us / 1e3:.3f} ms, idle share "
-        f"{1 - busy_us / 1e3 / wall['ms']:.4f}, {len(spans)} device ops")
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    for rank, (name, (t, n)) in enumerate(ranked):
-        # the top 12, and below them every hand-written kernel of the port
-        if rank < 12 or any(k in name for k in PORT_KERNELS):
-            log(f"  {t / 1e3:8.3f} ms {n:5d}x  {name[:90]}")
     # the device time of the kernels launched inside the port's named ranges
     ranges = [e for e in prof.events() if e.name in PORT_RANGES
               and e.device_type == torch.autograd.DeviceType.CPU]
@@ -1369,20 +1431,28 @@ def assert_same_history(label, a, b) -> float:
 
 @contextlib.contextmanager
 def record_shapes():
-    """Record the shapes that B1, B2 and B3's wrappers are called with on
-    the card while the block runs: yields {wrapper name: set of (argument
-    shapes, constants)}; the wrappers are put back on exit."""
+    """Record the shapes that the wrappers of B1-B3, B4 and B5 are called
+    with on the card while the block runs: yields {wrapper name: set of
+    (argument shapes, constants)}; the wrappers are put back on exit."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.grouped_conv import ops as conv_ops
     from repro_torch.kernels.kd_kl import ops as kd_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    seen = {"grouped_conv_fwd": set(), "kd_kl_fwd": set(), "kd_kl_bwd": set()}
     keys = {"grouped_conv_fwd": lambda x, w, stride, padding: (
                 tuple(x.shape), tuple(w.shape), stride, padding),
             "kd_kl_fwd": lambda lt, ls, temp: (tuple(lt.shape), temp),
             "kd_kl_bwd": lambda lt, ls, lse_t, lse_s, g, temp: (
-                tuple(lt.shape), temp)}
+                tuple(lt.shape), temp),
+            "flash_attention_fwd": lambda q, k, v, causal=True, window=None: (
+                tuple(q.shape), tuple(k.shape), causal, window),
+            "ssd_scan_fwd": lambda x, dt, A, B, C, chunk, init_state=None: (
+                tuple(x.shape), tuple(B.shape), chunk,
+                init_state is not None)}
+    seen = {name: set() for name in keys}
     wrapped = [(conv_ops, "grouped_conv_fwd"), (kd_ops, "kd_kl_fwd"),
-               (kd_ops, "kd_kl_bwd")]
+               (kd_ops, "kd_kl_bwd"), (fa_ops, "flash_attention_fwd"),
+               (ssd_ops, "ssd_scan_fwd")]
     originals = [getattr(mod, name) for mod, name in wrapped]
 
     def recorder(name, fn):
@@ -1414,7 +1484,7 @@ def check_path_shapes(dev, seen: dict, phase: str) -> dict:
     from repro_torch.kernels.kd_kl import ref as kd_ref
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    err = dict.fromkeys(seen, 0.0)
+    err = dict.fromkeys(("grouped_conv_fwd", "kd_kl_fwd", "kd_kl_bwd"), 0.0)
     for xs, ws, stride, padding in sorted(seen["grouped_conv_fwd"]):
         x = torch.randn(xs, device=dev, generator=gen)
         w = torch.randn(ws, device=dev, generator=gen) / math.sqrt(
@@ -2631,6 +2701,483 @@ def run_lm_path(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the serve phase: the LM serve path on the dense, SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+def serve_config(arch: str, n_layers: int, **kw):
+    """``arch`` at its published width, depth cut to ``n_layers``, in fp32
+    (the port's kernels are fp32; bf16 is ROADMAP A15.3)."""
+    from repro_torch.configs import get_config
+
+    return get_config(arch).replace(n_layers=n_layers, param_dtype="float32",
+                                    activation_dtype="float32", **kw)
+
+
+def serve_cuts(cfg) -> str:
+    """The cuts of a serve-phase config against the published one."""
+    from repro_torch.configs import get_config
+
+    full = get_config(cfg.name)
+    return (f"depth {full.n_layers} -> {cfg.n_layers}, {full.param_dtype} "
+            f"-> fp32")
+
+
+def card_init(cfg, dev, seed: int = 0, init=None):
+    """The port's initialiser (``init``, by default ``transformer.init``)
+    with its weights drawn on the card from a CUDA generator (a CPU draw of
+    phi4-mini's 0.8B weights takes minutes); the norms, made on the CPU,
+    are moved over."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tree_map(lambda t: t.to(dev), (init or transformer.init)(gen, cfg))
+
+
+def greedy_decode(cfg, params, prompt, steps: int, dev):
+    """Decode ``prompt`` (B, S) one position at a time through the cache,
+    then ``steps`` greedy tokens: (each fed position's logits (B, S +
+    steps, V), the tokens fed (B, S + steps))."""
+    import torch
+
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer
+
+    step = make_serve_step(cfg)
+    b, s = prompt.shape
+    cache = transformer.init_cache(cfg, b, s + steps, device=dev)
+    fed, outs, tok = [], [], None
+    for i in range(s + steps):
+        tok = prompt[:, i:i + 1] if i < s else tok
+        fed.append(tok)
+        logits, cache = step(params, cache, tok)
+        outs.append(logits[:, 0])
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+    return torch.stack(outs, dim=1), torch.cat(fed, dim=1)
+
+
+def decode_vs_forward(label, cfg, params, dev, prompt_len: int,
+                      steps: int) -> float:
+    """Greedy decode logits against the teacher-forced forward over the
+    same tokens on the card; gates at the reference's bar (``DECODE_TOL``
+    absolute and relative, tests/test_arch_smoke.py:79)."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_CHECK_BATCH, prompt_len),
+                           device=dev, generator=gen)
+    dec, toks = greedy_decode(cfg, params, prompt, steps, dev)
+    with torch.no_grad():
+        full, _ = transformer.forward(params, cfg, toks)
+    return against_forward(f"{label}: greedy decode over {toks.shape[1]} "
+                           f"positions", dec, full)
+
+
+def against_forward(what: str, dec, full) -> float:
+    """Decode logits against the forward's at the reference's bar, |dec -
+    full| <= DECODE_TOL (1 + |full|); logs and returns the max abs diff."""
+    err = float((dec - full).abs().max())
+    ratio = float(((dec - full).abs() / (DECODE_TOL * (1 + full.abs())))
+                  .max())
+    log(f"  {what} against the teacher-forced forward: max abs {err:.3e} "
+        f"(max |logit| {float(full.abs().max()):.3e}), {ratio:.3e} of the "
+        f"bar {DECODE_TOL} + {DECODE_TOL} |forward|")
+    if not ratio <= 1.0:
+        raise AssertionError(f"{what}: {err:.3e} from the forward, "
+                             f"{ratio:.3e} of the reference's bar")
+    return err
+
+
+def serve_on(cfg, params, prompts, dev) -> dict:
+    from repro_torch.launch.serve import ServeLoop
+
+    loop = ServeLoop(cfg, params, SERVE_REQ["batch"],
+                     SERVE_REQ["prompt_len"] + SERVE_REQ["gen"] + 1)
+    return loop.run(prompts, SERVE_REQ["gen"])
+
+
+def serve_tokens_vs_cpu(label, cfg, params, prompts, card_out, dev) -> None:
+    """``ServeLoop`` on the CPU from the card's params: its tokens must equal
+    the card's.  Where they differ, the first differing (request, step) of
+    the wave is replayed on both devices with the CPU's tokens fed, and the
+    divergence passes only if the CPU's top-2 logit gap there is below the
+    card-vs-CPU logit difference (a near-tie that fp32 rounding may flip)."""
+    import torch
+
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    cpu = serve_on(cfg, cpu_params, prompts, torch.device("cpu"))
+    if cpu["decode_steps"] != card_out["decode_steps"]:
+        raise AssertionError(f"{label}: decode steps card "
+                             f"{card_out['decode_steps']} CPU "
+                             f"{cpu['decode_steps']}")
+    diff = [(rid, next(i for i, (a, b) in enumerate(zip(
+        card_out["outputs"][rid], cpu["outputs"][rid])) if a != b))
+        for rid in sorted(cpu["outputs"])
+        if cpu["outputs"][rid] != card_out["outputs"][rid]]
+    if not diff:
+        log(f"  {label}: ServeLoop tokens on the card equal the CPU's "
+            f"({len(prompts)} requests x {SERVE_REQ['gen']} tokens; CPU "
+            f"{cpu['seconds']:.2f} s)")
+        return
+    rid, step = diff[0]
+    wave = rid // SERVE_REQ["batch"]
+    reqs = list(range(wave * SERVE_REQ["batch"],
+                      min(len(prompts), (wave + 1) * SERVE_REQ["batch"])))
+    plen = max(len(prompts[r]) for r in reqs)
+    toks = torch.zeros((SERVE_REQ["batch"], plen + SERVE_REQ["gen"]),
+                       dtype=torch.int64)
+    for i, r in enumerate(reqs):
+        toks[i, plen - len(prompts[r]):plen] = torch.from_numpy(
+            prompts[r].astype("int64"))
+        toks[i, plen:] = torch.tensor(cpu["outputs"][r])
+    logits = {}
+    serve_step = make_serve_step(cfg)
+    for where, d, p in (("cpu", torch.device("cpu"), cpu_params),
+                        ("card", dev, params)):
+        cache = transformer.init_cache(cfg, SERVE_REQ["batch"],
+                                       SERVE_REQ["prompt_len"]
+                                       + SERVE_REQ["gen"] + 1, device=d)
+        t = toks.to(d)
+        for i in range(plen + step):
+            out, cache = serve_step(p, cache, t[:, i:i + 1])
+        logits[where] = out[:, 0].cpu()
+    row = reqs.index(rid)
+    top2 = torch.topk(logits["cpu"][row], 2).values
+    gap = float(top2[0] - top2[1])
+    ldiff = float((logits["card"][row] - logits["cpu"][row]).abs().max())
+    log(f"  {label}: ServeLoop tokens differ from the CPU's in "
+        f"{len(diff)} requests, first request {rid} at step {step}: the "
+        f"CPU's top-2 logit gap there {gap:.3e}, card-vs-CPU logit diff "
+        f"{ldiff:.3e}")
+    if not gap < ldiff:
+        raise AssertionError(f"{label}: ServeLoop tokens differ from the "
+                             f"CPU's where no near-tie explains it")
+
+
+def check_serve_kernels(dev, seen: dict) -> tuple[dict, list]:
+    """B4 and B5 against their plain versions at every shape the serve
+    phase gave them, and B5 from an entering state; B4 timed against its
+    plain version, ``scaled_dot_product_attention`` and its bound at each
+    new head layout, B5 at the hybrid's shape; then B6 and B1/B2 at
+    phi4-mini's vocabulary.  Returns (max abs error by kernel, table rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.kd_kl import ops as kd_ops
+    from repro_torch.kernels.kd_kl import ref as kd_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    err, rows = {}, []
+    for qs, ks, causal, window in sorted(seen["flash_attention_fwd"],
+                                         key=str):
+        q = torch.randn(qs, device=dev, generator=gen)
+        k = torch.randn(ks, device=dev, generator=gen)
+        v = torch.randn(ks, device=dev, generator=gen)
+        want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
+        e = compare(f"flash_attention_fwd q{qs} k{ks} window {window}",
+                    fa_ops.flash_attention_fwd(q, k, v, causal, window), want)
+        err["flash_attention_fwd"] = max(err.get("flash_attention_fwd", 0.0),
+                                         e)
+        b, s, hq, d = qs
+        hkv = ks[2]
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = fa_ref.causal_mask(s, s, window=window, device=dev)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=hkv != hq)
+
+        lib_err = float((library().transpose(1, 2) - want).abs().max())
+        t = dict(ms=time_ms(lambda: fa_ops.flash_attention_fwd(
+                     q, k, v, causal, window), reps=5, replays=4),
+                 plain_ms=time_ms(lambda: fa_ref.attention_ref(
+                     q, k, v, causal=causal, window=window), reps=2,
+                     replays=2),
+                 library_ms=time_ms(library, reps=5, replays=4))
+        pairs = int(mask.sum())
+        t.update(tf32x3_bound_ms(4 * (2 * b * s * hq * d + 2 * b * s * hkv * d),
+                                 4 * d * pairs * b * hq))
+        log(f"  flash {qs} kv {ks} window {window}: err {e:.2e} kernel "
+            f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms sdpa "
+            f"{t['library_ms']:.4f} ms (err {lib_err:.2e}) bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}; fp32 "
+            f"{t['fp32_bound_ms']:.4f})")
+        rows.append(dict(name="flash_attention_fwd", shape=(qs, ks, window),
+                         **t))
+    for xs, bs, chunk, from_state in sorted(seen["ssd_scan_fwd"], key=str) + [
+            (SERVE_SSD_INIT[0], SERVE_SSD_INIT[1], SERVE_SSD_INIT[2], True)]:
+        b, l, h, p = xs
+        g, n = bs[2], bs[3]
+        args = ssd_inputs(dev, gen, b, l, h, p, g, n)
+        init = (torch.randn(b, h, p, n, device=dev, generator=gen)
+                if from_state else None)
+        got = ssd_ops.ssd_scan_fwd(*args, chunk, init)
+        want = ssd_ref.ssd_scan_ref(*args, chunk, init)
+        exact = ssd_ref.ssd_chunked(*(t.double() for t in args), chunk=chunk,
+                                    init_state=(None if init is None
+                                                else init.double()))
+        line = f"  ssd x{xs} B{bs} chunk {chunk} entering state {from_state}:"
+        for name, a, w, ex in zip(("y", "state"), got, want, exact):
+            e = float((a - w).abs().max())
+            if not e <= KERNEL_TOL * max(float(w.abs().max()), 1e-30):
+                ek = float((a.double() - ex).abs().max())
+                ep = float((w.double() - ex).abs().max())
+                if not ek <= ep:
+                    raise AssertionError(f"ssd_scan_fwd x{xs} init "
+                                         f"{from_state}: {name} {e:.3e} from "
+                                         f"plain, {ek:.3e} from float64 "
+                                         f"(plain {ep:.3e})")
+                line += f" {name} vs float64 {ek:.3e} (plain {ep:.3e});"
+            line += f" {name} err {e:.3e};"
+            err["ssd_scan_fwd"] = max(err.get("ssd_scan_fwd", 0.0), e)
+        if (xs, bs, chunk) == SERVE_SSD_TIMED:
+            t = dict(ms=time_ms(lambda: ssd_ops.ssd_scan_fwd(*args, chunk),
+                                reps=5, replays=4),
+                     plain_ms=time_ms(lambda: ssd_ref.ssd_scan_ref(
+                         *args, chunk), reps=2, replays=2), library_ms=None)
+            t.update(tf32x3_bound_ms(*ssd_cost(b, l, h, p, g, n, chunk)))
+            line += (f" kernel {t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms "
+                     f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; fp32 "
+                     f"{t['fp32_bound_ms']:.4f})")
+            rows.append(dict(name="ssd_scan_fwd", shape=(xs, bs, chunk), **t))
+        log(line)
+    # B6 and B1/B2 at phi4-mini's vocabulary, a row of 800 KB
+    rows_n, vocab = SERVE_KD_ROWS, SERVE_VOCAB
+    lt = torch.randn(rows_n, vocab, device=dev, generator=gen) * 2
+    ls = torch.randn(rows_n, vocab, device=dev, generator=gen) * 2
+    g = torch.randn(rows_n, device=dev, generator=gen)
+    err["row_logsumexp"] = compare(f"row_logsumexp ({rows_n}, {vocab})",
+                                   kd_ops.row_lse_fwd(ls, 1.0),
+                                   kd_ref.row_logsumexp_ref(ls, 1.0))
+    kl, lse_t, lse_s = kd_ops.kd_kl_fwd(lt, ls, 1.0)
+    want = kd_ref.kd_kl_fwd_ref(lt, ls, 1.0)
+    err["kd_kl_fwd"] = max(compare(f"kd_kl_fwd ({rows_n}, {vocab}):{nm}", a, w)
+                           for nm, a, w in zip(("kl", "lse_t", "lse_s"),
+                                               (kl, lse_t, lse_s), want))
+    err["kd_kl_bwd"] = compare(
+        f"kd_kl_bwd ({rows_n}, {vocab})",
+        kd_ops.kd_kl_bwd(lt, ls, lse_t, lse_s, g, 1.0),
+        kd_ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g, 1.0))
+    n = rows_n * vocab
+    timed = [
+        ("row_logsumexp", lambda: kd_ops.row_lse_fwd(ls, 1.0),
+         lambda: kd_ref.row_logsumexp_ref(ls, 1.0),
+         lambda: torch.logsumexp(ls, -1), bound_ms(4 * n + 4 * rows_n, 4 * n)),
+        ("kd_kl_fwd", lambda: kd_ops.kd_kl_fwd(lt, ls, 1.0),
+         lambda: kd_ref.kd_kl_fwd_ref(lt, ls, 1.0),
+         lambda: F.kl_div(F.log_softmax(ls, -1), F.log_softmax(lt, -1),
+                          reduction="none", log_target=True).sum(-1),
+         bound_ms(8 * n + 12 * rows_n, 12 * n)),
+        ("kd_kl_bwd", lambda: kd_ops.kd_kl_bwd(lt, ls, lse_t, lse_s, g, 1.0),
+         lambda: kd_ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g, 1.0), None,
+         bound_ms(12 * n + 12 * rows_n, 8 * n))]
+    for name, kern, plain, lib, (bnd, by) in timed:
+        t = dict(ms=time_ms(kern, reps=5, replays=4),
+                 plain_ms=time_ms(plain, reps=2, replays=2),
+                 library_ms=time_ms(lib, reps=2, replays=2) if lib else None,
+                 bound_ms=bnd, bound_by=by)
+        lib_s = f"{t['library_ms']:.4f}" if lib else "none"
+        log(f"  {name} ({rows_n}, {vocab}): err {err[name]:.2e} kernel "
+            f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms library {lib_s} "
+            f"ms bound {bnd:.4f} ms ({by})")
+        rows.append(dict(name=name, shape=(rows_n, vocab), **t))
+    return err, rows
+
+
+def run_serve(dev) -> tuple[dict, dict]:
+    """The LM serve path at published widths in fp32 (``serve_runs``) with
+    the launch counts set to 0 just before and read just after, then B4 and
+    B5 held to their plain versions at the shapes it gave them
+    (``check_serve_kernels``).  Returns (launch counts, max abs errors)."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.init()
+    t0 = time.perf_counter()
+    with record_shapes() as seen:
+        reset_launches()
+        serve_runs(dev)
+        launches = dict(LAUNCHES)
+    log(f"serve: launches {launches}")
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the serve path: "
+                             f"{missing}")
+    torch.cuda.empty_cache()
+    err, _ = check_serve_kernels(dev, seen)
+    log(f"serve phase: {time.perf_counter() - t0:.1f} s; max abs err {err}")
+    return launches, err
+
+
+def serve_runs(dev) -> None:
+    """phi4-mini (depth 32 -> 2): one FedGKD round of ``run_serial``, a
+    prefill of the last position from its params, then from a fresh init
+    ``ServeLoop``, decode against forward, the sliding-window ring buffer;
+    mamba2-2.7b (``lm_config(4)``) and zamba2-1.2b (depth 38 -> 6, one
+    shared-block application):
+    ``ServeLoop`` and decode against forward, zamba2's prefill; minitron-4b,
+    granite-34b and internlm2-20b (depth -> 1): a forward and 8 decode
+    steps against it; each ``ServeLoop``'s tokens against the CPU's."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.train import run_serial
+    from repro_torch.models import transformer
+
+    # phi4-mini: FedGKD, then serving from the trained params
+    cfg = serve_config("phi4-mini-3.8b", SERVE_PHI_LAYERS)
+    log(f"serve, phi4-mini-3.8b: d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}, {cfg.param_count():,} params; cuts: "
+        f"{serve_cuts(cfg)}; FedGKD {SERVE_FL}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    real_init = transformer.init
+    transformer.init = lambda gen, c: card_init(c, dev, init=real_init)
+    try:
+        out = run_serial(cfg, rounds=1, algo="fedgkd", device=dev,
+                         verbose=False, **SERVE_FL)
+    finally:
+        transformer.init = real_init
+    r = out["history"][0]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    log(f"  FedGKD round: {r['seconds']:.3f} s, ppl {r['ppl']:.6g}, loss "
+        f"{r['loss']:.6f}, kd {r['kd']:.6e}; peak device memory {peak:.2f} "
+        f"GiB (limit {SERVE_PEAK_GIB})")
+    if not (math.isfinite(r["loss"]) and math.isfinite(r["kd"])
+            and all_finite(out["params"])):
+        raise AssertionError("phi4-mini FedGKD: non-finite loss or params")
+    if not peak < SERVE_PEAK_GIB:
+        raise AssertionError(f"phi4-mini FedGKD: peak {peak:.2f} GiB")
+    params = out["params"]
+    del out
+    gen = torch.Generator(device=dev).manual_seed(8)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, SERVE_PREFILL,
+                                     device=dev, generator=gen)}
+    prefill = steps.make_prefill_step(cfg, last_only=True)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    last = prefill(params, batch)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    one = {"tokens": batch["tokens"][:1]}
+    full = steps.make_prefill_step(cfg)(params, one)
+    e = float((last[:1] - full[:, -1:]).abs().max())
+    log(f"  prefill (last_only) of {SERVE_PREFILL}: {ms:.1f} ms, logits "
+        f"{tuple(last.shape)}; against the full prefill's last position "
+        f"{e:.3e}")
+    if not (tuple(last.shape) == (SERVE_PREFILL[0], 1, cfg.vocab_size)
+            and all_finite(last) and e <= KERNEL_TOL * float(
+                full.abs().max())):
+        raise AssertionError("phi4-mini prefill: wrong shape, non-finite, or "
+                             "off the full prefill")
+    del full, last, params
+    torch.cuda.empty_cache()
+    # serving from a fresh init, as the serve CLI does
+    params = card_init(cfg, dev)
+    serve_arch("phi4-mini-3.8b", cfg, params, dev,
+               check=(serve_config("phi4-mini-3.8b", 1), None))
+    wcfg = cfg.replace(attn_window=SERVE_WINDOW)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (1, SERVE_RING_TOKENS),
+                         device=dev, generator=gen)
+    cache = transformer.init_cache(wcfg, 1, SERVE_RING_TOKENS, device=dev)
+    serve_step = steps.make_serve_step(wcfg)
+    outs = []
+    for i in range(SERVE_RING_TOKENS):
+        lg, cache = serve_step(params, cache, toks[:, i:i + 1])
+        outs.append(lg[:, 0])
+    with torch.no_grad():
+        full, _ = transformer.forward(params, wcfg, toks)
+    against_forward(f"phi4-mini-3.8b ring buffer: window {SERVE_WINDOW} "
+                    f"(a ring of {cache['seg0'].k.shape[2]} slots) over "
+                    f"{SERVE_RING_TOKENS} tokens", torch.stack(outs, 1), full)
+    del params, full, outs, cache
+    torch.cuda.empty_cache()
+
+    for arch, n_layers in (("mamba2-2.7b", LM_LAYERS),
+                           ("zamba2-1.2b", SERVE_ZAMBA_LAYERS)):
+        cfg = serve_config(arch, n_layers)
+        log(f"serve, {arch}: d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+            f"{cfg.param_count():,} params; cuts: {serve_cuts(cfg)}")
+        params = card_init(cfg, dev)
+        if arch == "zamba2-1.2b":
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, SERVE_PREFILL,
+                                             device=dev, generator=gen)}
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            last = steps.make_prefill_step(cfg, last_only=True)(params, batch)
+            torch.cuda.synchronize(dev)
+            log(f"  prefill (last_only) of {SERVE_PREFILL}: "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+            if not all_finite(last):
+                raise AssertionError(f"{arch} prefill: non-finite logits")
+        serve_arch(arch, cfg, params, dev, check=(cfg, params))
+        del params
+        torch.cuda.empty_cache()
+
+    for arch in ("minitron-4b", "granite-34b", "internlm2-20b"):
+        cfg = serve_config(arch, 1)
+        log(f"serve, {arch}: d_model {cfg.d_model}, heads "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, vocab "
+            f"{cfg.vocab_size}, {cfg.norm}/{cfg.act}, tied "
+            f"{cfg.tie_embeddings}, {cfg.param_count():,} params; cuts: "
+            f"{serve_cuts(cfg)}")
+        params = card_init(cfg, dev)
+        decode_vs_forward(arch, cfg, params, dev, SERVE_DECODE_PROMPT,
+                          SERVE_DECODE_STEPS)
+        del params
+        torch.cuda.empty_cache()
+
+
+def serve_arch(arch, cfg, params, dev, check) -> None:
+    """``ServeLoop`` with ``SERVE_REQ``'s traffic (tokens/s, seconds; then
+    the same run profiled), its greedy decode against the forward, and its
+    tokens against the CPU's at ``check`` = (config, params or None for a
+    fresh card init)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import make_prompts
+
+    prompts = make_prompts(SERVE_REQ["requests"], cfg.vocab_size,
+                           SERVE_REQ["prompt_len"])
+    stats = serve_on(cfg, params, prompts, dev)
+    log(f"  ServeLoop: {SERVE_REQ['requests']} requests, batch "
+        f"{SERVE_REQ['batch']}, prompts {sorted(len(p) for p in prompts)}, "
+        f"{SERVE_REQ['gen']} generated: {stats['seconds']:.4f} s, "
+        f"{stats['decode_steps']} decode steps, {stats['tok_per_s']:.2f} "
+        f"tok/s")
+    # the same run again under the profiler: how much of it the card works
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = serve_on(cfg, params, prompts, dev)
+    device_busy(prof, f"{arch} ServeLoop, a second run", again["seconds"]
+                * 1e3, top=6)
+    decode_vs_forward(arch, cfg, params, dev, SERVE_DECODE_PROMPT,
+                      SERVE_DECODE_STEPS)
+    ccfg, cparams = check
+    if cparams is None:
+        cparams = card_init(ccfg, dev, seed=1)
+        stats = serve_on(ccfg, cparams, prompts, dev)
+    serve_tokens_vs_cpu(f"{arch} ({ccfg.n_layers} layers)", ccfg, cparams,
+                        prompts, stats, dev)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2698,7 +3245,7 @@ def main() -> int:
         run_resnet50(dev, *r50),
         run_vmap_body(dev)]
     path_errs = []
-    for phase in (run_resilience,
+    for phase in (run_serve, run_resilience,
                   lambda d: run_population(d, footprint), run_multihost):
         counts, errs = phase(dev)
         launches.append(counts)

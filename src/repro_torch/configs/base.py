@@ -3,9 +3,11 @@
 The port of ``repro.configs.base`` without JAX: ``InputShape``,
 ``SHAPES``, the registry (``register``, ``get_config``,
 ``get_smoke_config``, ``list_archs``) and ``reduce_for_smoke``, which sets
-the fields the port's ``ModelConfig`` has.  Only ``mamba2-2.7b`` is
-registered; any other name of the reference's ``ALL_ARCHS`` raises
-``NotImplementedError`` naming ROADMAP A15.  The reference's
+the fields the port's ``ModelConfig`` has.  Registered: the dense
+phi4-mini-3.8b, minitron-4b, granite-34b and internlm2-20b, the SSM
+mamba2-2.7b and the hybrid zamba2-1.2b; any other name of the reference's
+``ALL_ARCHS`` (MoE, MLA, encoder-decoder, VLM) raises
+``NotImplementedError`` naming ROADMAP A15.5-A15.7.  The reference's
 ``train_input_specs``, ``decode_input_specs`` and ``input_specs`` build
 ``jax.ShapeDtypeStruct``s for the dry-run tooling and stay with A16.
 """
@@ -50,8 +52,8 @@ def register(name: str, full: Callable[[], ModelConfig],
 def _lookup(table: dict, name: str) -> ModelConfig:
     if name not in table and name in ALL_ARCHS:
         raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ROADMAP A15); the "
-            f"port has {sorted(table)}")
+            f"architecture {name!r} is not ported yet (ROADMAP A15.5-A15.7);"
+            f" the port has {sorted(table)}")
     return table[name]()
 
 
@@ -68,9 +70,9 @@ def list_archs() -> list[str]:
 
 
 def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
-    """Shrink a full config to the same-family smoke variant: 2 layers,
-    d_model 128, small vocab, fp32 (the reference's values for the fields
-    the port has)."""
+    """Shrink a full config to the same-family smoke variant: 2 layers (4
+    for the hybrid, its shared block every 2), d_model 128, small vocab,
+    fp32 (the reference's values for the fields the port has)."""
     kw: dict = dict(
         n_layers=2, d_model=128, n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads > 1 else 1,
@@ -82,5 +84,8 @@ def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     if cfg.ssm is not None:
         kw["ssm"] = cfg.ssm._replace(d_model=128, d_state=16, head_dim=16,
                                      chunk=16)
+        kw["n_layers"] = 4 if cfg.shared_attn_period else 2
+    if cfg.shared_attn_period:
+        kw["shared_attn_period"] = 2
     kw.update(overrides)
     return dataclasses.replace(cfg, **kw)

@@ -2,7 +2,7 @@
 
 64L d_model=2560, attention-free, d_ff=0, vocab=50280, ssm_state=128,
 head_dim=64, expand=2.  The reference's config unchanged, bf16 included;
-the port builds the model in float32 only (bf16 is ROADMAP A15), so a
+the port builds the model in float32 only (bf16 is ROADMAP A15.3), so a
 caller that runs it on the card replaces the dtypes.
 """
 from repro_torch.configs import base

@@ -6,11 +6,13 @@
 //                       (ssd_scan_fwd, wrapped by ops.py ssd_scan)
 //
 //   x (B, L, H, P), dt (B, L, H), A (H,), Bm/Cm (B, L, G, N)
+//     [, the state entering the sequence S_0 (B, H, P, N)]
 //     -> y (B, L, H, P), final state (B, H, P, N)
 //
 // Head h reads B/C group g = h / (H / G).  Per (batch b, head h) and chunk z
 // of Q rows, with da_k = dt_k * A_h and cum_i = sum_{k <= i} da_k inside the
-// chunk, and S_in[z] the (P, N) state entering chunk z (S_in[0] = 0):
+// chunk, and S_in[z] the (P, N) state entering chunk z (S_in[0] = S_0, or 0
+// through ssd_scan_fwd_f32):
 //
 //   y_i       = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
 //             + exp(cum_i) S_in[z] C_i
@@ -33,11 +35,13 @@
 //        the in-chunk arithmetic at P = 64, N = 128 (the TPU kernel
 //        recomputes it per head, since its grid is (batch * head, chunk));
 //   2. ssd_pass_kernel: S_in[z] over z in order, elementwise over (b, h,
-//      P * N), written in place of S_z; the final state is the carry after
-//      the last chunk.  A long sequence costs O(nc) here, not O(nc^2);
+//      P * N), from S_0 (or 0), written in place of S_z; the final state is
+//      the carry after the last chunk.  A long sequence costs O(nc) here,
+//      not O(nc^2);
 //   3. ssd_out_kernel: y for one (b, z, 64-row tile, h): exp(cum_i)
-//      C.S_in[z]^T (skipped at z = 0), then for each 64-column tile j <= i
-//      the C.B^T tile read from `cb` straight into the accumulator layout,
+//      C.S_in[z]^T (skipped at z = 0 when there is no S_0), then for each
+//      64-column tile j <= i the C.B^T tile read from `cb` straight into the
+//      accumulator layout,
 //      masked and weighted by exp(cum_i - cum_j) dt_j in registers, and
 //      multiplied into x.
 //
@@ -118,6 +122,7 @@ struct Problem {
   int H, P, G, N, Q, nc, nt, tri;
   Strides4 xs, dts, bs, cs;
   int vec_x, vec_bc, vec_s;
+  int has_init;    // S_in[0] = S_0, read by stage 2 (else 0)
 };
 
 // bytes of dynamic shared memory: the fp64 prefix sums and the dt (or
@@ -439,8 +444,8 @@ ssd_chunk_kernel(const Problem pb, int64_t state_blocks) {
 // that 16 loads are in flight where one would be if each store came first
 __global__ void __launch_bounds__(kPassThreads)
 ssd_pass_kernel(float* __restrict__ states, const float* __restrict__ decay,
-                float* __restrict__ state_out, int nc, int H, int64_t PN,
-                int64_t per_bh) {
+                const float* __restrict__ init, float* __restrict__ state_out,
+                int nc, int H, int64_t PN, int64_t per_bh) {
   const int64_t bh = blockIdx.x / per_bh;
   const int64_t e0 =
       (blockIdx.x % per_bh) * (kPassThreads * kPassPer) + threadIdx.x;
@@ -448,7 +453,10 @@ ssd_pass_kernel(float* __restrict__ states, const float* __restrict__ decay,
   const int64_t h = bh % H;
   float carry[kPassPer];
 #pragma unroll
-  for (int k = 0; k < kPassPer; ++k) carry[k] = 0.f;
+  for (int k = 0; k < kPassPer; ++k) {
+    const int64_t e = e0 + k * kPassThreads;
+    carry[k] = init != nullptr && e < PN ? init[bh * PN + e] : 0.f;
+  }
   for (int z0 = 0; z0 < nc; z0 += kPassAhead) {
     float sz[kPassAhead][kPassPer];
 #pragma unroll
@@ -525,7 +533,7 @@ ssd_out_kernel(const Problem pb) {
     for (int e = 0; e < 4; ++e) acc[pn][e] = 0.f;
 
   // the incoming state: exp(cum_i) sum_n C[i][n] S_in[p][n]
-  if (z > 0) {
+  if (z > 0 || pb.has_init) {
     const float* csrc =
         pb.Cm + b * pb.cs.b + g * pb.cs.h + (c0 + i0) * pb.cs.l;
     const float* ssrc =
@@ -693,30 +701,16 @@ cudaError_t opt_in_out() {
                               out_smem_bytes(PC));
 }
 
-}  // namespace
-
-extern "C" {
-
-// x (B, L, H, P), dt (B, L, H), A (H,), Bm/Cm (B, L, G, N): fp32 at the
-// given element strides.  y: (B, L, H, P) contiguous; state: (B, H, P, N)
-// contiguous.  Scratch, contiguous fp32: states (B, nc, H, P, N), cb (B, nc,
-// G, tri, 4096) with nc = ceil(L / chunk), nt = ceil(chunk / 64), tri =
-// nt (nt + 1) / 2, decay (B, nc, H).  The plan (kernels/ssd_scan/ops.py
-// ssd_plan): vec_x / vec_bc ask for 16-byte copies of x / of B and C, which
-// are refused where a row start would be misaligned; chunk_smem and
-// out_smem are the two tiled kernels' shared bytes, recounted here.  After
-// the call `states` holds the state entering each chunk.  Returns the
-// first failing launch's cudaError_t.
-int ssd_scan_fwd_f32(const void* x, const void* dt, const void* A,
-                     const void* Bm, const void* Cm, void* y, void* state,
-                     void* states, void* cb, void* decay, int64_t batch,
-                     int64_t L, int64_t H, int64_t P, int64_t G, int64_t N,
-                     int64_t chunk, int64_t xsb, int64_t xsl, int64_t xsh,
-                     int64_t xsp, int64_t dtsb, int64_t dtsl, int64_t dtsh,
-                     int64_t as, int64_t bsb, int64_t bsl, int64_t bsg,
-                     int64_t bsn, int64_t csb, int64_t csl, int64_t csg,
-                     int64_t csn, int vec_x, int vec_bc, int chunk_smem,
-                     int out_smem, void* stream) {
+int ssd_fwd(const float* init, const void* x, const void* dt, const void* A,
+            const void* Bm, const void* Cm, void* y, void* state,
+            void* states, void* cb, void* decay, int64_t batch,
+            int64_t L, int64_t H, int64_t P, int64_t G, int64_t N,
+            int64_t chunk, int64_t xsb, int64_t xsl, int64_t xsh,
+            int64_t xsp, int64_t dtsb, int64_t dtsl, int64_t dtsh,
+            int64_t as, int64_t bsb, int64_t bsl, int64_t bsg,
+            int64_t bsn, int64_t csb, int64_t csl, int64_t csg,
+            int64_t csn, int vec_x, int vec_bc, int chunk_smem,
+            int out_smem, void* stream) {
   if (P < 1 || P > kMaxP || N < 1 || N > kMaxN || chunk < 1 ||
       chunk > kMaxChunk || G < 1 || H < 0 || H % G != 0 || L < 0 || batch < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -769,6 +763,7 @@ int ssd_scan_fwd_f32(const void* x, const void* dt, const void* A,
   pb.vec_x = vec_x;
   pb.vec_bc = vec_bc;
   pb.vec_s = N % 4 == 0;
+  pb.has_init = init != nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   if (pb.nc > 0) {
@@ -784,8 +779,8 @@ int ssd_scan_fwd_f32(const void* x, const void* dt, const void* A,
   const int64_t per_bh =
       (P * N + kPassThreads * kPassPer - 1) / (kPassThreads * kPassPer);
   ssd_pass_kernel<<<static_cast<unsigned>(batch * H * per_bh), kPassThreads,
-                    0, st>>>(pb.states, pb.decay, pb.state, pb.nc, pb.H,
-                             P * N, per_bh);
+                    0, st>>>(pb.states, pb.decay, init, pb.state, pb.nc,
+                             pb.H, P * N, per_bh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || pb.nc == 0) return static_cast<int>(err);
   const int64_t out_blocks = batch * pb.nc * pb.nt * H;
@@ -796,6 +791,56 @@ int ssd_scan_fwd_f32(const void* x, const void* dt, const void* A,
     default: err = launch_out<4>(pb, out_blocks, out_smem, st); break;
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+extern "C" {
+
+// x (B, L, H, P), dt (B, L, H), A (H,), Bm/Cm (B, L, G, N): fp32 at the
+// given element strides.  y: (B, L, H, P) contiguous; state: (B, H, P, N)
+// contiguous.  Scratch, contiguous fp32: states (B, nc, H, P, N), cb (B, nc,
+// G, tri, 4096) with nc = ceil(L / chunk), nt = ceil(chunk / 64), tri =
+// nt (nt + 1) / 2, decay (B, nc, H).  The plan (kernels/ssd_scan/ops.py
+// ssd_plan): vec_x / vec_bc ask for 16-byte copies of x / of B and C, which
+// are refused where a row start would be misaligned; chunk_smem and
+// out_smem are the two tiled kernels' shared bytes, recounted here.  After
+// the call `states` holds the state entering each chunk.  Returns the
+// first failing launch's cudaError_t.
+int ssd_scan_fwd_f32(const void* x, const void* dt, const void* A,
+                     const void* Bm, const void* Cm, void* y, void* state,
+                     void* states, void* cb, void* decay, int64_t batch,
+                     int64_t L, int64_t H, int64_t P, int64_t G, int64_t N,
+                     int64_t chunk, int64_t xsb, int64_t xsl, int64_t xsh,
+                     int64_t xsp, int64_t dtsb, int64_t dtsl, int64_t dtsh,
+                     int64_t as, int64_t bsb, int64_t bsl, int64_t bsg,
+                     int64_t bsn, int64_t csb, int64_t csl, int64_t csg,
+                     int64_t csn, int vec_x, int vec_bc, int chunk_smem,
+                     int out_smem, void* stream) {
+  return ssd_fwd(nullptr, x, dt, A, Bm, Cm, y, state, states, cb, decay,
+                 batch, L, H, P, G, N, chunk, xsb, xsl, xsh, xsp, dtsb, dtsl,
+                 dtsh, as, bsb, bsl, bsg, bsn, csb, csl, csg, csn, vec_x,
+                 vec_bc, chunk_smem, out_smem, stream);
+}
+
+// The same, with the state entering the first chunk: init (B, H, P, N)
+// contiguous fp32, read by the state pass; the output kernel then adds
+// exp(cum_i) C.S_0^T in the first chunk as in every other.
+int ssd_scan_fwd_init_f32(const void* init, const void* x, const void* dt,
+                          const void* A, const void* Bm, const void* Cm,
+                          void* y, void* state, void* states, void* cb,
+                          void* decay, int64_t batch, int64_t L, int64_t H,
+                          int64_t P, int64_t G, int64_t N, int64_t chunk,
+                          int64_t xsb, int64_t xsl, int64_t xsh, int64_t xsp,
+                          int64_t dtsb, int64_t dtsl, int64_t dtsh, int64_t as,
+                          int64_t bsb, int64_t bsl, int64_t bsg, int64_t bsn,
+                          int64_t csb, int64_t csl, int64_t csg, int64_t csn,
+                          int vec_x, int vec_bc, int chunk_smem, int out_smem,
+                          void* stream) {
+  return ssd_fwd(static_cast<const float*>(init), x, dt, A, Bm, Cm, y, state,
+                 states, cb, decay, batch, L, H, P, G, N, chunk, xsb, xsl,
+                 xsh, xsp, dtsb, dtsl, dtsh, as, bsb, bsl, bsg, bsn, csb,
+                 csl, csg, csn, vec_x, vec_bc, chunk_smem, out_smem, stream);
 }
 
 }  // extern "C"

@@ -53,6 +53,10 @@ SIGNATURES = {
     # (4); the plan (vec_x, vec_bc, chunk_smem, out_smem); stream
     "ssd_scan_fwd_f32": [_P] * 10 + [_I64] * 7 + [_I64] * 16 + [_I32] * 4
                         + [_P],
+    # the state entering the first chunk (B, H, P, N), then the arguments
+    # of ssd_scan_fwd_f32
+    "ssd_scan_fwd_init_f32": [_P] + [_P] * 10 + [_I64] * 7 + [_I64] * 16
+                             + [_I32] * 4 + [_P],
     # the launch floor: an empty kernel; stream
     "empty_launch": [_P],
 }

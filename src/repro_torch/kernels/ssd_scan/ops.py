@@ -1,32 +1,36 @@
 """Mamba-2 SSD scan: the CUDA forward kernels with an autograd rule.
 
-``ssd_scan(x, dt, A, B, C, *, chunk)`` has the contract of the reference's
-``repro.kernels.ssd_scan.ops.ssd_scan`` and of ``ref.ssd_chunked``: x
-(B, L, H, P), dt (B, L, H) (softplus'ed), A (H,) negative, B and C
-(B, L, G, N) with G dividing H; it returns (y (B, L, H, P), final state
-(B, H, P, N)), fp32.
+``ssd_scan(x, dt, A, B, C, *, chunk, init_state=None)`` has the contract
+of the reference's ``repro.kernels.ssd_scan.ops.ssd_scan`` and of
+``ref.ssd_chunked``: x (B, L, H, P), dt (B, L, H) (softplus'ed), A (H,)
+negative, B and C (B, L, G, N) with G dividing H, and the state entering
+the first chunk, ``init_state`` (B, H, P, N), or zero; it returns
+(y (B, L, H, P), final state (B, H, P, N)), fp32.
 
 Forward: on a CUDA tensor ``ssd_scan_fwd`` launches the kernels of
 ``csrc/ssd_scan.cu`` (built at first use; a failed launch raises) and
 counts one launch per call; on a CPU tensor it takes ``ref.ssd_scan_ref``.
 Nothing falls back from one to the other.  The kernels split the scan as
 the SSD algorithm does: the chunk states and C·Bᵀ (once per B/C group) in
-parallel over chunks, a pass over the chunks for the state entering each,
-then every chunk's output in parallel.  They read the inputs through their
-strides (no repeat of B/C per head, no transposes, no padded copy of a
-ragged length).  Their plan (``ssd_plan``: scratch shapes, grids, shared
+parallel over chunks, a pass over the chunks for the state entering each
+(starting from ``init_state`` where one is given), then every chunk's
+output in parallel.  They read the inputs through their strides (no
+repeat of B/C per head, no transposes, no padded copy of a ragged
+length).  Their plan (``ssd_plan``: scratch shapes, grids, shared
 memory, whether rows are staged with 16-byte copies) is made here, where
 the CPU tests reach it, and the C entry point recounts it and refuses a
 plan that disagrees.
 
 Backward: ``ref.ssd_chunked`` recomputed under autograd, and its
-vector-Jacobian product for (x, dt, A, B, C), on either device: the
-reference's own VJP (``jax.vjp`` of ``ssd_chunked``).  A backward kernel
-is later work.
+vector-Jacobian product for (x, dt, A, B, C) and ``init_state``, on
+either device: the reference's own VJP (``jax.vjp`` of ``ssd_chunked``).
+A backward kernel is later work.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Optional
 
 import torch
 
@@ -124,7 +128,7 @@ def ssd_plan(b: int, l: int, h: int, p: int, g: int, n: int, chunk: int,
                    (b, nc, g, tri, TILE * TILE), (b, nc, h), grid)
 
 
-def _validate(x, dt, A, B, C) -> None:
+def _validate(x, dt, A, B, C, init_state=None) -> None:
     if x.ndim != 4 or dt.ndim != 3 or A.ndim != 1 or B.ndim != 4 or B.shape != C.shape:
         raise ValueError(
             f"ssd_scan wants x (B, L, H, P), dt (B, L, H), A (H,), B and C "
@@ -135,22 +139,28 @@ def _validate(x, dt, A, B, C) -> None:
         raise ValueError(
             f"ssd_scan: shapes disagree or G does not divide H: "
             f"{[tuple(t.shape) for t in (x, dt, A, B, C)]}")
+    want = (b, h, x.shape[3], B.shape[3])
+    if init_state is not None and tuple(init_state.shape) != want:
+        raise ValueError(f"ssd_scan: init_state {tuple(init_state.shape)}, "
+                         f"want (B, H, P, N) = {want}")
 
 
-def ssd_scan_launch(x, dt, A, B, C, chunk: int):
+def ssd_scan_launch(x, dt, A, B, C, chunk: int, init_state=None):
     """Launch the kernels on CUDA tensors: (y, final state, and the scratch
     that holds, after the call, the state entering each chunk (B, nc, H, P,
-    N)).  Raises on a CPU tensor, a type or range the kernels do not take,
-    or a failed launch."""
-    _validate(x, dt, A, B, C)
+    N)).  The first chunk's entering state is ``init_state`` (B, H, P, N),
+    or zero.  Raises on a CPU tensor, a type or range the kernels do not
+    take, or a failed launch."""
+    _validate(x, dt, A, B, C, init_state)
+    ins = (x, dt, A, B, C) + (() if init_state is None else (init_state,))
     if not x.is_cuda:
         raise ValueError("ssd_scan_launch runs the CUDA kernels: the inputs "
                          "are on the CPU")
-    if any(t.device != x.device for t in (dt, A, B, C)):
+    if any(t.device != x.device for t in ins):
         raise ValueError(f"ssd_scan inputs on several devices, x on {x.device}")
-    if any(t.dtype != torch.float32 for t in (x, dt, A, B, C)):
+    if any(t.dtype != torch.float32 for t in ins):
         raise TypeError(f"the ssd_scan kernel takes float32, got "
-                        f"{[t.dtype for t in (x, dt, A, B, C)]}")
+                        f"{[t.dtype for t in ins]}")
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     plan = ssd_plan(b, l, h, p, g, n, chunk,
@@ -163,7 +173,14 @@ def ssd_scan_launch(x, dt, A, B, C, chunk: int):
     states = torch.empty(plan.states_shape, **f32)
     cb = torch.empty(plan.cb_shape, **f32)
     decay = torch.empty(plan.decay_shape, **f32)
-    rc = build.library().ssd_scan_fwd_f32(
+    lib = build.library()
+    if init_state is None:
+        entry = lib.ssd_scan_fwd_f32
+    else:
+        init_state = init_state.contiguous()
+        entry = functools.partial(lib.ssd_scan_fwd_init_f32,
+                                  init_state.data_ptr())
+    rc = entry(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
         y.data_ptr(), state.data_ptr(), states.data_ptr(), cb.data_ptr(),
         decay.data_ptr(), b, l, h, p, g, n, chunk,
@@ -175,37 +192,42 @@ def ssd_scan_launch(x, dt, A, B, C, chunk: int):
     return y, state, states
 
 
-def ssd_scan_fwd(x, dt, A, B, C, chunk: int):
+def ssd_scan_fwd(x, dt, A, B, C, chunk: int, init_state=None):
     """The forward: kernels on CUDA tensors, plain version on CPU tensors."""
-    _validate(x, dt, A, B, C)
+    _validate(x, dt, A, B, C, init_state)
     if not x.is_cuda:
-        return ref.ssd_scan_ref(x, dt, A, B, C, chunk)
-    y, state, _ = ssd_scan_launch(x, dt, A, B, C, chunk)
+        return ref.ssd_scan_ref(x, dt, A, B, C, chunk, init_state)
+    y, state, _ = ssd_scan_launch(x, dt, A, B, C, chunk, init_state)
     return y, state
 
 
 class _SSDScan(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dt, A, B, C, chunk: int):
-        y, state = ssd_scan_fwd(x, dt, A, B, C, chunk)
-        ctx.save_for_backward(x, dt, A, B, C)
+    def forward(ctx, x, dt, A, B, C, init_state, chunk: int):
+        y, state = ssd_scan_fwd(x, dt, A, B, C, chunk, init_state)
+        ctx.save_for_backward(x, dt, A, B, C, init_state)
         ctx.chunk = chunk
         return y, state
 
     @staticmethod
     def backward(ctx, gy, gstate):
         saved = ctx.saved_tensors          # unpacked once (checkpointing)
+        live = [t for t in saved if t is not None]
         inputs = [t.detach().to(torch.float32).requires_grad_(True)
-                  for t in saved]
+                  for t in live]
         # named for the profiler: its device time is the backward's cost
         with torch.enable_grad(), torch.profiler.record_function(
                 "ssd_scan_backward"):
-            y, state = ref.ssd_chunked(*inputs, chunk=ctx.chunk)
+            y, state = ref.ssd_chunked(
+                *inputs[:5], chunk=ctx.chunk,
+                init_state=inputs[5] if len(inputs) == 6 else None)
             grads = torch.autograd.grad((y, state), inputs, (gy, gstate))
-        return (*(g.to(t.dtype) for g, t in zip(grads, saved)), None)
+        grads = [g.to(t.dtype) for g, t in zip(grads, live)]
+        return (*grads, *([None] * (6 - len(grads))), None)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             B: torch.Tensor, C: torch.Tensor, *, chunk: int):
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int,
+             init_state: Optional[torch.Tensor] = None):
     """SSD scan, one counted launch forward: (y, final state), fp32."""
-    return _SSDScan.apply(x, dt, A, B, C, int(chunk))
+    return _SSDScan.apply(x, dt, A, B, C, init_state, int(chunk))

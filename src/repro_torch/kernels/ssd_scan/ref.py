@@ -40,11 +40,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, final
 
 
-def entering_states(x, dt, A, B, C, chunk: int):
+def entering_states(x, dt, A, B, C, chunk: int, init_state=None):
     """(The state entering each chunk (b, ceil(l / chunk), h, p, n), the
     final state), as ``ssd_chunked`` computes them: the yardstick of the
     kernels' chunk-state scratch, which holds the former after a call."""
-    _, final, entering = _chunked(x, dt, A, B, C, chunk, None)
+    _, final, entering = _chunked(x, dt, A, B, C, chunk, init_state)
     return entering, final
 
 
@@ -121,9 +121,11 @@ def ssd_reference(x, dt, A, B, C) -> torch.Tensor:
     return torch.stack(ys, dim=1)
 
 
-def ssd_scan_ref(x, dt, A, B, C, chunk: int):
+def ssd_scan_ref(x, dt, A, B, C, chunk: int, init_state=None):
     """The kernel's function in fp32: ``ssd_chunked`` at ``chunk`` on
-    float32 copies of the inputs, (y (B, L, H, P), final state
-    (B, H, P, N))."""
+    float32 copies of the inputs, from ``init_state`` (B, H, P, N) or
+    zero: (y (B, L, H, P), final state (B, H, P, N))."""
     f32 = [t.to(torch.float32) for t in (x, dt, A, B, C)]
-    return ssd_chunked(*f32, chunk=chunk)
+    if init_state is not None:
+        init_state = init_state.to(torch.float32)
+    return ssd_chunked(*f32, chunk=chunk, init_state=init_state)

@@ -1,7 +1,7 @@
-"""The LM train step: the FedGKD local objective on a causal LM.
+"""The LM steps: the FedGKD train step, serving and prefill.
 
-The port of the training parts of ``repro.launch.steps``.  A client's local
-step minimises (paper Eq. 4)
+The port of ``repro.launch.steps``.  A client's local step minimises
+(paper Eq. 4)
 
     L = CE(student(x), y) + aux + (γ/2)·KL(teacher ‖ student)
 
@@ -9,10 +9,14 @@ with kd_mode "none" (the FedAvg local step) or "teacher" (a full teacher
 forward each step, under ``torch.no_grad``).  The next-token CE takes its
 row logsumexp from ``kernels.kd_kl.ops.row_logsumexp`` (B6) and the KL
 goes through ``core.distillation.kl_divergence`` (B1/B2): the CUDA
-kernels on a card, their plain versions on the CPU.
+kernels on a card, their plain versions on the CPU.  ``make_serve_step``
+is one token of decode over the cache (plain PyTorch, as in the
+reference) and ``make_prefill_step`` an inference forward without
+gradients, of every position or of the last only.
 
-Not ported yet (ROADMAP A15): kd_mode "cached_topk", MTP, frontends and
-encoder-decoder inputs, and the serve, prefill and aggregate steps.
+Not ported yet: kd_mode "cached_topk", frontends and encoder-decoder
+inputs (ROADMAP A15.7), MTP (A15.5), and the sharded round's
+``make_aggregate_step`` (A13b).
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ def lm_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor
     (``core.distillation.cross_entropy`` with ``ignore_index=-1``), with
     the row logsumexp taken by ``row_logsumexp`` so that no (B·S, V)
     log-probability tensor is written.  (The reference's ``text_offset``
-    serves frontend prefixes, which are not ported: ROADMAP A15.)"""
+    serves frontend prefixes, which are not ported: ROADMAP A15.7.)"""
     v = logits.shape[-1]
     flat = logits.reshape(-1, v)
     labels = labels.reshape(-1).to(torch.int64)
@@ -49,8 +53,8 @@ def lm_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor
     return nll.sum() / torch.clamp(valid.to(torch.float32).sum(), min=1.0)
 
 
-def _unported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP A15)")
+def _unported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def _forward(params, cfg: ModelConfig, batch: dict):
@@ -61,7 +65,7 @@ def make_loss_fn(cfg: ModelConfig, *, kd_mode: str = "teacher",
                  gamma: float = 0.2, kd_temperature: float = 1.0):
     """loss(params, teacher_params, batch) -> (loss, metrics)."""
     if kd_mode == "cached_topk":
-        _unported("kd_mode='cached_topk'")
+        _unported("kd_mode='cached_topk'", "A15.7")
     if kd_mode not in KD_MODES:
         raise ValueError(f"kd_mode {kd_mode!r} not in {KD_MODES}")
 
@@ -107,13 +111,34 @@ def make_train_step(cfg: ModelConfig, opt: Optional[Optimizer] = None, *,
     return step
 
 
-def make_serve_step(cfg: ModelConfig, *, sample: bool = False):
-    _unported("make_serve_step (the decode path)")
+def make_serve_step(cfg: ModelConfig):
+    """serve_step(params, cache, tokens [, enc_out]) -> (logits, cache)."""
+
+    def step(params, cache, tokens, enc_out=None):
+        with torch.no_grad():
+            return transformer.decode_step(params, cfg, tokens, cache,
+                                           enc_out=enc_out)
+
+    return step
 
 
 def make_prefill_step(cfg: ModelConfig, *, last_only: bool = False):
-    _unported("make_prefill_step")
+    """prefill(params, batch) -> logits: an inference forward, no grads.
+
+    ``last_only`` returns only the final position's logits (B, 1, V), what
+    a serving stack needs before decode, and never writes the (B, S, V)
+    tensor."""
+
+    def step(params, batch):
+        with torch.no_grad():
+            if last_only:
+                h, _ = transformer.hidden_states(params, cfg, batch["tokens"])
+                return transformer.logits_from_hidden(params, cfg, h[:, -1:])
+            logits, _ = _forward(params, cfg, batch)
+            return logits
+
+    return step
 
 
 def make_aggregate_step(axis: str = "pod"):
-    _unported("make_aggregate_step (the sharded round)")
+    _unported("make_aggregate_step (the sharded round)", "A13b")

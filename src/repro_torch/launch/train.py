@@ -18,8 +18,12 @@ Usage:
 each round reports ``sim_seconds``, the virtual time the round's barrier
 waits for its slowest client; it adds no device work.
 
-Not ported yet: ``--sharded`` (ROADMAP A13b), full configs in bf16 (A15).  ``--fl-task`` is the path of
-``repro_torch.core.fl_loop.run_federated`` (A8, A9), not wired to this CLI.
+``--fl-task`` runs a paper task (``cifar10``, ``cifar100``,
+``tiny-imagenet``, ``toy``) through ``core.fl_loop.run_federated`` instead
+(``run_fl_task``), under ``--executor``.
+
+Not ported yet: ``--sharded`` (ROADMAP A13b), full configs in bf16
+(A15.3).
 """
 from __future__ import annotations
 
@@ -154,12 +158,54 @@ def run_serial(cfg, *, rounds: int, n_clients: int, batches_per_round: int,
     return {"history": history, "params": global_params}
 
 
+def run_fl_task(args) -> int:
+    """The single-host FL-loop preset path: ``--fl-task cifar10`` etc.
+
+    Drives ``fl_loop.run_federated`` on a paper task (ResNet-8 for the
+    CIFAR tasks, ResNet-50 for Tiny-ImageNet, the MLP for TOY) under
+    ``--executor``, with the reference's data (α 10, 256 test examples,
+    seed 0), and prints the round body that ran, from the telemetry."""
+    import dataclasses
+
+    from repro_torch.configs.paper import PAPER_TASKS, scaled
+    from repro_torch.core import algorithms as algo_lib
+    from repro_torch.core import fl_loop
+
+    task = scaled(PAPER_TASKS[args.fl_task], scale=args.fl_scale,
+                  rounds=args.rounds, local_epochs=1)
+    if args.clients:
+        task = dataclasses.replace(
+            task, n_clients=max(task.n_clients, args.clients),
+            participation=args.clients / max(task.n_clients, args.clients))
+    data = fl_loop.make_federated_data(task, alpha=10.0, seed=0, n_test=256)
+    h = fl_loop.run_federated(
+        task, algo_lib.make(args.algo, gamma=args.gamma,
+                            buffer_m=args.buffer_m),
+        data, seed=0, width=args.fl_width, executor=args.executor,
+        max_batches_per_client=args.batches_per_round, verbose=True,
+        device=args.device)
+    print(f"model={task.model} executor={args.executor} "
+          f"round_body={h.telemetry.get('round_body', '-')} "
+          f"final_acc={h.final_acc:.4f}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="phi4-mini-3.8b")
-    ap.add_argument("--fl-task", default=None,
-                    help="not wired here: the paper tasks run through "
-                         "repro_torch.core.fl_loop.run_federated")
+    ap.add_argument("--fl-task", default=None, choices=sorted(
+                        ("cifar10", "cifar100", "tiny-imagenet", "toy")),
+                    help="run the single-host FL loop on a paper task "
+                         "(model=resnet8/resnet50/mlp per task) instead of "
+                         "the LM trainer; --executor selects the route")
+    ap.add_argument("--executor", default="auto",
+                    help="FL-task executor: auto/sequential/vmap/shard_map/"
+                         "async (vmap on the conv backbones uses the "
+                         "client-batched grouped-conv body)")
+    ap.add_argument("--fl-scale", type=float, default=0.02,
+                    help="FL-task dataset scale (CPU-sized default)")
+    ap.add_argument("--fl-width", type=int, default=16,
+                    help="resnet8 width for --fl-task")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced same-family config")
     ap.add_argument("--algo", choices=("fedavg", "fedgkd"), default="fedgkd")
@@ -186,9 +232,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.fl_task:
-        raise NotImplementedError(
-            "--fl-task: the paper tasks run through repro_torch.core.fl_loop."
-            "run_federated (ROADMAP A8, A9); this CLI does not wire it")
+        return run_fl_task(args)
     if args.sharded:
         raise NotImplementedError(
             "--sharded (make_parallel_round / run_sharded: one LM client per "
@@ -197,7 +241,7 @@ def main(argv=None) -> int:
     if cfg.param_dtype != "float32" or cfg.activation_dtype != "float32":
         raise NotImplementedError(
             f"{cfg.name} is published in {cfg.param_dtype}; the port runs "
-            f"float32 only (ROADMAP A15): pass --smoke, or call run_serial "
+            f"float32 only (ROADMAP A15.3): pass --smoke, or call run_serial "
             f"with cfg.replace(param_dtype='float32', "
             f"activation_dtype='float32')")
     out = run_serial(cfg, n_clients=args.clients, rounds=args.rounds,

@@ -1,8 +1,10 @@
 """Core layers over plain-dict params: initializers, dense, norms, the
-SAME max-pool, embeddings, rotary position embeddings and the GELU MLP.
+SAME max-pool, embeddings, rotary position embeddings, and the GELU and
+SwiGLU MLPs.
 
 The port of the parts of ``repro.models.layers`` that ResNet-8/50, the
-TOY MLP, the DistilBERT-class text encoder and the Mamba-2 LM use.  Dense weights are
+TOY MLP, the DistilBERT-class text encoder and the LMs use.  The
+initializers draw on ``generator``'s device.  Dense weights are
 ``(in, out)`` and applied as ``x @ w``; client-stacked params (``w``
 (K, in, out), ``b`` (K, out)) against ``x`` (K, B, in) ride the same line
 as a K-batched matmul.
@@ -21,8 +23,10 @@ def trunc_normal(generator: torch.Generator, shape: Sequence[int],
                  std: float) -> torch.Tensor:
     """fp32 truncated normal at ±2 std (the reference's initializer).
 
-    ``trunc_normal_`` takes ABSOLUTE bounds, hence ``a=-2·std, b=2·std``."""
-    t = torch.empty(tuple(shape), dtype=torch.float32)
+    ``trunc_normal_`` takes ABSOLUTE bounds, hence ``a=-2·std, b=2·std``.
+    The tensor lies on ``generator``'s device."""
+    t = torch.empty(tuple(shape), dtype=torch.float32,
+                    device=generator.device)
     torch.nn.init.trunc_normal_(t, mean=0.0, std=std, a=-2.0 * std,
                                 b=2.0 * std, generator=generator)
     return t
@@ -168,3 +172,24 @@ def gelu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
     ``jax.nn.gelu``'s default."""
     return dense(params["down"], torch.nn.functional.gelu(
         dense(params["up"], x), approximate="tanh"))
+
+
+def check_cache_dtype(dtype: torch.dtype) -> None:
+    """Decode caches are float32: another dtype is ROADMAP A15.3."""
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            f"a {dtype} decode cache is not ported yet (ROADMAP A15.3); the "
+            f"port's caches are float32")
+
+
+def swiglu_init(generator: torch.Generator, d_model: int,
+                d_ff: int) -> Params:
+    return {"gate": dense_init(generator, d_model, d_ff),
+            "up": dense_init(generator, d_model, d_ff),
+            "down": dense_init(generator, d_ff, d_model)}
+
+
+def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """``down(silu(gate(x)) * up(x))``."""
+    g = torch.nn.functional.silu(dense(params["gate"], x))
+    return dense(params["down"], g * dense(params["up"], x))

@@ -1,17 +1,16 @@
 """The Mamba-2 (SSD, state-space duality) block over plain-dict params.
 
-The port of the training and prefill parts of ``repro.models.ssm``: the
-config, the initializer (the reference's keys and shapes) and
-``mamba2_forward``.  The chunked SSD scan goes through
-``kernels.ssd_scan.ops.ssd_scan``: the CUDA kernel on a card, its plain
-version (``kernels.ssd_scan.ref.ssd_chunked``, the reference's jnp form)
-on the CPU.  The reference's ``mamba2_forward`` runs the jnp
+The port of ``repro.models.ssm``: the config, the initializer (the
+reference's keys and shapes), ``mamba2_forward`` (training and prefill,
+from a zero or a given initial state) and the decode path (``SSMCache``,
+``ssm_cache_init``, ``mamba2_decode_step``: O(1) a token, the rolling
+conv state and the (H, P, N) SSM state).  The chunked SSD scan goes
+through ``kernels.ssd_scan.ops.ssd_scan``: the CUDA kernel on a card, its
+plain version (``kernels.ssd_scan.ref.ssd_chunked``, the reference's jnp
+form) on the CPU.  The reference's ``mamba2_forward`` runs the jnp
 ``ssd_chunked``, the same function as its Pallas kernel; here the device
-picks, as it does for the port's other kernels.
-
-The decode path (``SSMCache``, ``ssm_cache_init``, ``mamba2_decode_step``)
-and a forward from a given initial state belong to the serve slice
-(ROADMAP A15).
+picks, as it does for the port's other kernels.  Decode is plain
+PyTorch, as in the reference.
 """
 from __future__ import annotations
 
@@ -51,7 +50,8 @@ def mamba2_init(generator: torch.Generator, cfg: SSMConfig) -> Params:
     d_in_proj = 2 * di + 2 * g * n + h     # z, x, B, C, dt
     conv_dim = di + 2 * g * n              # conv over x, B, C
     # dt bias initialised so that softplus(dt_bias) spans [1e-3, 1e-1]
-    dt = torch.exp(torch.rand((h,), generator=generator)
+    dt = torch.exp(torch.rand((h,), generator=generator,
+                              device=generator.device)
                    * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
     dt_bias = dt + torch.log(-torch.expm1(-dt))
     return {
@@ -87,11 +87,8 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
 
 def mamba2_forward(params: Params, x: torch.Tensor, cfg: SSMConfig,
                    init_state: Optional[torch.Tensor] = None):
-    """x (B, L, D) -> (y (B, L, D), final SSM state (B, H, P, N))."""
-    if init_state is not None:
-        raise NotImplementedError(
-            "mamba2_forward from an initial state belongs to the serve path "
-            "(ROADMAP A15)")
+    """x (B, L, D) -> (y (B, L, D), final SSM state (B, H, P, N)); the
+    scan starts from ``init_state`` (B, H, P, N), or from zero."""
     b, l, _ = x.shape
     proj = layers.dense(params["in_proj"], x)
     z, xbc, dt = _split_in_proj(proj, cfg)
@@ -104,8 +101,63 @@ def mamba2_forward(params: Params, x: torch.Tensor, cfg: SSMConfig,
     dt = F.softplus(dt.to(torch.float32) + params["dt_bias"][None, None, :])
     A = -torch.exp(params["A_log"])
     y, final = ssd_scan(xs.to(torch.float32), dt, A, B.to(torch.float32),
-                        C.to(torch.float32), chunk=min(cfg.chunk, l))
+                        C.to(torch.float32), chunk=min(cfg.chunk, l),
+                        init_state=init_state)
     y = y + xs.to(torch.float32) * params["D"][None, None, :, None]
     y = y.reshape(b, l, di).to(x.dtype)
     y = layers.rmsnorm(params["norm"], y * F.silu(z))
     return layers.dense(params["out_proj"], y), final
+
+
+class SSMCache(NamedTuple):
+    conv_state: torch.Tensor   # (B, d_conv - 1, conv_dim)
+    ssm_state: torch.Tensor    # (B, H, P, N) fp32
+    length: torch.Tensor       # () int32
+
+
+def ssm_cache_init(batch: int, cfg: SSMConfig,
+                   dtype: torch.dtype = torch.float32,
+                   device=None) -> SSMCache:
+    layers.check_cache_dtype(dtype)
+    conv_dim = cfg.d_inner + 2 * cfg.n_groups * cfg.d_state
+    return SSMCache(
+        torch.zeros((batch, cfg.d_conv - 1, conv_dim), dtype=dtype,
+                    device=device),
+        torch.zeros((batch, cfg.n_heads, cfg.head_dim, cfg.d_state),
+                    dtype=torch.float32, device=device),
+        torch.zeros((), dtype=torch.int32, device=device))
+
+
+def mamba2_decode_step(params: Params, x: torch.Tensor, cache: SSMCache,
+                       cfg: SSMConfig) -> tuple[torch.Tensor, SSMCache]:
+    """One-token decode.  x (B, 1, D) -> (y (B, 1, D), the updated cache)."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"mamba2_decode_step takes one token, got {s}")
+    proj = layers.dense(params["in_proj"], x)[:, 0]          # (B, d_in_proj)
+    z, xbc, dt = _split_in_proj(proj, cfg)
+    # the causal conv over the rolling state and the new row
+    conv_in = torch.cat([cache.conv_state, xbc[:, None, :]], dim=1)  # (B, K, C)
+    w = params["conv_w"].to(x.dtype)
+    xbc = F.silu(torch.einsum("bkc,kc->bc", conv_in, w)
+                 + params["conv_b"].to(x.dtype)[None, :])
+    new_conv_state = conv_in[:, 1:, :]
+
+    di, g, n = cfg.d_inner, cfg.n_groups, cfg.d_state
+    xs = xbc[..., :di].reshape(b, cfg.n_heads, cfg.head_dim).to(torch.float32)
+    B = xbc[..., di:di + g * n].reshape(b, g, n).to(torch.float32)
+    C = xbc[..., di + g * n:].reshape(b, g, n).to(torch.float32)
+    rep = cfg.n_heads // g
+    B = torch.repeat_interleave(B, rep, dim=1)
+    C = torch.repeat_interleave(C, rep, dim=1)
+    dt = F.softplus(dt.to(torch.float32) + params["dt_bias"][None, :])  # (B, H)
+    A = -torch.exp(params["A_log"])
+    dA = torch.exp(dt * A[None, :])                           # (B, H)
+    state = (cache.ssm_state * dA[..., None, None]
+             + (dt[..., None] * B)[:, :, None, :] * xs[..., None])
+    y = torch.einsum("bhn,bhpn->bhp", C, state)
+    y = y + xs * params["D"][None, :, None]
+    y = y.reshape(b, di).to(x.dtype)
+    y = layers.rmsnorm(params["norm"], y * F.silu(z))
+    out = layers.dense(params["out_proj"], y)[:, None, :]
+    return out, SSMCache(new_conv_state, state, cache.length + 1)

@@ -689,3 +689,107 @@ def test_two_process_placement_on_card_equals_one_host(cuda, tmp_path):
     diff = max(float(np.abs(t.cpu().numpy() - hosts[0][f"p{i:03d}"]).max())
                for i, t in enumerate(tree_leaves(one.final_params)))
     assert diff < TOL
+
+
+# (B, S, Hq, Hkv, D, window): the serve path's head layouts, phi4-mini's and
+# minitron's GQA 24/8, granite's MQA 48/1, internlm2's 48/8 at head_dim 128,
+# zamba2's shared block 32/32 at 64, and phi4-mini's window cut to 64
+LM_FLASH = [(2, 256, 24, 8, 128, None), (2, 256, 48, 1, 128, None),
+            (2, 256, 48, 8, 128, None), (2, 256, 32, 32, 64, None),
+            (1, 160, 24, 8, 128, 64)]
+
+
+@pytest.mark.parametrize("case", LM_FLASH, ids=str)
+def test_flash_attention_at_lm_head_layouts(cuda, case):
+    b, s, hq, hkv, d, window = case
+    gen = torch.Generator(device=cuda).manual_seed(hq + d)
+    q = torch.randn(b, s, hq, d, device=cuda, generator=gen)
+    k, v = (torch.randn(b, s, hkv, d, device=cuda, generator=gen)
+            for _ in range(2))
+    before = LAUNCHES["flash_attention_fwd"]
+    got = fa_ops.flash_attention_fwd(q, k, v, True, window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_fwd"] == before + 1
+    _close(got, fa_ref.attention_ref(q, k, v, window=window))
+
+
+# (B, L, H, P, G, N, chunk) from an entering state: zamba2's width, the
+# smoke config's layer, and P, N that are not multiples of 4
+SSD_INIT = [(2, 300, 64, 64, 1, 64, 256), (2, 39, 16, 16, 1, 16, 16),
+            (1, 70, 4, 10, 1, 10, 32)]
+
+
+@pytest.mark.parametrize("case", SSD_INIT, ids=str)
+def test_ssd_scan_kernel_from_an_entering_state(cuda, case):
+    b, l, h, p, g, n, chunk = case
+    args = _ssd_inputs(cuda, case, seed=sum(case) + 1)
+    gen = torch.Generator(device=cuda).manual_seed(sum(case))
+    init = torch.randn(b, h, p, n, device=cuda, generator=gen)
+    before = LAUNCHES["ssd_scan_fwd"]
+    y, state, entering = ssd_ops.ssd_scan_launch(*args, chunk, init)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan_fwd"] == before + 1
+    want = ssd_ref.ssd_scan_ref(*args, chunk, init)
+    exact = ssd_ref.ssd_chunked(*(t.double() for t in args), chunk=chunk,
+                                init_state=init.double())
+    for got, w, e in zip((y, state), want, exact):
+        _ssd_close(got, w, e)
+    _close(entering, ssd_ref.entering_states(*args, chunk, init)[0])
+
+
+def test_ssd_scan_autograd_from_an_entering_state(cuda):
+    """The entering state's gradient and the others' through the op on the
+    card against autograd through the plain version on the card."""
+    shape = (2, 100, 8, 32, 2, 32, 32)
+    args = _ssd_inputs(cuda, shape, seed=12)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    init = torch.randn(2, 8, 32, 32, device=cuda, generator=gen)
+    wy = torch.randn(2, 100, 8, 32, device=cuda, generator=gen)
+    ws = torch.randn(2, 8, 32, 32, device=cuda, generator=gen)
+    ins = [t.clone().requires_grad_(True) for t in (*args, init)]
+    plain = [t.clone().requires_grad_(True) for t in (*args, init)]
+    y, s = ssd_ops.ssd_scan(*ins[:5], chunk=32, init_state=ins[5])
+    ((y * wy).sum() + (s * ws).sum()).backward()
+    y, s = ssd_ref.ssd_chunked(*plain[:5], chunk=32, init_state=plain[5])
+    ((y * wy).sum() + (s * ws).sum()).backward()
+    for a, b in zip(ins, plain):
+        _close(a.grad, b.grad)
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "minitron-4b",
+                                  "granite-34b", "internlm2-20b",
+                                  "zamba2-1.2b", "mamba2-2.7b"])
+def test_decode_matches_forward_on_card(cuda, arch):
+    """Greedy decode through the caches against the teacher-forced forward
+    (B4 and B5 on the card), at the smoke config, within the reference's
+    bar (2e-3, tests/test_arch_smoke.py); the decode logits also against
+    the CPU's decode from the same params."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+
+    cfg = get_smoke_config(arch)
+    params = transformer.init(torch.Generator().manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(1))
+    step = make_serve_step(cfg)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        cache = transformer.init_cache(cfg, 2, 16, device=dev)
+        logits = []
+        for i in range(12):
+            lg, cache = step(p, cache, toks[:, i:i + 1].to(dev))
+            logits.append(lg[:, 0])
+        out[str(dev)] = (p, torch.stack(logits, 1))
+    p, dec = out[str(cuda)]
+    reset_launches()
+    with torch.no_grad():
+        full, _ = transformer.forward(p, cfg, toks.to(cuda))
+    kernel = "ssd_scan_fwd" if arch == "mamba2-2.7b" else "flash_attention_fwd"
+    assert LAUNCHES[kernel] > 0, LAUNCHES
+    if arch == "zamba2-1.2b":
+        assert LAUNCHES["ssd_scan_fwd"] > 0, LAUNCHES
+    torch.testing.assert_close(dec, full, rtol=0, atol=2e-3)
+    _close(dec.cpu(), out["cpu"][1])
