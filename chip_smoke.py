@@ -155,6 +155,34 @@ and nothing of JAX or of the JAX package, and
         their plain versions at every shape the phase gave them, B5 from
         an entering state, and B6, B1 and B2 at (2,048, 200,064), each
         timed against its bound and a PyTorch call;
+     k. the published dtype, bf16 (``run_bf16``, the last phase): first the
+        kernels' bf16 forms against their plain versions on the same values
+        upcast (B4 at phi4-mini's (2, 1,024, 24/8, 128), zamba2's (4,
+        1,024, 32/32, 64) and the ring gate's window-64 shape, its bf16 o
+        within one bf16 ulp of the plain output rounded, and within the
+        reference's 2e-2 of the bf16 plain version, which rounds P; B1 and
+        B6 at the fp32 bar and B2's bf16 dls within one ulp, at (2,048,
+        200,064) and (4,092, 50,280); B5's casting wrapper around its
+        fp32 kernels at zamba2's prefill, timed as the wrapper's), each
+        timed against its bound at 2 bytes an element (B4's at its bf16
+        tensor-core arithmetic) and a PyTorch call (sdpa in bf16); then
+        phi4-mini-3.8b at
+        published width in bf16 with depth 32 -> 8 through two FedGKD
+        rounds of ``run_serial`` (2 clients x 2 batches of 2 x 1,024
+        tokens, M = 3, lr 0.1; B4's bf16 form, B6, B1/B2 launched; KD
+        non-zero in round 2), the same in fp32, each with its peak memory
+        and a profiled round; round 1 of the smoke config in bf16 on the
+        card against the CPU's bf16 and fp32 rounds (the CPU tests' bar:
+        no further from fp32 than twice the CPU's bf16 run, or one bf16
+        ulp); phi4-mini unchanged (32 layers, bf16): a last-position
+        prefill of 4 x 1,024, ``ServeLoop``, greedy decode over bf16 caches
+        against a forward in fp32 under that bar, ``ServeLoop``'s tokens
+        against the CPU's at 1 layer; mamba2-2.7b in bf16 at depth 4, one
+        round of the LM path's run and a profiled round, and its smoke
+        round 1 on the card against the CPU's under the same bar with one
+        local step a client (two steps are read, not gated: the second
+        amplifies the first's roundings, ROADMAP C); ``run_sharded``
+        with two clients on the card, equal to ``run_serial`` with two;
   5. profiles one steady-state round of each path (``torch.profiler``;
      FedGKD, MOON and FedGen for the baselines, an async aggregation
      pipelined and not, and a population round of the TOY and the
@@ -365,6 +393,34 @@ SERVE_KD_ROWS, SERVE_VOCAB = 2 * 1024, 200_064
 SERVE_KERNELS = ["flash_attention_fwd", "ssd_scan_fwd", "row_logsumexp",
                  "kd_kl_fwd", "kd_kl_bwd"]
 
+# the bf16 phase (``run_bf16``): the kernels' bf16 forms against their plain
+# versions (B4 at phi4-mini's (B, S, Hq, Hkv, D) of a step, zamba2's shared
+# block at its prefill, the ring gate's window; B1, B2 and B6 at phi4-mini's
+# and mamba2's (rows, vocab) of a step; B5 through its casting wrapper at
+# zamba2's prefill); phi4-mini at published width in bf16, depth 32 -> 8,
+# two FedGKD rounds of run_serial (2 clients x 2 batches of 2 x 1,024
+# tokens, M = 3) and the same in fp32; round 1 of the smoke config on the
+# card against the CPU's; phi4-mini unchanged (32 layers) for inference;
+# mamba2 at depth 4 for one round; run_sharded on the card twice over
+PEAK_BF16 = 989e12
+BF16_FLASH = [(2, 1024, 24, 8, 128, None), (4, 1024, 32, 32, 64, None),
+              (1, 160, 24, 8, 128, 64)]
+BF16_KD = [(2 * 1024, 200_064), (LM_BATCH * (LM_SEQ - 1), LM_VOCAB)]
+BF16_FLASH_TOL = 2e-2      # the reference's bf16 bar (P rounded to bf16)
+BF16_PHI_LAYERS = 8
+BF16_FL = dict(n_clients=2, batches_per_round=2, batch=2, seq=1025,
+               gamma=0.2, buffer_m=3, lr=0.1, seed=0)
+BF16_ROUNDS = 2
+# round 1 of the smoke phi4-mini in bf16, card against CPU: 2 clients x 2
+# batches of 2 x 128 positions
+BF16_CHECK = dict(BF16_FL, seq=129)
+# mamba2's, gated: one local step a client
+BF16_MAMBA_CHECK = dict(BF16_CHECK, batches_per_round=1)
+BF16_SHARDED = dict(rounds=1, batches_per_round=1, batch=2, seq=257,
+                    lr=0.1, seed=0)
+BF16_KERNELS = ["flash_attention_fwd_bf16", "row_logsumexp", "kd_kl_fwd",
+                "kd_kl_bwd"]
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -421,6 +477,18 @@ def tf32x3_bound_ms(nbytes: float, flops: float) -> dict:
     b, by = bound_ms(nbytes, 3 * flops, PEAK_TF32)
     return dict(bound_ms=b, bound_by=by,
                 fp32_bound_ms=bound_ms(nbytes, flops)[0])
+
+
+def bf16_flash_bound_ms(nbytes: float, flops: float) -> dict:
+    """B4's bound on bf16 inputs: Q·Kᵀ of bf16 values is exact as one bf16
+    tensor-core product (fp32 sums), and P·V with P kept in fp32 takes two
+    (P's high and low bf16 halves against V), all at the bf16 peak: 1.5 x
+    the FLOP (half of them in each product) at ``PEAK_BF16`` against the
+    bytes.  The 3xTF32 bound of the fp32 form's arithmetic goes beside
+    it."""
+    b, by = bound_ms(nbytes, 1.5 * flops, PEAK_BF16)
+    return dict(bound_ms=b, bound_by=by,
+                tf32x3_bound_ms=tf32x3_bound_ms(nbytes, flops)["bound_ms"])
 
 
 def compare(name: str, got, want) -> float:
@@ -2616,7 +2684,8 @@ def params_diff(a, b) -> float:
 
 def lm_config(n_layers: int):
     """mamba2-2.7b at its published width, depth cut to ``n_layers``, in
-    fp32 (the port's kernels are fp32; bf16 is later work)."""
+    fp32: the LM path's phase keeps its fp32 gates (the published bf16 runs
+    in ``run_bf16``)."""
     from repro_torch.configs import get_config
 
     return get_config(LM_ARCH).replace(n_layers=n_layers,
@@ -2706,8 +2775,9 @@ def run_lm_path(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 def serve_config(arch: str, n_layers: int, **kw):
-    """``arch`` at its published width, depth cut to ``n_layers``, in fp32
-    (the port's kernels are fp32; bf16 is ROADMAP A15.3)."""
+    """``arch`` at its published width, depth cut to ``n_layers``, in fp32:
+    the serve phase keeps its fp32 gates (the published bf16 runs in
+    ``run_bf16``)."""
     from repro_torch.configs import get_config
 
     return get_config(arch).replace(n_layers=n_layers, param_dtype="float32",
@@ -2715,12 +2785,14 @@ def serve_config(arch: str, n_layers: int, **kw):
 
 
 def serve_cuts(cfg) -> str:
-    """The cuts of a serve-phase config against the published one."""
+    """The cuts of a config against the published one."""
     from repro_torch.configs import get_config
 
     full = get_config(cfg.name)
-    return (f"depth {full.n_layers} -> {cfg.n_layers}, {full.param_dtype} "
-            f"-> fp32")
+    cuts = [f"depth {full.n_layers} -> {cfg.n_layers}"]
+    if cfg.param_dtype != full.param_dtype:
+        cuts.append(f"{full.param_dtype} -> {cfg.param_dtype}")
+    return ", ".join(cuts)
 
 
 def card_init(cfg, dev, seed: int = 0, init=None):
@@ -2737,10 +2809,25 @@ def card_init(cfg, dev, seed: int = 0, init=None):
     return tree_map(lambda t: t.to(dev), (init or transformer.init)(gen, cfg))
 
 
+@contextlib.contextmanager
+def card_weights(dev):
+    """``transformer.init`` draws on the card (``card_init``) inside the
+    block, for the trainers, which call it with a CPU generator."""
+    from repro_torch.models import transformer
+
+    real_init = transformer.init
+    transformer.init = lambda gen, c: card_init(c, dev, init=real_init)
+    try:
+        yield
+    finally:
+        transformer.init = real_init
+
+
 def greedy_decode(cfg, params, prompt, steps: int, dev):
-    """Decode ``prompt`` (B, S) one position at a time through the cache,
-    then ``steps`` greedy tokens: (each fed position's logits (B, S +
-    steps, V), the tokens fed (B, S + steps))."""
+    """Decode ``prompt`` (B, S) one position at a time through caches in
+    the activations' dtype (fp32 for the fp32 phases, the reference's bf16
+    default for bf16 models), then ``steps`` greedy tokens: (each fed
+    position's logits (B, S + steps, V), the tokens fed (B, S + steps))."""
     import torch
 
     from repro_torch.launch.steps import make_serve_step
@@ -2748,7 +2835,7 @@ def greedy_decode(cfg, params, prompt, steps: int, dev):
 
     step = make_serve_step(cfg)
     b, s = prompt.shape
-    cache = transformer.init_cache(cfg, b, s + steps, device=dev)
+    cache = transformer.init_cache(cfg, b, s + steps, cfg.adtype, device=dev)
     fed, outs, tok = [], [], None
     for i in range(s + steps):
         tok = prompt[:, i:i + 1] if i < s else tok
@@ -2845,7 +2932,8 @@ def serve_tokens_vs_cpu(label, cfg, params, prompts, card_out, dev) -> None:
                         ("card", dev, params)):
         cache = transformer.init_cache(cfg, SERVE_REQ["batch"],
                                        SERVE_REQ["prompt_len"]
-                                       + SERVE_REQ["gen"] + 1, device=d)
+                                       + SERVE_REQ["gen"] + 1, torch.float32,
+                                       device=d)
         t = toks.to(d)
         for i in range(plen + step):
             out, cache = serve_step(p, cache, t[:, i:i + 1])
@@ -3047,13 +3135,9 @@ def serve_runs(dev) -> None:
         f"{serve_cuts(cfg)}; FedGKD {SERVE_FL}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    real_init = transformer.init
-    transformer.init = lambda gen, c: card_init(c, dev, init=real_init)
-    try:
+    with card_weights(dev):
         out = run_serial(cfg, rounds=1, algo="fedgkd", device=dev,
                          verbose=False, **SERVE_FL)
-    finally:
-        transformer.init = real_init
     r = out["history"][0]
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     log(f"  FedGKD round: {r['seconds']:.3f} s, ppl {r['ppl']:.6g}, loss "
@@ -3096,7 +3180,8 @@ def serve_runs(dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(9)
     toks = torch.randint(0, cfg.vocab_size, (1, SERVE_RING_TOKENS),
                          device=dev, generator=gen)
-    cache = transformer.init_cache(wcfg, 1, SERVE_RING_TOKENS, device=dev)
+    cache = transformer.init_cache(wcfg, 1, SERVE_RING_TOKENS, torch.float32,
+                                   device=dev)
     serve_step = steps.make_serve_step(wcfg)
     outs = []
     for i in range(SERVE_RING_TOKENS):
@@ -3178,6 +3263,469 @@ def serve_arch(arch, cfg, params, dev, check) -> None:
                         prompts, stats, dev)
 
 
+# ---------------------------------------------------------------------------
+# the bf16 phase: the LM trainer and serving at the published dtype
+# ---------------------------------------------------------------------------
+
+def bf16_compare(name: str, got, want) -> float:
+    """``got`` (bf16) within one bf16 ulp of ``want`` (fp32, the plain
+    version on the same values upcast) rounded to bf16, plus the fp32 bar
+    (KERNEL_TOL of max|want|: a kernel's fp32 value may sit across a
+    rounding boundary from the plain version's by its fp32 error); raises
+    past it, returns max |got - want|."""
+    import torch
+
+    if got.dtype != torch.bfloat16:
+        raise AssertionError(f"{name}: {got.dtype}, not bf16")
+    w = want.to(torch.bfloat16).to(torch.float32)
+    _, e = torch.frexp(w)
+    ulp = torch.where(w != 0, torch.ldexp(torch.ones_like(w), e - 8),
+                      torch.zeros_like(w))
+    over = ((got.float() - w).abs() - ulp
+            - KERNEL_TOL * float(want.abs().max())).max()
+    if not float(over) <= 0.0:
+        raise AssertionError(f"{name}: {float(over):.3e} past one bf16 ulp "
+                             f"of the plain version")
+    return float((got.float() - want).abs().max())
+
+
+def bf16_parity(label: str, port, cpu_bf16, cpu_fp32,
+                gate: bool = True) -> float:
+    """The CPU parity tests' bar (tests/test_torch_bf16.py), leaf for leaf:
+    the card's bf16 result no further from the CPU's fp32 one than twice
+    the CPU's bf16 result is, or one bf16 ulp of the leaf's magnitude; the
+    dtypes equal.  Returns the largest ratio of the card's distance to its
+    bar; past the bar it raises, unless ``gate`` is false (a reading)."""
+    from repro_torch.tree import tree_leaves
+
+    worst = 0.0
+    for a, b, f in zip(tree_leaves(port), tree_leaves(cpu_bf16),
+                       tree_leaves(cpu_fp32), strict=True):
+        if a.dtype != b.dtype:
+            raise AssertionError(f"{label}: dtype {a.dtype} vs the CPU's "
+                                 f"{b.dtype}")
+        a, b, f = (t.detach().float().cpu() for t in (a, b, f))
+        e_card, e_cpu = float((a - f).abs().max()), float((b - f).abs().max())
+        bar = max(2 * e_cpu, 2.0 ** -8 * float(f.abs().max()))
+        worst = max(worst, e_card / bar if bar else 0.0)
+        if gate and not e_card <= bar:
+            raise AssertionError(f"{label}: card {e_card:.3e} from the CPU's "
+                                 f"fp32, CPU bf16 {e_cpu:.3e}, bar {bar:.3e}")
+    return worst
+
+
+def check_bf16_kernels(dev) -> list[dict]:
+    """The kernels' bf16 forms against their plain versions, timed:
+    B4 at ``BF16_FLASH`` (the fp32 plain version on the inputs upcast, to
+    one bf16 ulp; the bf16 plain version, which rounds P, at the
+    reference's 2e-2; sdpa in bf16 as the library call); B1, B2 and B6 at
+    ``BF16_KD`` (kl and the logsumexps at the fp32 bar, B2's bf16 dls to
+    one ulp); B5's casting wrapper, which runs the fp32 kernels, at
+    zamba2's prefill (y to one ulp, the fp32 state at the fp32 bar; its
+    time is logged as the wrapper's and is no entry of the kernels line).
+    Bounds count 2 bytes per bf16 element; B4's its bf16 tensor-core
+    arithmetic (``bf16_flash_bound_ms``), the wrapper's its FLOP at the
+    bf16 peak.  Returns the JSON entries, timed at the first shape of each
+    list."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.kd_kl import ops as kd_ops
+    from repro_torch.kernels.kd_kl import ref as kd_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    entries = {}
+    for b, s, hq, hkv, d, window in BF16_FLASH:
+        q = torch.randn(b, s, hq, d, device=dev, generator=gen).bfloat16()
+        k, v = (torch.randn(b, s, hkv, d, device=dev, generator=gen)
+                .bfloat16() for _ in range(2))
+        got = fa_ops.flash_attention_fwd(q, k, v, True, window)
+        want = fa_ref.attention_ref(q.float(), k.float(), v.float(),
+                                    window=window)
+        err = bf16_compare(f"flash_attention_fwd_bf16 {q.shape}", got, want)
+        plain = fa_ref.attention_ref(q, k, v, window=window).float()
+        e_plain = float((got.float() - plain).abs().max())
+        if not bool(((got.float() - plain).abs()
+                     <= BF16_FLASH_TOL * (1 + plain.abs())).all()):
+            raise AssertionError(f"flash bf16 {tuple(q.shape)}: {e_plain} "
+                                 f"from the bf16 plain version")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = fa_ref.causal_mask(s, s, window=window, device=dev)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=hkv != hq)
+
+        t = dict(ms=time_ms(lambda: fa_ops.flash_attention_fwd(
+                     q, k, v, True, window), reps=5, replays=4),
+                 plain_ms=time_ms(lambda: fa_ref.attention_ref(
+                     q, k, v, window=window), reps=2, replays=2),
+                 library_ms=time_ms(library, reps=5, replays=4))
+        flops = 4 * d * int(mask.sum()) * b * hq
+        nbytes = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+        t.update(bf16_flash_bound_ms(nbytes, flops))
+        log(f"  flash bf16 (B={b}, S={s}, Hq={hq}, Hkv={hkv}, D={d}, window "
+            f"{window}): err {err:.2e} (bf16 plain {e_plain:.2e}) kernel "
+            f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms sdpa bf16 "
+            f"{t['library_ms']:.4f} ms bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}; 3xTF32 {t['tf32x3_bound_ms']:.4f})")
+        rec = entries.setdefault("flash_attention_fwd_bf16", dict(
+            max_abs_err=0.0, **t))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    for rows, vocab in BF16_KD:
+        lt, ls = ((torch.randn(rows, vocab, device=dev, generator=gen) * 2)
+                  .bfloat16() for _ in range(2))
+        g = torch.randn(rows, device=dev, generator=gen)
+        lt32, ls32 = lt.float(), ls.float()
+        kl, lse_t, lse_s = kd_ops.kd_kl_fwd(lt, ls, 1.0)
+        want = kd_ref.kd_kl_fwd_ref(lt32, ls32, 1.0)
+        errs = {"kd_kl_fwd_bf16": max(
+            compare(f"kd_kl_fwd_bf16 ({rows}, {vocab}):{nm}", a, w)
+            for nm, a, w in zip(("kl", "lse_t", "lse_s"), (kl, lse_t, lse_s),
+                                want)),
+            "kd_kl_bwd_bf16": bf16_compare(
+                f"kd_kl_bwd_bf16 ({rows}, {vocab})",
+                kd_ops.kd_kl_bwd(lt, ls, lse_t, lse_s, g, 1.0),
+                kd_ref.kd_kl_bwd_ref(lt32, ls32, lse_t, lse_s, g, 1.0)),
+            "row_logsumexp_bf16": compare(
+                f"row_logsumexp_bf16 ({rows}, {vocab})",
+                kd_ops.row_lse_fwd(ls, 1.0),
+                kd_ref.row_logsumexp_ref(ls32, 1.0))}
+        n = rows * vocab
+        timed = {
+            "row_logsumexp_bf16": (
+                lambda: kd_ops.row_lse_fwd(ls, 1.0),
+                lambda: kd_ref.row_logsumexp_ref(ls, 1.0),
+                lambda: torch.logsumexp(ls, -1),
+                bound_ms(2 * n + 4 * rows, 4 * n)),
+            "kd_kl_fwd_bf16": (
+                lambda: kd_ops.kd_kl_fwd(lt, ls, 1.0),
+                lambda: kd_ref.kd_kl_fwd_ref(lt, ls, 1.0),
+                lambda: F.kl_div(F.log_softmax(ls, -1), F.log_softmax(lt, -1),
+                                 reduction="none", log_target=True).sum(-1),
+                bound_ms(4 * n + 12 * rows, 12 * n)),
+            "kd_kl_bwd_bf16": (
+                lambda: kd_ops.kd_kl_bwd(lt, ls, lse_t, lse_s, g, 1.0),
+                lambda: kd_ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g, 1.0),
+                None, bound_ms(6 * n + 12 * rows, 8 * n))}
+        for name, (kern, plain, lib, (bnd, by)) in timed.items():
+            t = dict(ms=time_ms(kern, reps=5, replays=4),
+                     plain_ms=time_ms(plain, reps=2, replays=2),
+                     library_ms=time_ms(lib, reps=2, replays=2) if lib
+                     else None, bound_ms=bnd, bound_by=by)
+            lib_s = f"{t['library_ms']:.4f}" if lib else "none"
+            log(f"  {name} ({rows}, {vocab}): err {errs[name]:.2e} kernel "
+                f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms library "
+                f"{lib_s} ms bound {bnd:.4f} ms ({by})")
+            rec = entries.setdefault(name, dict(max_abs_err=0.0, **t))
+            rec["max_abs_err"] = max(rec["max_abs_err"], errs[name])
+    (b, l, h, p), (_, _, g, n), chunk = SERVE_SSD_TIMED
+    x, dt, a, bm, cm = ssd_inputs(dev, gen, b, l, h, p, g, n)
+    x, bm, cm = (t.bfloat16() for t in (x, bm, cm))
+    y, state = ssd_ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    args = (x.float(), dt, a, bm.float(), cm.float())
+    want = ssd_ref.ssd_scan_ref(*args, chunk)
+    exact = ssd_ref.ssd_chunked(*(t.double() for t in args), chunk=chunk)
+    err = bf16_compare(f"ssd_scan wrapper, bf16 x{tuple(x.shape)}: y", y,
+                       want[0])
+    e_state = float((state - want[1]).abs().max())
+    if not e_state <= KERNEL_TOL * float(want[1].abs().max()) and not (
+            (state.double() - exact[1]).abs().max()
+            <= (want[1].double() - exact[1]).abs().max()):
+        raise AssertionError(f"ssd_scan wrapper, bf16: state {e_state:.3e}")
+    nbytes, flops = ssd_cost(b, l, h, p, g, n, chunk)
+    # x, B, C and y at 2 bytes, not ssd_cost's 4
+    nbytes -= 2 * (2 * b * l * h * p + 2 * b * l * g * n)
+    t = dict(ms=time_ms(lambda: ssd_ops.ssd_scan(x, dt, a, bm, cm,
+                                                 chunk=chunk), reps=5,
+                        replays=4),
+             plain_ms=time_ms(lambda: ssd_ref.ssd_scan_ref(
+                 x.float(), dt, a, bm.float(), cm.float(), chunk).__getitem__(
+                 0).bfloat16(), reps=2, replays=2),
+             bound=bound_ms(nbytes, flops, PEAK_BF16))
+    log(f"  ssd bf16 wrapper (casts around the fp32 kernels) x{tuple(x.shape)}"
+        f" B{tuple(bm.shape)} chunk {chunk}: y err {err:.2e} state err "
+        f"{e_state:.2e} wrapper {t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms"
+        f" bound {t['bound'][0]:.4f} ms ({t['bound'][1]}, FLOP at the bf16 "
+        f"peak)")
+    where = {"flash_attention_fwd_bf16": ("flash_attention.cu",
+                                          "flash_attention/kernel.py:28"),
+             "kd_kl_fwd_bf16": ("kd_kl.cu", "kd_kl/kernel.py:33"),
+             "kd_kl_bwd_bf16": ("kd_kl.cu", "kd_kl/kernel.py:113"),
+             "row_logsumexp_bf16": ("kd_kl.cu", "kd_kl/kernel.py:148")}
+    return [dict(name=name, route="cuda",
+                 source=f"src/repro_torch/csrc/{where[name][0]}",
+                 replaces=f"src/repro/kernels/{where[name][1]}", **rec)
+            for name, rec in entries.items()]
+
+
+def smoke_round_vs_cpu(arch: str, dev, run: dict,
+                       gate: bool = True) -> tuple[float, dict]:
+    """Round 1 of ``arch``'s smoke config in bf16 through ``run_serial`` on
+    the card, against the same round on the CPU in bf16 and in fp32 from
+    the same bf16 init upcast, under ``bf16_parity``: (the worst ratio to
+    the bar, the card run's launch counts)."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import run_serial
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+
+    scfg = get_smoke_config(arch).replace(param_dtype="bfloat16",
+                                          activation_dtype="bfloat16")
+    init = transformer.init(torch.Generator().manual_seed(0), scfg)
+    rounds, launches = {}, {}
+    real_init = transformer.init
+    try:
+        for where, c, d in (("card", scfg, dev), ("cpu", scfg, "cpu"),
+                            ("cpu fp32", fp32_of(scfg), "cpu")):
+            transformer.init = lambda gen, c_, c=c: tree_map(
+                lambda t: t.to(c.pdtype) if t.dtype == torch.bfloat16 else t,
+                init)
+            reset_launches()
+            rounds[where] = run_serial(c, rounds=1, algo="fedgkd", device=d,
+                                       verbose=False, **run)
+            if where == "card":
+                launches = dict(LAUNCHES)
+    finally:
+        transformer.init = real_init
+    worst = bf16_parity(f"bf16 {arch} round 1, card against CPU",
+                        rounds["card"]["params"], rounds["cpu"]["params"],
+                        rounds["cpu fp32"]["params"], gate=gate)
+    loss = {k: r["history"][0]["loss"] for k, r in rounds.items()}
+    log(f"  round 1 of the smoke {arch} in bf16 ({run}): card at {worst:.3f} "
+        f"of the bar (2 x the CPU bf16 run's distance to its fp32 run)"
+        f"{'' if gate else ', a reading'}; losses card {loss['card']:.6f} "
+        f"CPU {loss['cpu']:.6f} fp32 {loss['cpu fp32']:.6f}")
+    return worst, launches
+
+
+def bf16_config(arch: str, n_layers: int):
+    """``arch`` at its published width and dtypes (bf16), depth cut to
+    ``n_layers``."""
+    from repro_torch.configs import get_config
+
+    return get_config(arch).replace(n_layers=n_layers)
+
+
+def fp32_of(cfg):
+    return cfg.replace(param_dtype="float32", activation_dtype="float32")
+
+
+def run_bf16(dev) -> tuple[dict, list]:
+    """The kernels' bf16 forms (``check_bf16_kernels``), then the bf16 main
+    paths (``bf16_runs``) with every launch count set to 0 just before and
+    read just after each run.  Returns (launch counts, the bf16 kernels'
+    JSON entries)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    entries = check_bf16_kernels(dev)
+    launches = bf16_runs(dev)
+    log(f"bf16 phase: {time.perf_counter() - t0:.1f} s; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return launches, entries
+
+
+def bf16_fl(label, cfg, dev, run, rounds) -> tuple[dict, dict, float]:
+    """``rounds`` FedGKD rounds of ``run_serial`` on the card from a card
+    init, the launch counts set to 0 just before and read just after,
+    then round 2 of another 2 rounds profiled (``profile_round``): (the
+    run's output, the launch counts, peak GiB)."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import run_serial
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with card_weights(dev):
+        reset_launches()
+        out = run_serial(cfg, rounds=rounds, algo="fedgkd", device=dev,
+                         verbose=False, **run)
+        launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    for r in out["history"]:
+        log(f"  {label} round {r['round']}: {r['seconds']:.3f} s ppl "
+            f"{r['ppl']:.6g} loss {r['loss']:.6f} kd {r['kd']:.6e}")
+    log(f"  {label}: peak device memory {peak:.2f} GiB, launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    values = [v for r in out["history"] for v in (r["loss"], r["kd"])]
+    if not (all(map(math.isfinite, values)) and all_finite(out["params"])):
+        raise AssertionError(f"{label}: non-finite loss or params")
+    out["dtypes"] = sorted({str(t.dtype) for t in
+                            tree_leaves(out.pop("params"))})
+    with card_weights(dev):
+        profile_round(dev, label, lambda cb: run_serial(
+            cfg, rounds=2, algo="fedgkd", device=dev, verbose=False,
+            round_callback=cb, **run))
+    return out, launches, peak
+
+
+def bf16_runs(dev) -> dict:
+    """phi4-mini in bf16 at depth 8: ``BF16_ROUNDS`` FedGKD rounds (B4 in
+    bf16, B6, B1 and B2 launched; KD non-zero in round 2; peak GiB), the
+    same rounds in fp32 for comparison, and round 1 of the smoke config on
+    the card against the CPU's (``bf16_parity``); phi4-mini unchanged (32
+    layers, bf16): a last-position prefill, ``ServeLoop``, greedy decode
+    against the forward under ``bf16_parity``'s bar, ``ServeLoop``'s tokens
+    against the CPU's at 1 layer; mamba2 in bf16 at depth 4, one round
+    beside the LM phase's fp32 rounds, and its smoke round against the
+    CPU's (``smoke_round_vs_cpu``); ``run_sharded`` on the card twice
+    over against ``run_serial`` at depth 2.  Returns the launch counts of
+    the card's runs."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.train import run_serial, run_sharded
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+
+    total = dict.fromkeys(LAUNCHES, 0)
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] += n
+
+    # phi4-mini at depth 8, bf16 as published, then fp32
+    cfg = bf16_config("phi4-mini-3.8b", BF16_PHI_LAYERS)
+    log(f"bf16, phi4-mini-3.8b: d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} x {cfg.head_dim}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count():,} params; cuts: {serve_cuts(cfg)}; remat "
+        f"{cfg.remat}; FedGKD {BF16_FL} x {BF16_ROUNDS} rounds")
+    out, launches, peak = bf16_fl("bf16", cfg, dev, BF16_FL, BF16_ROUNDS)
+    add(launches)
+    missing = [k for k in BF16_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the bf16 phi4-mini "
+                             f"path: {missing}")
+    if not out["history"][-1]["kd"] > 0:
+        raise AssertionError("bf16 phi4-mini: the KD term is 0 in round 2")
+    if out["dtypes"] != ["torch.bfloat16"]:
+        raise AssertionError(f"bf16 phi4-mini: params in {out['dtypes']}")
+    del out
+    out, launches32, peak32 = bf16_fl("fp32 (for comparison)", fp32_of(cfg),
+                                      dev, BF16_FL, BF16_ROUNDS)
+    add(launches32)
+    del out
+    log(f"  phi4-mini depth {cfg.n_layers}: peak {peak:.2f} GiB in bf16, "
+        f"{peak32:.2f} GiB in fp32")
+
+    # round 1 of the smoke config, card against the CPU
+    add(smoke_round_vs_cpu("phi4-mini-3.8b", dev, BF16_CHECK)[1])
+
+    # phi4-mini unchanged: 32 layers, bf16, inference
+    cfg = bf16_config("phi4-mini-3.8b", 32)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = card_init(cfg, dev)
+    log(f"bf16, phi4-mini-3.8b unchanged: {cfg.n_layers} layers, "
+        f"{cfg.param_count():,} params")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, SERVE_PREFILL,
+                                     device=dev, generator=gen)}
+    reset_launches()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    last = steps.make_prefill_step(cfg, last_only=True)(params, batch)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    prompts = make_prompts(SERVE_REQ["requests"], cfg.vocab_size,
+                           SERVE_REQ["prompt_len"])
+    stats = serve_on(cfg, params, prompts, dev)
+    add(dict(LAUNCHES))
+    log(f"  prefill (last_only) of {SERVE_PREFILL}: {ms:.1f} ms; ServeLoop: "
+        f"{SERVE_REQ['requests']} requests, batch {SERVE_REQ['batch']}, "
+        f"{SERVE_REQ['gen']} generated: {stats['seconds']:.4f} s, "
+        f"{stats['decode_steps']} decode steps, {stats['tok_per_s']:.2f} tok/s")
+    if not (tuple(last.shape) == (SERVE_PREFILL[0], 1, cfg.vocab_size)
+            and all_finite(last)):
+        raise AssertionError("bf16 phi4-mini prefill: wrong shape or "
+                             "non-finite")
+    del last
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (SERVE_CHECK_BATCH, SERVE_DECODE_PROMPT),
+                           device=dev, generator=gen)
+    dec, toks = greedy_decode(cfg, params, prompt, SERVE_DECODE_STEPS, dev)
+    with torch.no_grad():
+        full, _ = transformer.forward(params, cfg, toks)
+        params32 = tree_map(lambda t: t.float(), params)
+        full32, _ = transformer.forward(params32, fp32_of(cfg), toks)
+    del params32
+    worst = bf16_parity("bf16 phi4-mini decode against its forward",
+                        [dec], [full], [full32])
+    log(f"  greedy decode over {toks.shape[1]} positions (bf16 caches): "
+        f"{float((dec - full32).abs().max()):.3e} from the fp32 forward, "
+        f"the bf16 forward {float((full - full32).abs().max()):.3e} (max "
+        f"|logit| {float(full32.abs().max()):.3e}); {worst:.3f} of the bar; "
+        f"peak {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    del params, dec, full, full32
+    torch.cuda.empty_cache()
+    ccfg = bf16_config("phi4-mini-3.8b", 1)
+    cparams = card_init(ccfg, dev, seed=1)
+    cstats = serve_on(ccfg, cparams, prompts, dev)
+    serve_tokens_vs_cpu("bf16 phi4-mini-3.8b (1 layer)", ccfg, cparams,
+                        prompts, cstats, dev)
+    del cparams
+
+    # mamba2 in bf16 at the LM phase's depth and run
+    mcfg = bf16_config(LM_ARCH, LM_LAYERS)
+    log(f"bf16, {LM_ARCH}: {serve_cuts(mcfg)}; FedGKD {LM_RUN}")
+    out, launches, peak = bf16_fl(f"bf16 {LM_ARCH}", mcfg, dev, LM_RUN, 1)
+    add(launches)
+    missing = [k for k in LM_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the bf16 {LM_ARCH} "
+                             f"path: {missing}")
+    del out
+    # its smoke round on the card against the CPU's: gated with one local
+    # step a client; a client's second step amplifies the first step's
+    # one-ulp differences several times over in either package (ROADMAP
+    # C), so the two-step round is read, not gated
+    add(smoke_round_vs_cpu(LM_ARCH, dev, BF16_MAMBA_CHECK)[1])
+    smoke_round_vs_cpu(LM_ARCH, dev, BF16_CHECK, gate=False)
+
+    # the one-client-per-device round, the card twice over
+    cfg = bf16_config("phi4-mini-3.8b", 2)
+    with card_weights(dev):
+        reset_launches()
+        t0 = time.perf_counter()
+        sharded = run_sharded(cfg, devices=[dev, dev], verbose=False,
+                              **BF16_SHARDED)
+        t_sharded = time.perf_counter() - t0
+        add(dict(LAUNCHES))
+        serial = run_serial(cfg, n_clients=2, device=dev, verbose=False,
+                            **BF16_SHARDED)
+    diff = params_diff(sharded["params"], serial["params"])
+    log(f"  run_sharded on [card, card] (phi4-mini bf16, depth 2, "
+        f"{BF16_SHARDED}): {t_sharded:.2f} s, loss "
+        f"{sharded['history'][0]['loss']:.6f}, ppl "
+        f"{sharded['history'][0]['ppl']:.6g}; against run_serial(n_clients=2)"
+        f": max param diff {diff:.3e}, ppl {serial['history'][0]['ppl']:.6g}")
+    # the perplexity may be inf: phi4-mini's tied head at full width gives
+    # the input token a logit of ~|e|^2 ~ d_model from the init, an eval
+    # CE past float64's exp (as in the serve phase's round)
+    if not (math.isfinite(sharded["history"][0]["loss"])
+            and all_finite(sharded["params"])):
+        raise AssertionError("run_sharded on the card: non-finite loss or "
+                             "params")
+    if not (diff == 0.0 and sharded["history"][0]["ppl"]
+            == serial["history"][0]["ppl"]):
+        raise AssertionError(f"run_sharded on the card twice over differs "
+                             f"from run_serial: {diff}")
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3250,6 +3798,9 @@ def main() -> int:
         counts, errs = phase(dev)
         launches.append(counts)
         path_errs.append(errs)
+    counts, bf16_entries = run_bf16(dev)
+    launches.append(counts)
+    kernels += bf16_entries
     for k in kernels:
         k["launches"] = sum(counts[k["name"]] for counts in launches)
         k["max_abs_err"] = max([k["max_abs_err"]] + [

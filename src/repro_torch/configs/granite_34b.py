@@ -3,8 +3,8 @@
 88L d_model=6144 48H (MQA: kv=1) d_ff=24576 vocab=49152.
 GPTBigCode-style: LayerNorm + GELU, multi-query attention, biased q/k/v.
 The original uses learned absolute positions; the reference uses RoPE,
-and so does the port.  bf16 as published; the port builds float32 only
-(ROADMAP A15.3).
+and so does the port.  bf16 parameters and activations as published, and
+the port builds it so.
 """
 from repro_torch.configs import base
 from repro_torch.models.config import ModelConfig

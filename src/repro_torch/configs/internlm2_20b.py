@@ -1,8 +1,8 @@
 """internlm2-20b [dense] — arXiv:2403.17297.
 
 48L d_model=6144 48H (GQA kv=8) d_ff=16384 vocab=92544, an untied LM head,
-RoPE theta 1e6.  bf16 as published; the port builds float32 only (ROADMAP
-A15.3).
+RoPE theta 1e6.  bf16 parameters and activations as published, and the
+port builds it so.
 """
 from repro_torch.configs import base
 from repro_torch.models.config import ModelConfig

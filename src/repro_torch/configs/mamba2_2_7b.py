@@ -1,9 +1,9 @@
 """mamba2-2.7b [ssm] — arXiv:2405.21060 (SSD / state-space duality).
 
 64L d_model=2560, attention-free, d_ff=0, vocab=50280, ssm_state=128,
-head_dim=64, expand=2.  The reference's config unchanged, bf16 included;
-the port builds the model in float32 only (bf16 is ROADMAP A15.3), so a
-caller that runs it on the card replaces the dtypes.
+head_dim=64, expand=2.  The reference's config unchanged, bf16 parameters
+and activations included, and the port builds it so (``dt_bias``,
+``A_log`` and ``D`` stay fp32, as in the reference).
 """
 from repro_torch.configs import base
 from repro_torch.models.config import ModelConfig

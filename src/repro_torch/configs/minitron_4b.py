@@ -2,8 +2,8 @@
 
 32L d_model=3072 24H (GQA kv=8) d_ff=9216 vocab=256000, head_dim=128.
 Nemotron uses squared-ReLU MLPs; the reference keeps its SwiGLU MLP at
-the same d_ff, and so does the port.  bf16 as published; the port builds
-float32 only (ROADMAP A15.3).
+the same d_ff, and so does the port.  bf16 parameters and activations as
+published, and the port builds it so.
 """
 from repro_torch.configs import base
 from repro_torch.models.config import ModelConfig

@@ -3,9 +3,8 @@
 32L d_model=3072 24H (GQA kv=8) d_ff=8192 vocab=200064. RoPE + SwiGLU + GQA.
 ``long_variant()`` is the reference's long-context demonstration: a 4k
 sliding window, which the decode path keeps as a ring buffer.  The
-reference's config unchanged, bf16 included; the port builds the model in
-float32 only (bf16 is ROADMAP A15.3), so a caller that runs it on the
-card replaces the dtypes.
+reference's config unchanged, bf16 parameters and activations included,
+and the port builds it so.
 """
 from repro_torch.configs import base
 from repro_torch.models.config import ModelConfig

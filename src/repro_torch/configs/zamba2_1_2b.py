@@ -2,8 +2,8 @@
 
 38 Mamba2 layers (d_model=2048, ssm_state=64) + a SHARED attention+MLP block
 (32H, kv=32, d_ff=8192) applied every 6 Mamba layers, consuming
-[h ; embedding-stream] (the Zamba re-injection trick).  bf16 as published;
-the port builds float32 only (ROADMAP A15.3).
+[h ; embedding-stream] (the Zamba re-injection trick).  bf16 parameters
+and activations as published, and the port builds it so.
 """
 from repro_torch.configs import base
 from repro_torch.models.config import ModelConfig

@@ -37,6 +37,9 @@ _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 SIGNATURES = {
     "kd_kl_fwd_f32": [_P, _P, _P, _P, _P, _I64, _I64, _F32, _F32, _P],
     "kd_kl_bwd_f32": [_P, _P, _P, _P, _P, _P, _I64, _I64, _F32, _F32, _P],
+    # the same on bf16 logits (kl and the logsumexps fp32, dls bf16)
+    "kd_kl_fwd_bf16": [_P, _P, _P, _P, _P, _I64, _I64, _F32, _F32, _P],
+    "kd_kl_bwd_bf16": [_P, _P, _P, _P, _P, _P, _I64, _I64, _F32, _F32, _P],
     # x, w, y; K, N, H, W, Cin, OH, OW, Cout; kh, kw, stride, pad_top,
     # pad_left; the tile plan (images, rows, cols, Cin chunk, bn, stages,
     # shared-memory bytes); stream
@@ -46,8 +49,12 @@ SIGNATURES = {
     # q, k, v and o; causal, window; scale; stream
     "flash_attention_fwd_f32": [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
                                + [_I64, _I64, _F32, _P],
+    # the same on bf16 q, k, v and o
+    "flash_attention_fwd_bf16": [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
+                                + [_I64, _I64, _F32, _P],
     # logits, out; rows, vocab; 1 / temperature; stream
     "row_lse_f32": [_P, _P, _I64, _I64, _F32, _P],
+    "row_lse_bf16": [_P, _P, _I64, _I64, _F32, _P],
     # x, dt, A, B, C, y, state; the scratch: states, cb, decay; batch, L,
     # H, P, G, N, chunk; the strides of x (4), dt (3), A (1), B (4) and C
     # (4); the plan (vec_x, vec_bc, chunk_smem, out_smem); stream

@@ -10,10 +10,14 @@ Forward: on a CUDA tensor ``flash_attention_fwd`` launches the kernel of
 and counts the launch; on a CPU tensor it takes ``ref.attention_ref``.
 Nothing falls back from one to the other.  The kernel reads the inputs
 through their strides and copies nothing unless the last axis is strided.
+fp32 inputs take its fp32 form (``flash_attention_fwd``'s count), bf16
+inputs its bf16 form (``flash_attention_fwd_bf16``: bf16 read, fp32
+arithmetic, o written in bf16); any other type raises.
 
-Backward: attention recomputed with PyTorch matmuls on either device
-(``attention_bwd``), as the reference's custom VJP recomputes through the
-plain attention outside Pallas: P from q and k, dV = Pᵀ·dO,
+Backward: attention recomputed with PyTorch matmuls in fp32 on either
+device (``attention_bwd``; the gradients cast to the inputs' dtypes), as
+the reference's custom VJP recomputes through the plain attention outside
+Pallas: P from q and k, dV = Pᵀ·dO,
 dP = dO·Vᵀ, dS = P∘(dP − rowsum(dO∘O)), dQ = scale·dS·K, dK = scale·dSᵀ·Q,
 with dK and dV summed over each GQA group.  A backward kernel is later
 work.
@@ -38,13 +42,18 @@ BLOCK_Q = 64            # query rows per thread block (csrc kBlockQ)
 BLOCK_KV = 64           # keys per staged tile (csrc kBlockKV)
 THREADS = 128           # 4 warps of 16 query rows
 MAX_SMEM = 232_448      # the shared memory one block may take on sm_90
+# input type -> (C entry point, launch counter)
+_FORMS = {torch.float32: ("flash_attention_fwd_f32", "flash_attention_fwd"),
+          torch.bfloat16: ("flash_attention_fwd_bf16",
+                           "flash_attention_fwd_bf16")}
 
 
 def launch_plan(b: int, sq: int, hq: int, d: int):
     """(grid, threads, shared-memory bytes) of the kernel's launch: a block
     per (batch * query head, 64 query rows); the q tile and two stages of
     k and v tiles, head_dim padded to a multiple of 32 and each row by 4
-    floats (csrc smem_floats)."""
+    floats (csrc smem_bytes of the fp32 form; the bf16 form's one fp32
+    k/v stage and two raw bf16 stages take less)."""
     dp = 32 * -(-d // 32)
     smem = 4 * (BLOCK_Q + 4 * BLOCK_KV) * (dp + 4)
     return (b * hq, -(-sq // BLOCK_Q)), THREADS, smem
@@ -72,9 +81,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise TypeError(f"the flash attention kernel takes float32, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in _FORMS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the flash attention kernel takes float32 or "
+                        f"bfloat16 q, k and v of one type, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    entry, counter = _FORMS[q.dtype]
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if d > MAX_HEAD_DIM:
@@ -85,14 +96,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"grid too large for q {tuple(q.shape)}")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty((b, sq, hq, d), device=q.device, dtype=q.dtype)
-    rc = build.library().flash_attention_fwd_f32(
+    rc = getattr(build.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         b, sq, skv, hq, hkv, d, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *o.stride()[:3], int(causal),
         int(window) if (causal and window is not None) else 0,
         1.0 / math.sqrt(d), build.stream_of(q))
-    build.check(rc, "flash_attention_fwd")
-    LAUNCHES["flash_attention_fwd"] += 1
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
     return o
 
 

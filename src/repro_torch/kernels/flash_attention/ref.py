@@ -3,6 +3,12 @@
 A port of ``repro.models.attention``'s ``causal_mask`` and
 ``dot_product_attention``: grouped-query heads by head grouping, masked
 logits set to ``-2**30`` (finite, so a row is never NaN), softmax in fp32.
+It rounds where the reference rounds: the logits are summed in fp32 from
+q and k as they are, the probabilities are cast to v's dtype before P·V
+(so bf16 under a bf16 v), P·V is summed in fp32 and the output cast to
+q's dtype.  (The products of two bf16 values are exact in fp32, so fp32
+arithmetic on upcast operands is the reference's
+``preferred_element_type=float32``.)
 It is the CPU path of ``ops.flash_attention_gqa`` and the yardstick the
 card compares the kernel with; nothing on the card's path calls it.  It
 materialises the (B, Hkv, G, Sq, Skv) logits, which the kernel never does.
@@ -53,7 +59,9 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``mask`` (Sq, Skv) or ``None``."""
     b, sq, hq, d = q.shape
     probs = attention_probs(q, k, mask, scale)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
+    out = torch.einsum("bhgqk,bkhd->bqhgd",
+                       probs.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
 

@@ -13,6 +13,11 @@ g·softmax(l / T) / T.
 On a CUDA tensor the wrappers launch the kernels of ``csrc/kd_kl.cu``
 (built at first use) and raise if a launch fails; on a CPU tensor they take
 the plain versions in ``ref.py``.  Nothing falls back from one to the other.
+The kernels read fp32 or bf16 logits (their bf16 forms count under
+``*_bf16``) and compute in fp32, as the reference's Pallas kernels do: kl
+and the logsumexps are fp32, B2's ``dls`` is written in the student's
+type.  A teacher and a student of two types meet in fp32 (the bf16 one
+cast up, which is exact).  Any other type raises.
 
 Under ``torch.func`` (``grad``, ``vmap`` and their compositions, as the
 executor's vmapped round body runs them) the Functions' vmap rules fold
@@ -28,14 +33,30 @@ from repro_torch.kernels import LAUNCHES, build
 from repro_torch.kernels.kd_kl import ref
 
 
-def _check(t: torch.Tensor, what: str) -> torch.Tensor:
-    if t.dtype != torch.float32:
-        raise TypeError(f"kd_kl kernels take float32 {what}, got {t.dtype}")
+# logits type -> the C entry points' suffix and the counters' suffix
+_FORMS = {torch.float32: ("f32", ""), torch.bfloat16: ("bf16", "_bf16")}
+
+
+def _check(t: torch.Tensor, what: str, types=(torch.float32,)) -> torch.Tensor:
+    if t.dtype not in types:
+        raise TypeError(f"kd_kl kernels take {what} in "
+                        f"{[str(d) for d in types]}, got {t.dtype}")
     return t.contiguous()
 
 
+def _logits(lt: torch.Tensor, ls: torch.Tensor):
+    """Teacher and student logits of one type the kernels read, with the
+    entry points' and counters' suffixes."""
+    lt = _check(lt, "teacher logits", tuple(_FORMS))
+    ls = _check(ls, "student logits", tuple(_FORMS))
+    if lt.dtype != ls.dtype:
+        lt, ls = lt.to(torch.float32), ls.to(torch.float32)
+    return lt, ls, _FORMS[lt.dtype]
+
+
 def kd_kl_fwd(lt: torch.Tensor, ls: torch.Tensor, temperature: float):
-    """(T, V) x (T, V) -> (kl (T,), lse_t (T,), lse_s (T,)), fp32."""
+    """(T, V) x (T, V), fp32 or bf16 -> (kl (T,), lse_t (T,), lse_s
+    (T,)), fp32."""
     if lt.shape != ls.shape or lt.ndim != 2:
         raise ValueError(f"kd_kl_fwd wants two (T, V) tensors, got "
                          f"{tuple(lt.shape)} and {tuple(ls.shape)}")
@@ -43,42 +64,45 @@ def kd_kl_fwd(lt: torch.Tensor, ls: torch.Tensor, temperature: float):
         return ref.kd_kl_fwd_ref(lt, ls, temperature)
     if ls.device != lt.device:
         raise ValueError(f"teacher on {lt.device}, student on {ls.device}")
-    lt, ls = _check(lt, "teacher logits"), _check(ls, "student logits")
+    lt, ls, (entry, counter) = _logits(lt, ls)
     rows, vocab = lt.shape
     kl, lse_t, lse_s = (torch.empty(rows, device=lt.device) for _ in range(3))
-    rc = build.library().kd_kl_fwd_f32(
+    rc = getattr(build.library(), "kd_kl_fwd_" + entry)(
         lt.data_ptr(), ls.data_ptr(), kl.data_ptr(), lse_t.data_ptr(),
         lse_s.data_ptr(), rows, vocab, 1.0 / temperature,
         temperature * temperature, build.stream_of(lt))
-    build.check(rc, "kd_kl_fwd")
-    LAUNCHES["kd_kl_fwd"] += 1
+    build.check(rc, "kd_kl_fwd" + counter)
+    LAUNCHES["kd_kl_fwd" + counter] += 1
     return kl, lse_t, lse_s
 
 
 def kd_kl_bwd(lt, ls, lse_t, lse_s, g, temperature: float) -> torch.Tensor:
-    """Student gradient g·(p_S − p_T)·temp, (T, V) fp32."""
+    """Student gradient g·(p_S − p_T)·temp, (T, V) in the student's type;
+    lse_t, lse_s and g (T,) fp32."""
     if (lt.ndim != 2 or lt.shape != ls.shape
             or any(t.shape != lt.shape[:1] for t in (lse_t, lse_s, g))):
         raise ValueError(
             f"kd_kl_bwd wants (T, V) logits and (T,) rows, got "
             f"{[tuple(t.shape) for t in (lt, ls, lse_t, lse_s, g)]}")
     if not lt.is_cuda:
-        return ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g, temperature)
+        return ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g,
+                                 temperature).to(ls.dtype)
     if any(t.device != lt.device for t in (ls, lse_t, lse_s, g)):
         raise ValueError(f"kd_kl_bwd inputs on several devices, teacher on "
                          f"{lt.device}")
-    lt, ls = _check(lt, "teacher logits"), _check(ls, "student logits")
+    student = ls.dtype
+    lt, ls, (entry, counter) = _logits(lt, ls)
     lse_t, lse_s = _check(lse_t, "lse_t"), _check(lse_s, "lse_s")
     g = _check(g, "row gradient")
     rows, vocab = lt.shape
     dls = torch.empty_like(ls)
-    rc = build.library().kd_kl_bwd_f32(
+    rc = getattr(build.library(), "kd_kl_bwd_" + entry)(
         lt.data_ptr(), ls.data_ptr(), lse_t.data_ptr(), lse_s.data_ptr(),
         g.data_ptr(), dls.data_ptr(), rows, vocab, 1.0 / temperature,
         float(temperature), build.stream_of(lt))
-    build.check(rc, "kd_kl_bwd")
-    LAUNCHES["kd_kl_bwd"] += 1
-    return dls
+    build.check(rc, "kd_kl_bwd" + counter)
+    LAUNCHES["kd_kl_bwd" + counter] += 1
+    return dls.to(student)
 
 
 def _fold_rows(info, in_dims, *args):
@@ -159,19 +183,20 @@ def kd_kl_loss(teacher_logits: torch.Tensor, student_logits: torch.Tensor,
 
 
 def row_lse_fwd(logits: torch.Tensor, temperature: float) -> torch.Tensor:
-    """(T, V) -> (T,) logsumexp(l / temperature), fp32."""
+    """(T, V) fp32 or bf16 -> (T,) logsumexp(l / temperature), fp32."""
     if logits.ndim != 2:
         raise ValueError(f"row_logsumexp wants (T, V), got {tuple(logits.shape)}")
     if not logits.is_cuda:
         return ref.row_logsumexp_ref(logits, temperature)
-    logits = _check(logits, "logits")
+    logits = _check(logits, "logits", tuple(_FORMS))
+    entry, counter = _FORMS[logits.dtype]
     rows, vocab = logits.shape
     out = torch.empty(rows, device=logits.device)
-    rc = build.library().row_lse_f32(logits.data_ptr(), out.data_ptr(), rows,
-                                     vocab, 1.0 / temperature,
-                                     build.stream_of(logits))
-    build.check(rc, "row_logsumexp")
-    LAUNCHES["row_logsumexp"] += 1
+    rc = getattr(build.library(), "row_lse_" + entry)(
+        logits.data_ptr(), out.data_ptr(), rows, vocab, 1.0 / temperature,
+        build.stream_of(logits))
+    build.check(rc, "row_logsumexp" + counter)
+    LAUNCHES["row_logsumexp" + counter] += 1
     return out
 
 

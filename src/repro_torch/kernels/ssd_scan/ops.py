@@ -5,7 +5,10 @@ of the reference's ``repro.kernels.ssd_scan.ops.ssd_scan`` and of
 ``ref.ssd_chunked``: x (B, L, H, P), dt (B, L, H) (softplus'ed), A (H,)
 negative, B and C (B, L, G, N) with G dividing H, and the state entering
 the first chunk, ``init_state`` (B, H, P, N), or zero; it returns
-(y (B, L, H, P), final state (B, H, P, N)), fp32.
+(y (B, L, H, P) in x's dtype, final state (B, H, P, N) fp32).  As the
+reference's wrapper does, it casts its inputs to fp32 around the kernels
+(fp32 or bf16 x); the kernels themselves take fp32 only, and their
+launches count as ``ssd_scan_fwd`` whatever x's dtype.
 
 Forward: on a CUDA tensor ``ssd_scan_fwd`` launches the kernels of
 ``csrc/ssd_scan.cu`` (built at first use; a failed launch raises) and
@@ -229,5 +232,12 @@ class _SSDScan(torch.autograd.Function):
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int,
              init_state: Optional[torch.Tensor] = None):
-    """SSD scan, one counted launch forward: (y, final state), fp32."""
-    return _SSDScan.apply(x, dt, A, B, C, init_state, int(chunk))
+    """SSD scan, one counted launch forward: (y in x's dtype, final state
+    fp32), every input cast to fp32 around the kernels."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ssd_scan takes a float32 or bfloat16 x, got "
+                        f"{x.dtype}")
+    f32 = lambda t: None if t is None else t.to(torch.float32)
+    y, state = _SSDScan.apply(f32(x), f32(dt), f32(A), f32(B), f32(C),
+                              f32(init_state), int(chunk))
+    return y.to(x.dtype), state

@@ -33,9 +33,11 @@ from repro_torch.tree import tree_leaves, tree_map
 
 class ServeLoop:
     """Serves prompts with ``params`` on their device; ``max_len`` slots of
-    KV cache a wave.  (The reference's ``__init__`` also takes a cache
+    KV cache a wave.  Each wave's cache is float32 whatever the model's
+    dtypes, as the reference's ``run`` asks for it (``init_cache``'s own
+    default is bf16).  (The reference's ``__init__`` also takes a cache
     dtype for a cache it allocates and never reads; the port makes only
-    the float32 cache of each wave, as the reference's ``run`` does.)"""
+    the cache of each wave.)"""
 
     def __init__(self, cfg, params, batch: int, max_len: int):
         self.cfg, self.params = cfg, params
@@ -55,7 +57,7 @@ class ServeLoop:
             wave, queue = queue[: self.batch], queue[self.batch:]
             # a fresh cache per wave (batch-synchronous serving)
             cache = transformer.init_cache(self.cfg, self.batch, self.max_len,
-                                           device=self.device)
+                                           torch.float32, device=self.device)
             plen = max(len(p) for _, p in wave)
             toks = np.zeros((self.batch, plen), np.int32)
             for i, (_, p) in enumerate(wave):

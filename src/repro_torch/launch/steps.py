@@ -13,10 +13,11 @@ kernels on a card, their plain versions on the CPU.  ``make_serve_step``
 is one token of decode over the cache (plain PyTorch, as in the
 reference) and ``make_prefill_step`` an inference forward without
 gradients, of every position or of the last only.
+``make_aggregate_step`` is the server's weighted mean of the sharded
+round (``launch.train.run_sharded``).
 
 Not ported yet: kd_mode "cached_topk", frontends and encoder-decoder
-inputs (ROADMAP A15.7), MTP (A15.5), and the sharded round's
-``make_aggregate_step`` (A13b).
+inputs (ROADMAP A15.7) and MTP (A15.5).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import distillation as D
+from repro_torch.core.server import weighted_average
 from repro_torch.kernels.kd_kl.ops import row_logsumexp
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
@@ -140,5 +142,25 @@ def make_prefill_step(cfg: ModelConfig, *, last_only: bool = False):
     return step
 
 
-def make_aggregate_step(axis: str = "pod"):
-    _unported("make_aggregate_step (the sharded round)", "A13b")
+def make_aggregate_step():
+    """aggregate(params_list, weights) -> the weighted mean of the clients'
+    params (Alg. 1 line 14) on the first client's device.
+
+    The reference runs it under ``shard_map`` as one ``psum`` over a mesh
+    axis, each client's params on its own device.  PyTorch has no psum
+    inside a program, so the port gathers the per-client trees (each on
+    its client's device) to the first client's device and takes the
+    server's ``weighted_average`` there: each term ``p · (w / total)`` in
+    fp32 (JAX promotes a bf16 leaf times an fp32 weight), summed in client
+    order and cast back to p's dtype, as the reference's."""
+
+    def aggregate(params_list: list, weights) -> dict:
+        if len(weights) != len(params_list):
+            raise ValueError(f"{len(params_list)} clients, "
+                             f"{len(weights)} weights")
+        first = tree_flatten(params_list[0])[0][0].device
+        return weighted_average(
+            [tree_map(lambda t: t.to(first), p) for p in params_list],
+            [float(w) for w in weights])
+
+    return aggregate

@@ -1,11 +1,22 @@
-"""End-to-end federated LM training: the serial trainer.
+"""End-to-end federated LM training: the serial and the sharded trainer.
 
-The port of ``repro.launch.train``'s serial path.  It trains an
-architecture of the registry (reduced or full) as a causal LM with FedGKD
-or FedAvg across K clients, each holding a non-IID synthetic token stream
-(its own Markov source), one client at a time.  The numpy generators are
-seeded and drawn in the reference's order, so one seed gives the same
-tokens in both packages.
+The port of ``repro.launch.train``.  It trains an architecture of the
+registry (reduced or full, in the config's dtypes: the published configs
+are bf16) as a causal LM with FedGKD or FedAvg across K clients, each
+holding a non-IID synthetic token stream (its own Markov source).  Two
+routes, as in the reference:
+
+  serial    ``run_serial``: K clients one at a time on one device;
+  sharded   ``run_sharded``: one client per device of a device list, the
+            round aggregated by ``steps.make_aggregate_step``.  The
+            reference runs the clients as one ``shard_map`` program and
+            aggregates with one ``psum``; here the clients run one after
+            another, each on its own device (a list may repeat a device,
+            so one card runs N clients), and their params are gathered to
+            the first device for the weighted mean.
+
+The numpy generators are seeded and drawn in the reference's order, so one
+seed gives the same tokens in both packages.
 
 Runs on ``"cuda"`` unless the caller passes ``device="cpu"`` (``--device
 cpu``); without a card and without that it raises rather than fall back.
@@ -13,6 +24,8 @@ cpu``); without a card and without that it raises rather than fall back.
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
         --smoke --rounds 2 --clients 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi4-mini-3.8b \\
+        --smoke --sharded --device cpu --rounds 1 --batches-per-round 1
 
 ``--straggler-frac`` simulates a straggler tail (``make_round_clock``):
 each round reports ``sim_seconds``, the virtual time the round's barrier
@@ -21,15 +34,12 @@ waits for its slowest client; it adds no device work.
 ``--fl-task`` runs a paper task (``cifar10``, ``cifar100``,
 ``tiny-imagenet``, ``toy``) through ``core.fl_loop.run_federated`` instead
 (``run_fl_task``), under ``--executor``.
-
-Not ported yet: ``--sharded`` (ROADMAP A13b), full configs in bf16
-(A15.3).
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -45,6 +55,7 @@ from repro_torch.models import transformer
 from repro_torch.optim import sgd
 from repro_torch.tree import tree_map
 
+Devices = Sequence[Union[str, torch.device]]
 EVAL_SEED, EVAL_BATCH = 9999, 8
 
 
@@ -88,6 +99,54 @@ def make_round_clock(n_clients: int, *, straggler_frac: float,
     return lambda work: max(sim.duration(k, work) for k in range(n_clients))
 
 
+def _run_rounds(cfg, train_round, *, dev, sync, label: str, rounds: int,
+                n_clients: int, batches_per_round: int, batch: int, seq: int,
+                algo: str, buffer_m: int, seed: int, verbose: bool,
+                round_callback: Optional[Callable], straggler_frac: float,
+                straggler_slowdown: float) -> dict:
+    """The rounds both routes share: the init on ``dev``, the FedGKD
+    buffer, each round's client batches and teacher, the evaluation, the
+    round's clock and record.  ``train_round(global_params, teacher,
+    data)`` -> (the new global params on ``dev``, the round's metrics as
+    tensors); ``sync`` the devices whose work a round's seconds wait
+    for."""
+    round_clock = make_round_clock(n_clients, straggler_frac=straggler_frac,
+                                   straggler_slowdown=straggler_slowdown,
+                                   seed=seed)
+    global_params = tree_map(lambda t: t.to(dev), transformer.init(
+        torch.Generator().manual_seed(seed), cfg))
+    buf = ModelBuffer(buffer_m)
+    buf.push(global_params)
+    eval_toks = torch.from_numpy(lm_token_batches(
+        np.random.default_rng(EVAL_SEED), EVAL_BATCH, seq,
+        cfg.vocab_size)).to(dev)
+    history = []
+    for t in range(rounds):
+        t0 = time.perf_counter()
+        data = torch.from_numpy(client_batches(
+            cfg, n_clients, batches_per_round, batch, seq, seed=seed + t))
+        teacher = ensemble_average(buf.models) if algo == "fedgkd" else ()
+        global_params, metrics = train_round(global_params, teacher, data)
+        del teacher
+        buf.push(global_params)
+        ppl = eval_ppl(global_params, cfg, eval_toks)
+        rec = {"round": t + 1, "ppl": ppl,
+               **{k: float(v) for k, v in metrics.items()}}
+        for d in sync:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        rec["seconds"] = time.perf_counter() - t0
+        if round_clock is not None:
+            rec["sim_seconds"] = round_clock(batches_per_round)
+        history.append(rec)
+        if verbose:
+            print(f"[{label}] round {t + 1}/{rounds} ppl={ppl:.2f} "
+                  f"loss={rec['loss']:.4f} ({rec['seconds']:.1f}s)", flush=True)
+        if round_callback is not None:
+            round_callback(t + 1, global_params)
+    return {"history": history, "params": global_params}
+
+
 def run_serial(cfg, *, rounds: int, n_clients: int, batches_per_round: int,
                batch: int, seq: int, algo: str = "fedgkd", gamma: float = 0.2,
                buffer_m: int = 3, lr: float = 0.1, seed: int = 0,
@@ -104,26 +163,12 @@ def run_serial(cfg, *, rounds: int, n_clients: int, batches_per_round: int,
     ``round_callback(round, params)`` runs after each round's evaluation,
     once the device has finished it."""
     dev = resolve_device(device)
-    round_clock = make_round_clock(n_clients, straggler_frac=straggler_frac,
-                                   straggler_slowdown=straggler_slowdown,
-                                   seed=seed)
     opt = sgd(momentum=0.9)
     kd_mode = "teacher" if algo == "fedgkd" else "none"
     step = steps_lib.make_train_step(cfg, opt, kd_mode=kd_mode, gamma=gamma,
                                      lr=lr)
-    global_params = tree_map(lambda t: t.to(dev), transformer.init(
-        torch.Generator().manual_seed(seed), cfg))
-    buf = ModelBuffer(buffer_m)
-    buf.push(global_params)
-    eval_toks = torch.from_numpy(lm_token_batches(
-        np.random.default_rng(EVAL_SEED), EVAL_BATCH, seq,
-        cfg.vocab_size)).to(dev)
-    history = []
-    for t in range(rounds):
-        t0 = time.perf_counter()
-        data = torch.from_numpy(client_batches(
-            cfg, n_clients, batches_per_round, batch, seq, seed=seed + t))
-        teacher = ensemble_average(buf.models) if kd_mode == "teacher" else ()
+
+    def train_round(global_params, teacher, data):
         new_params, weights = [], []
         for k in range(n_clients):
             p = global_params
@@ -134,28 +179,110 @@ def run_serial(cfg, *, rounds: int, n_clients: int, batches_per_round: int,
                                      {"tokens": bt[:, :-1], "labels": bt[:, 1:]})
             new_params.append(p)
             weights.append(float(batch * batches_per_round))
-        del teacher, o
-        global_params = weighted_average(new_params, weights)
-        del new_params, p
-        buf.push(global_params)
-        ppl = eval_ppl(global_params, cfg, eval_toks)
         # the round's reads of the last step's loss and, under FedGKD, of
         # its KD term (0.5 * gamma * mean KL)
-        rec = {"round": t + 1, "ppl": ppl, "loss": float(metrics["loss"])}
+        read = {"loss": metrics["loss"]}
         if kd_mode == "teacher":
-            rec["kd"] = float(metrics["kd"])
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        rec["seconds"] = time.perf_counter() - t0
-        if round_clock is not None:
-            rec["sim_seconds"] = round_clock(batches_per_round)
-        history.append(rec)
-        if verbose:
-            print(f"[{algo}] round {t + 1}/{rounds} ppl={ppl:.2f} "
-                  f"loss={rec['loss']:.4f} ({rec['seconds']:.1f}s)", flush=True)
-        if round_callback is not None:
-            round_callback(t + 1, global_params)
-    return {"history": history, "params": global_params}
+            read["kd"] = metrics["kd"]
+        return weighted_average(new_params, weights), read
+
+    return _run_rounds(
+        cfg, train_round, dev=dev, sync=[dev], label=algo, rounds=rounds,
+        n_clients=n_clients, batches_per_round=batches_per_round, batch=batch,
+        seq=seq, algo=algo, buffer_m=buffer_m, seed=seed, verbose=verbose,
+        round_callback=round_callback, straggler_frac=straggler_frac,
+        straggler_slowdown=straggler_slowdown)
+
+
+def make_parallel_round(cfg, devices: Devices, *, gamma: float = 0.2,
+                        lr: float = 0.1, kd_mode: str = "teacher"):
+    """The round of ``run_sharded``: round_fn(global_params, teacher,
+    tokens, weights) -> (the weighted mean of the clients' params on the
+    first device, the mean over clients of each client's mean step loss).
+
+    Client k runs on ``devices[k]`` from the global params, with a fresh
+    SGD state (momentum 0.9), through its batches ``tokens[k]``
+    (batches_per_round, batch, seq) in order, as the reference's
+    ``per_client``; its params stay on its device until the aggregation
+    (``steps.make_aggregate_step``) gathers them.  The clients run one
+    after another."""
+    devices = [torch.device(d) for d in devices]
+    opt = sgd(momentum=0.9)
+    step = steps_lib.make_train_step(cfg, opt, kd_mode=kd_mode, gamma=gamma,
+                                     lr=lr)
+    aggregate = steps_lib.make_aggregate_step()
+
+    def per_client(params, teacher, tokens, dev):
+        opt_state = opt.init(params)
+        losses = []
+        for bt in tokens.to(dev):
+            params, opt_state, m = step(params, teacher, opt_state,
+                                        {"tokens": bt[:, :-1],
+                                         "labels": bt[:, 1:]})
+            losses.append(m["loss"])
+        return params, torch.stack(losses).mean()
+
+    def round_fn(global_params, teacher, tokens, weights):
+        if len(tokens) != len(devices):
+            raise ValueError(f"{len(tokens)} clients' batches for "
+                             f"{len(devices)} devices")
+        new_params, losses = [], []
+        for k, dev in enumerate(devices):
+            to_dev = lambda tree: tree_map(lambda t: t.to(dev), tree)
+            p, loss = per_client(to_dev(global_params),
+                                 to_dev(teacher) if kd_mode == "teacher"
+                                 else (), tokens[k], dev)
+            new_params.append(p)
+            losses.append(loss.to(devices[0]))
+        return aggregate(new_params, weights), torch.stack(losses).mean()
+
+    return round_fn
+
+
+def sharded_devices(devices: Optional[Devices] = None) -> list[torch.device]:
+    """The clients' devices: ``devices`` as given (a device may repeat), or
+    every CUDA card of the host; raises without a card unless the list
+    names the CPU, as ``resolve_device`` does."""
+    if devices is None:
+        resolve_device(None)
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    devices = [resolve_device(d) for d in devices]
+    if not devices:
+        raise ValueError("run_sharded needs at least one device")
+    return devices
+
+
+def run_sharded(cfg, *, rounds: int, batches_per_round: int, batch: int,
+                seq: int, gamma: float = 0.2, buffer_m: int = 3,
+                lr: float = 0.1, seed: int = 0, algo: str = "fedgkd",
+                verbose: bool = True, devices: Optional[Devices] = None,
+                straggler_frac: float = 0.0,
+                straggler_slowdown: float = 4.0) -> dict:
+    """``rounds`` rounds with one client per device of ``devices``
+    (``sharded_devices``), equal weights, every client training
+    ``batches_per_round`` steps from the global model
+    (``make_parallel_round``); returns what ``run_serial`` returns, each
+    round's ``loss`` the mean over clients of each client's mean step loss
+    (the reference's ``pmean``).  The global model, the FedGKD buffer and
+    the evaluation live on the first device."""
+    devices = sharded_devices(devices)
+    round_fn = make_parallel_round(
+        cfg, devices, gamma=gamma, lr=lr,
+        kd_mode="teacher" if algo == "fedgkd" else "none")
+    weights = torch.ones((len(devices),), dtype=torch.float32)
+
+    def train_round(global_params, teacher, data):
+        global_params, loss = round_fn(global_params, teacher, data, weights)
+        return global_params, {"loss": loss}
+
+    return _run_rounds(
+        cfg, train_round, dev=devices[0], sync=set(devices),
+        label=f"{algo}/sharded", rounds=rounds, n_clients=len(devices),
+        batches_per_round=batches_per_round, batch=batch, seq=seq,
+        algo=algo, buffer_m=buffer_m, seed=seed, verbose=verbose,
+        round_callback=None, straggler_frac=straggler_frac,
+        straggler_slowdown=straggler_slowdown)
 
 
 def run_fl_task(args) -> int:
@@ -218,8 +345,9 @@ def main(argv=None) -> int:
     ap.add_argument("--buffer-m", type=int, default=3)
     ap.add_argument("--lr", type=float, default=0.1)
     ap.add_argument("--sharded", action="store_true",
-                    help="clients in parallel, one per device (not ported: "
-                         "ROADMAP A13b)")
+                    help="one client per device (every CUDA card; one CPU "
+                         "client under --device cpu), aggregated on the "
+                         "first")
     ap.add_argument("--straggler-frac", type=float, default=0.0,
                     help="simulate a straggler tail: this fraction of "
                          "clients runs --straggler-slowdown x slower and "
@@ -227,29 +355,24 @@ def main(argv=None) -> int:
                          "barrier's virtual cost)")
     ap.add_argument("--straggler-slowdown", type=float, default=4.0)
     ap.add_argument("--device", default=None,
-                    help="torch device; default the CUDA card, 'cpu' to run "
-                         "on the CPU")
+                    help="torch device; default the CUDA card (every card "
+                         "under --sharded), 'cpu' to run on the CPU")
     args = ap.parse_args(argv)
 
     if args.fl_task:
         return run_fl_task(args)
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded (make_parallel_round / run_sharded: one LM client per "
-            "device) is not ported yet (ROADMAP A13b)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.param_dtype != "float32" or cfg.activation_dtype != "float32":
-        raise NotImplementedError(
-            f"{cfg.name} is published in {cfg.param_dtype}; the port runs "
-            f"float32 only (ROADMAP A15.3): pass --smoke, or call run_serial "
-            f"with cfg.replace(param_dtype='float32', "
-            f"activation_dtype='float32')")
-    out = run_serial(cfg, n_clients=args.clients, rounds=args.rounds,
-                     batches_per_round=args.batches_per_round,
-                     batch=args.batch, seq=args.seq, gamma=args.gamma,
-                     buffer_m=args.buffer_m, lr=args.lr, algo=args.algo,
-                     device=args.device, straggler_frac=args.straggler_frac,
-                     straggler_slowdown=args.straggler_slowdown)
+    kw = dict(rounds=args.rounds, batches_per_round=args.batches_per_round,
+              batch=args.batch, seq=args.seq, gamma=args.gamma,
+              buffer_m=args.buffer_m, lr=args.lr, algo=args.algo,
+              straggler_frac=args.straggler_frac,
+              straggler_slowdown=args.straggler_slowdown)
+    if args.sharded:
+        out = run_sharded(cfg, devices=(None if args.device is None
+                                        else [args.device]), **kw)
+    else:
+        out = run_serial(cfg, n_clients=args.clients, device=args.device,
+                         **kw)
     print("final ppl:", out["history"][-1]["ppl"])
     if args.straggler_frac > 0:
         total = sum(r["sim_seconds"] for r in out["history"])

@@ -12,7 +12,9 @@ attends through the masked ``dot_product_attention`` (the reference's,
 plain PyTorch: the flash kernel's plain version, whose mask broadcasts to
 the (B, Hkv, G, Sq, Skv) logits), as the reference computes it outside
 any Pallas kernel.  ``gqa_attention`` is always causal, as the
-reference's is.  MLA is not ported yet (ROADMAP A15.6).
+reference's is.  Caches default to bf16, as the reference's do; a cache
+keeps its dtype, the new keys and values cast to it.  MLA is not ported
+yet (ROADMAP A15.6).
 """
 from __future__ import annotations
 
@@ -23,19 +25,19 @@ import torch
 from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
 from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
     dot_product_attention)
-from repro_torch.models.layers import (Params, apply_rope,
-                                       check_cache_dtype, dense,
+from repro_torch.models.layers import (Params, apply_rope, dense,
                                        dense_bias_init, dense_init)
 
 
 def gqa_init(generator: torch.Generator, d_model: int, n_heads: int,
-             n_kv_heads: int, head_dim: int, qkv_bias: bool = False) -> Params:
+             n_kv_heads: int, head_dim: int, qkv_bias: bool = False,
+             dtype: torch.dtype = torch.float32) -> Params:
     mk = dense_bias_init if qkv_bias else dense_init
     return {
-        "wq": mk(generator, d_model, n_heads * head_dim),
-        "wk": mk(generator, d_model, n_kv_heads * head_dim),
-        "wv": mk(generator, d_model, n_kv_heads * head_dim),
-        "wo": dense_init(generator, n_heads * head_dim, d_model),
+        "wq": mk(generator, d_model, n_heads * head_dim, dtype),
+        "wk": mk(generator, d_model, n_kv_heads * head_dim, dtype),
+        "wv": mk(generator, d_model, n_kv_heads * head_dim, dtype),
+        "wo": dense_init(generator, n_heads * head_dim, d_model, dtype),
     }
 
 
@@ -77,11 +79,9 @@ class KVCache(NamedTuple):
 
 
 def kv_cache_init(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
-                  dtype: torch.dtype = torch.float32,
+                  dtype: torch.dtype = torch.bfloat16,
                   device=None) -> KVCache:
-    """An empty cache.  The reference defaults to bf16; the port's caches
-    are float32 (bf16 is ROADMAP A15.3)."""
-    check_cache_dtype(dtype)
+    """An empty cache, bf16 by default as the reference's."""
     shape = (batch, max_len, n_kv_heads, head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device),

@@ -9,10 +9,9 @@ Mamba-2 layers with one shared attention + MLP block applied every
 ``shared_attn_period`` of them), each with LayerNorm or RMSNorm and a tied
 or untied LM head.  The MoE family raises ``NotImplementedError`` naming
 ROADMAP A15.5, MLA A15.6, and the encoder-decoder and frontend families
-A15.7; parameter and activation dtypes other than float32 raise naming
-A15.3, but only where a model is built or a cache made
-(``transformer.init``, ``hidden_states``, ``init_cache``), so that the
-published configs stay what they are.  The reference's logit soft cap and
+A15.7.  ``param_dtype`` and ``activation_dtype`` are float32 or bfloat16
+(every published LM config is bf16); ``pdtype`` and ``adtype`` give them
+as torch dtypes.  The reference's logit soft cap and
 ``scan_layers`` wait for a config that sets them.  There is no
 ``use_pallas``: in the port the device picks between a kernel and its
 plain version.
@@ -22,12 +21,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
+
 from repro_torch.models.ssm import SSMConfig
 
 # what the port refuses, and the ROADMAP item that brings it
 _UNPORTED = {("family", "moe"): "A15.5", ("attn_type", "mla"): "A15.6",
              ("family", "encdec"): "A15.7", ("family", "vlm"): "A15.7",
              ("family", "audio"): "A15.7"}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +61,7 @@ class ModelConfig:
     tie_embeddings: bool = True
 
     # execution
-    param_dtype: str = "float32"   # float32 (others: A15.3)
+    param_dtype: str = "float32"   # float32 | bfloat16
     activation_dtype: str = "float32"
     remat: bool = False            # recompute each layer in the backward
 
@@ -71,7 +73,9 @@ class ModelConfig:
                     f"(ROADMAP {item})")
         ported = {"family": ("dense", "ssm", "hybrid"),
                   "attn_type": ("gqa", "none"), "norm": ("ln", "rms"),
-                  "act": ("gelu", "swiglu")}
+                  "act": ("gelu", "swiglu"),
+                  "param_dtype": tuple(_DTYPES),
+                  "activation_dtype": tuple(_DTYPES)}
         for field, allowed in ported.items():
             if getattr(self, field) not in allowed:
                 raise ValueError(f"ModelConfig {field}="
@@ -84,6 +88,14 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    @property
+    def adtype(self) -> torch.dtype:
+        return _DTYPES[self.activation_dtype]
 
     def segments(self) -> list[tuple[str, int]]:
         """Homogeneous layer runs, in order: one dense or one mamba run (the

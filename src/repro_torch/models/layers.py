@@ -4,7 +4,14 @@ SwiGLU MLPs.
 
 The port of the parts of ``repro.models.layers`` that ResNet-8/50, the
 TOY MLP, the DistilBERT-class text encoder and the LMs use.  The
-initializers draw on ``generator``'s device.  Dense weights are
+initializers draw on ``generator``'s device, in fp32, and cast to their
+``dtype`` (float32 unless the caller asks), as the reference's do.  The
+layers round where the reference's round: ``dense`` and ``unembed`` cast
+the weight to x's dtype, the norms and RoPE compute in fp32 and return
+x's dtype.  A model whose parameters are fp32 and activations bf16 (the
+FedGKD teacher of a bf16 model: ``ensemble_average`` keeps its sum in
+fp32) therefore runs every product in bf16, as the reference's does,
+where JAX would promote a missing cast and PyTorch would refuse it.  Dense weights are
 ``(in, out)`` and applied as ``x @ w``; client-stacked params (``w``
 (K, in, out), ``b`` (K, out)) against ``x`` (K, B, in) ride the same line
 as a K-batched matmul.
@@ -20,8 +27,10 @@ Params = dict  # nested dict of tensors
 
 
 def trunc_normal(generator: torch.Generator, shape: Sequence[int],
-                 std: float) -> torch.Tensor:
-    """fp32 truncated normal at ±2 std (the reference's initializer).
+                 std: float, dtype: torch.dtype = torch.float32
+                 ) -> torch.Tensor:
+    """Truncated normal at ±2 std (the reference's initializer), drawn in
+    fp32 and cast to ``dtype``.
 
     ``trunc_normal_`` takes ABSOLUTE bounds, hence ``a=-2·std, b=2·std``.
     The tensor lies on ``generator``'s device."""
@@ -29,18 +38,20 @@ def trunc_normal(generator: torch.Generator, shape: Sequence[int],
                     device=generator.device)
     torch.nn.init.trunc_normal_(t, mean=0.0, std=std, a=-2.0 * std,
                                 b=2.0 * std, generator=generator)
-    return t
+    return t.to(dtype)
 
 
-def dense_init(generator: torch.Generator, d_in: int, d_out: int) -> Params:
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype = torch.float32) -> Params:
     """A bias-free dense layer, trunc-normal at std 1/sqrt(d_in)."""
     return {"w": trunc_normal(generator, (d_in, d_out),
-                              std=1.0 / math.sqrt(d_in))}
+                              std=1.0 / math.sqrt(d_in), dtype=dtype)}
 
 
-def dense_bias_init(generator: torch.Generator, d_in: int,
-                    d_out: int) -> Params:
-    return {**dense_init(generator, d_in, d_out), "b": torch.zeros((d_out,))}
+def dense_bias_init(generator: torch.Generator, d_in: int, d_out: int,
+                    dtype: torch.dtype = torch.float32) -> Params:
+    return {**dense_init(generator, d_in, d_out, dtype),
+            "b": torch.zeros((d_out,), dtype=dtype)}
 
 
 def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -96,8 +107,9 @@ def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
     return y.reshape(tuple(lead) + tuple(y.shape[-3:])).movedim(-3, -1)
 
 
-def layernorm_init(d: int) -> Params:
-    return {"scale": torch.ones((d,)), "bias": torch.zeros((d,))}
+def layernorm_init(d: int, dtype: torch.dtype = torch.float32) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype),
+            "bias": torch.zeros((d,), dtype=dtype)}
 
 
 def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -112,8 +124,8 @@ def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     return y.to(dtype)
 
 
-def rmsnorm_init(d: int) -> Params:
-    return {"scale": torch.ones((d,))}
+def rmsnorm_init(d: int, dtype: torch.dtype = torch.float32) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype)}
 
 
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -125,8 +137,10 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * params["scale"].to(torch.float32)).to(dtype)
 
 
-def embedding_init(generator: torch.Generator, vocab: int, d: int) -> Params:
-    return {"table": trunc_normal(generator, (vocab, d), std=1.0)}
+def embedding_init(generator: torch.Generator, vocab: int, d: int,
+                   dtype: torch.dtype = torch.float32) -> Params:
+    return {"table": trunc_normal(generator, (vocab, d), std=1.0,
+                                  dtype=dtype)}
 
 
 def embed(params: Params, ids: torch.Tensor) -> torch.Tensor:
@@ -161,10 +175,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def gelu_mlp_init(generator: torch.Generator, d_model: int,
-                  d_ff: int) -> Params:
-    return {"up": dense_bias_init(generator, d_model, d_ff),
-            "down": dense_bias_init(generator, d_ff, d_model)}
+def gelu_mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
+                  dtype: torch.dtype = torch.float32) -> Params:
+    return {"up": dense_bias_init(generator, d_model, d_ff, dtype),
+            "down": dense_bias_init(generator, d_ff, d_model, dtype)}
 
 
 def gelu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -174,19 +188,11 @@ def gelu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
         dense(params["up"], x), approximate="tanh"))
 
 
-def check_cache_dtype(dtype: torch.dtype) -> None:
-    """Decode caches are float32: another dtype is ROADMAP A15.3."""
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"a {dtype} decode cache is not ported yet (ROADMAP A15.3); the "
-            f"port's caches are float32")
-
-
-def swiglu_init(generator: torch.Generator, d_model: int,
-                d_ff: int) -> Params:
-    return {"gate": dense_init(generator, d_model, d_ff),
-            "up": dense_init(generator, d_model, d_ff),
-            "down": dense_init(generator, d_ff, d_model)}
+def swiglu_init(generator: torch.Generator, d_model: int, d_ff: int,
+                dtype: torch.dtype = torch.float32) -> Params:
+    return {"gate": dense_init(generator, d_model, d_ff, dtype),
+            "up": dense_init(generator, d_model, d_ff, dtype),
+            "down": dense_init(generator, d_ff, d_model, dtype)}
 
 
 def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -43,8 +43,11 @@ class SSMConfig(NamedTuple):
         return self.d_inner // self.head_dim
 
 
-def mamba2_init(generator: torch.Generator, cfg: SSMConfig) -> Params:
-    """Parameters on the CPU, fp32, with the reference's keys and shapes."""
+def mamba2_init(generator: torch.Generator, cfg: SSMConfig,
+                dtype: torch.dtype = torch.float32) -> Params:
+    """Parameters with the reference's keys and shapes, in ``dtype`` but
+    for ``dt_bias``, ``A_log`` and ``D``, which stay fp32 as the
+    reference's do."""
     di, n, h = cfg.d_inner, cfg.d_state, cfg.n_heads
     g = cfg.n_groups
     d_in_proj = 2 * di + 2 * g * n + h     # z, x, B, C, dt
@@ -55,15 +58,16 @@ def mamba2_init(generator: torch.Generator, cfg: SSMConfig) -> Params:
                    * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
     dt_bias = dt + torch.log(-torch.expm1(-dt))
     return {
-        "in_proj": dense_init(generator, cfg.d_model, d_in_proj),
+        "in_proj": dense_init(generator, cfg.d_model, d_in_proj, dtype),
         "conv_w": layers.trunc_normal(generator, (cfg.d_conv, conv_dim),
-                                      std=1.0 / math.sqrt(cfg.d_conv)),
-        "conv_b": torch.zeros((conv_dim,)),
-        "dt_bias": dt_bias,
+                                      std=1.0 / math.sqrt(cfg.d_conv),
+                                      dtype=dtype),
+        "conv_b": torch.zeros((conv_dim,), dtype=dtype),
+        "dt_bias": dt_bias.to(torch.float32),
         "A_log": torch.log(torch.arange(1, h + 1, dtype=torch.float32)),
         "D": torch.ones((h,)),
-        "norm": layers.rmsnorm_init(di),
-        "out_proj": dense_init(generator, di, cfg.d_model),
+        "norm": layers.rmsnorm_init(di, dtype),
+        "out_proj": dense_init(generator, di, cfg.d_model, dtype),
     }
 
 
@@ -118,7 +122,7 @@ class SSMCache(NamedTuple):
 def ssm_cache_init(batch: int, cfg: SSMConfig,
                    dtype: torch.dtype = torch.float32,
                    device=None) -> SSMCache:
-    layers.check_cache_dtype(dtype)
+    """An empty cache: the conv state in ``dtype``, the SSM state fp32."""
     conv_dim = cfg.d_inner + 2 * cfg.n_groups * cfg.d_state
     return SSMCache(
         torch.zeros((batch, cfg.d_conv - 1, conv_dim), dtype=dtype,
@@ -136,10 +140,13 @@ def mamba2_decode_step(params: Params, x: torch.Tensor, cache: SSMCache,
         raise ValueError(f"mamba2_decode_step takes one token, got {s}")
     proj = layers.dense(params["in_proj"], x)[:, 0]          # (B, d_in_proj)
     z, xbc, dt = _split_in_proj(proj, cfg)
-    # the causal conv over the rolling state and the new row
+    # the causal conv over the rolling state and the new row; a state and a
+    # row of two dtypes meet in the wider, as JAX promotes them (an fp32
+    # cache under bf16 activations: ServeLoop's)
     conv_in = torch.cat([cache.conv_state, xbc[:, None, :]], dim=1)  # (B, K, C)
     w = params["conv_w"].to(x.dtype)
-    xbc = F.silu(torch.einsum("bkc,kc->bc", conv_in, w)
+    wide = torch.promote_types(conv_in.dtype, w.dtype)
+    xbc = F.silu(torch.einsum("bkc,kc->bc", conv_in.to(wide), w.to(wide))
                  + params["conv_b"].to(x.dtype)[None, :])
     new_conv_state = conv_in[:, 1:, :]
 

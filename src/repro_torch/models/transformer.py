@@ -25,12 +25,15 @@ Decode (``init_cache``, ``decode_step``) carries a KV cache per attention
 layer (a ring buffer under a sliding window), one per application of the
 hybrid's shared block, and a conv and SSM state per Mamba-2 layer; one
 token's step is plain PyTorch, as in the reference, which computes it
-outside any Pallas kernel.  The caches are float32, where the reference
-defaults to bf16 (ROADMAP A15.3).
+outside any Pallas kernel.  The caches default to bf16, as the
+reference's do.
 
-MoE (ROADMAP A15.5), MLA (A15.6), encoder-decoder models, prefix
-embeddings and the cross-attention input (A15.7), the logit soft cap, MTP
-and dtypes other than float32 (A15.3) are not ported yet.
+Parameters are built in ``cfg.pdtype``, the embedding is cast to
+``cfg.adtype`` and the logits to fp32, as in the reference; the layers
+round where the reference's round (``models.layers``).  MoE (ROADMAP
+A15.5), MLA (A15.6), encoder-decoder models, prefix embeddings and the
+cross-attention input (A15.7), the logit soft cap and MTP are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -47,17 +50,9 @@ from repro_torch.models.layers import Params
 from repro_torch.tree import tree_map
 
 
-def _check_dtypes(cfg: ModelConfig) -> None:
-    for field in ("param_dtype", "activation_dtype"):
-        if getattr(cfg, field) != "float32":
-            raise NotImplementedError(
-                f"{cfg.name}: {field}={getattr(cfg, field)!r} is not ported "
-                f"yet (ROADMAP A15.3); the port runs float32")
-
-
 def _norm_init(cfg: ModelConfig, d: int) -> Params:
-    return layers.rmsnorm_init(d) if cfg.norm == "rms" \
-        else layers.layernorm_init(d)
+    return layers.rmsnorm_init(d, cfg.pdtype) if cfg.norm == "rms" \
+        else layers.layernorm_init(d, cfg.pdtype)
 
 
 def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -67,8 +62,8 @@ def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 def _mlp_init(cfg: ModelConfig, generator: torch.Generator,
               d_ff: int) -> Params:
     if cfg.act == "swiglu":
-        return layers.swiglu_init(generator, cfg.d_model, d_ff)
-    return layers.gelu_mlp_init(generator, cfg.d_model, d_ff)
+        return layers.swiglu_init(generator, cfg.d_model, d_ff, cfg.pdtype)
+    return layers.gelu_mlp_init(generator, cfg.d_model, d_ff, cfg.pdtype)
 
 
 def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -77,7 +72,8 @@ def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def _attn_init(cfg: ModelConfig, generator: torch.Generator) -> Params:
     return attn_lib.gqa_init(generator, cfg.d_model, cfg.n_heads,
-                             cfg.n_kv_heads, cfg.head_dim_, cfg.qkv_bias)
+                             cfg.n_kv_heads, cfg.head_dim_, cfg.qkv_bias,
+                             cfg.pdtype)
 
 
 def _attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -113,7 +109,7 @@ def _dense_layer(cfg: ModelConfig, p: Params, h: torch.Tensor,
 
 def _mamba_layer_init(cfg: ModelConfig, generator: torch.Generator) -> Params:
     return {"norm": _norm_init(cfg, cfg.d_model),
-            "mixer": ssm_lib.mamba2_init(generator, cfg.ssm)}
+            "mixer": ssm_lib.mamba2_init(generator, cfg.ssm, cfg.pdtype)}
 
 
 def _mamba_layer(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -137,7 +133,7 @@ def _hybrid(cfg: ModelConfig) -> bool:
 
 def _shared_block_init(cfg: ModelConfig, generator: torch.Generator) -> Params:
     return {"in_proj": layers.dense_init(generator, 2 * cfg.d_model,
-                                         cfg.d_model),
+                                         cfg.d_model, cfg.pdtype),
             "norm1": _norm_init(cfg, cfg.d_model),
             "attn": _attn_init(cfg, generator),
             "norm2": _norm_init(cfg, cfg.d_model),
@@ -157,15 +153,17 @@ def init(generator: torch.Generator, cfg: ModelConfig) -> Params:
     """Parameters: ``embed``, ``final_norm``, ``seg{i}`` (each leaf with a
     leading axis of the segment's layer count), and ``head`` (untied) and
     ``shared_block`` (hybrid) where the config has them.  The weights are
-    drawn on ``generator``'s device, the norms made on the CPU."""
-    _check_dtypes(cfg)
+    drawn on ``generator``'s device, the norms made on the CPU; every leaf
+    is ``cfg.pdtype`` but the Mamba-2 layers' ``dt_bias``, ``A_log`` and
+    ``D``, which are fp32."""
     params: Params = {
-        "embed": layers.embedding_init(generator, cfg.vocab_size, cfg.d_model),
+        "embed": layers.embedding_init(generator, cfg.vocab_size, cfg.d_model,
+                                       cfg.pdtype),
         "final_norm": _norm_init(cfg, cfg.d_model),
     }
     if not cfg.tie_embeddings:
         params["head"] = layers.dense_init(generator, cfg.d_model,
-                                           cfg.vocab_size)
+                                           cfg.vocab_size, cfg.pdtype)
     for i, (kind, count) in enumerate(cfg.segments()):
         per_layer = [_LAYER_INIT[kind](cfg, generator) for _ in range(count)]
         params[f"seg{i}"] = tree_map(lambda *xs: torch.stack(xs), *per_layer)
@@ -215,13 +213,13 @@ def hidden_states(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   enc_out: Optional[torch.Tensor] = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Final-normed hidden states (B, S, d_model) and the summed auxiliary
-    loss (0 for dense and Mamba-2 layers) of int ``tokens`` (B, S)."""
-    _check_dtypes(cfg)
+    loss (0 for dense and Mamba-2 layers) of int ``tokens`` (B, S), the
+    hidden states in ``cfg.adtype``."""
     if prefix_embeddings is not None or enc_out is not None:
         raise NotImplementedError(
             "prefix embeddings and encoder outputs are not ported yet "
             "(ROADMAP A15.7)")
-    h = layers.embed(params["embed"], tokens)
+    h = layers.embed(params["embed"], tokens).to(cfg.adtype)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device)[None].expand(b, s)
     if _hybrid(cfg):
@@ -262,14 +260,13 @@ def _stacked(one: Any, count: int) -> Any:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype: torch.dtype = torch.float32, device=None) -> dict:
+               dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
     """Per-segment caches stacked on a leading layer axis: ``seg{i}`` (an
     ``SSMCache`` for a mamba run, else a ``KVCache`` of ``max_len`` slots,
     or of the window's under a sliding window), ``shared`` (the hybrid's
     shared block, one KV cache per application) and ``pos``, the absolute
-    position shared by every layer.  float32 only, where the reference
-    defaults to bf16 (ROADMAP A15.3)."""
-    _check_dtypes(cfg)
+    position shared by every layer.  Every cache in ``dtype``, bf16 by
+    default as in the reference, but the SSM states, which are fp32."""
     caches: dict = {}
     for i, (kind, count) in enumerate(cfg.segments()):
         if kind == "mamba":
@@ -315,11 +312,10 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: dict, enc_out: Optional[torch.Tensor] = None):
     """One-token decode.  tokens (B, 1) -> (logits (B, 1, V) fp32, the new
     cache); ``cache`` is left as it was."""
-    _check_dtypes(cfg)
     if enc_out is not None:
         raise NotImplementedError(
             "the cross-attention input is not ported yet (ROADMAP A15.7)")
-    h = layers.embed(params["embed"], tokens)
+    h = layers.embed(params["embed"], tokens).to(cfg.adtype)
     new_caches = dict(cache)
     stack = lambda cs: tree_map(lambda *xs: torch.stack(xs), *cs)
     if _hybrid(cfg):

@@ -14,9 +14,15 @@ keep one client's state while the others move.
 Weight decay follows the reference's CODE, not its docstrings: ``sgd``
 adds ``wd·p`` to the gradient (coupled L2); ``adam`` adds ``wd·p`` to the
 step after bias correction.  Call ``update`` with autograd off.
+
+SGD's state takes each parameter's dtype, and its Python-scalar
+coefficients (lr, momentum, weight decay) meet a bf16 leaf as JAX's weak
+types do: rounded to bf16 first (``_scalar``), so a bf16 step rounds
+where the reference's does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -45,6 +51,21 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g * scale.to(g.dtype), grads)
 
 
+@functools.lru_cache(maxsize=64)
+def _in_dtype(c: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(c, dtype=dtype))
+
+
+def _scalar(c, like: torch.Tensor):
+    """``c`` as JAX applies a Python scalar to an array of ``like``'s
+    dtype: weakly typed, so rounded to that dtype first (momentum 0.9 is
+    0.8984375 against a bf16 leaf).  A tensor, or an fp32 leaf, takes it
+    as it is (the same product)."""
+    if isinstance(c, torch.Tensor) or like.dtype == torch.float32:
+        return c
+    return _in_dtype(float(c), like.dtype)
+
+
 def sgd(momentum: float = 0.0, weight_decay: float = 0.0,
         nesterov: bool = False) -> Optimizer:
     """SGD with optional heavy-ball momentum and coupled L2 weight decay —
@@ -57,17 +78,19 @@ def sgd(momentum: float = 0.0, weight_decay: float = 0.0,
 
     def update(grads, state, params, lr):
         if weight_decay:
-            grads = tree_map(lambda g, p: g + weight_decay * p.to(g.dtype),
-                             grads, params)
+            grads = tree_map(lambda g, p: g + _scalar(weight_decay, g)
+                             * p.to(g.dtype), grads, params)
         if momentum == 0.0:
-            return tree_map(lambda g: -lr * g, grads), ()
-        new_m = tree_map(lambda m, g: momentum * m.to(g.dtype) + g, state, grads)
+            return tree_map(lambda g: _scalar(-lr, g) * g, grads), ()
+        new_m = tree_map(lambda m, g: _scalar(momentum, g) * m.to(g.dtype) + g,
+                         state, grads)
         if nesterov:
-            step = tree_map(lambda g, m: g + momentum * m, grads, new_m)
+            step = tree_map(lambda g, m: g + _scalar(momentum, m) * m, grads,
+                            new_m)
         else:
             step = new_m
         new_m = tree_map(lambda m, s: m.to(s.dtype), new_m, state)
-        return tree_map(lambda s: -lr * s, step), new_m
+        return tree_map(lambda s: _scalar(-lr, s) * s, step), new_m
 
     return Optimizer(init, update)
 

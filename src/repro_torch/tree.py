@@ -10,28 +10,31 @@ from __future__ import annotations
 from typing import Any, Callable
 
 
+def _flatten(node: Any, leaves: list) -> Callable:
+    """Append ``node``'s leaves to ``leaves``; return its rebuilder.  A
+    module-level function: a nested one that calls itself is a reference
+    cycle, which would keep ``leaves`` (the tensors) alive until Python's
+    cyclic collector happens to run."""
+    if isinstance(node, dict):
+        keys = sorted(node)
+        subs = [_flatten(node[k], leaves) for k in keys]
+        return lambda it: {k: s(it) for k, s in zip(keys, subs)}
+    if isinstance(node, (tuple, list)):
+        subs = [_flatten(v, leaves) for v in node]
+        cls = type(node)
+        if hasattr(node, "_fields"):                # NamedTuple
+            return lambda it: cls(*[s(it) for s in subs])
+        return lambda it: cls(s(it) for s in subs)
+    if node is None:
+        return lambda it: None
+    leaves.append(node)
+    return lambda it: next(it)
+
+
 def tree_flatten(tree: Any) -> tuple[list, Callable]:
     """``(leaves, rebuild)``: ``rebuild(leaves)`` restores the structure."""
     leaves: list = []
-
-    def rec(node):
-        if isinstance(node, dict):
-            keys = sorted(node)
-            subs = [rec(node[k]) for k in keys]
-            return lambda it: {k: s(it) for k, s in zip(keys, subs)}
-        if isinstance(node, (tuple, list)):
-            subs = [rec(v) for v in node]
-            if hasattr(node, "_fields"):            # NamedTuple
-                cls = type(node)
-                return lambda it: cls(*[s(it) for s in subs])
-            cls = type(node)
-            return lambda it: cls(s(it) for s in subs)
-        if node is None:
-            return lambda it: None
-        leaves.append(node)
-        return lambda it: next(it)
-
-    build = rec(tree)
+    build = _flatten(tree, leaves)
     return leaves, lambda new_leaves: build(iter(new_leaves))
 
 

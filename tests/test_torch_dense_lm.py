@@ -144,13 +144,6 @@ def test_refusals_name_their_roadmap_items():
                                ("family", "encdec", "A15.7")]:
         with pytest.raises(NotImplementedError, match=item):
             cfg.replace(**{field: value})
-    bf16 = get_config("zamba2-1.2b").replace(n_layers=2)
-    with pytest.raises(NotImplementedError, match="A15.3"):
-        transformer.init(torch.Generator().manual_seed(0), bf16)
-    with pytest.raises(NotImplementedError, match="A15.3"):
-        transformer.init_cache(cfg, 1, 4, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        steps.make_aggregate_step()
 
 
 # ------------------------------------------------------------------ model

@@ -14,6 +14,18 @@ The SSD scan at the LM path's width is held to that, or, where the fp32
 plain version is itself further than that from the float64 result (its
 in-chunk decays reach ~-2000, and it forms them as differences of fp32
 cumsums), to being no further from float64 than the plain version is.
+
+The kernels' bf16 forms read bf16 and compute in fp32: their fp32 outputs
+(B1's kl and logsumexps, B6) are held to the plain version on the same
+values upcast at the fp32 bar above; their bf16 outputs (B4's o, B2's
+dls, B5's y through its casting wrapper) to one bf16 ulp of the plain
+version's output rounded to bf16, plus the fp32 bar (a kernel's fp32
+value may sit across a rounding boundary from the plain version's by its
+fp32 error); B4 also to the bf16 plain version, which rounds P to bf16
+before P·V as the reference's attention does, at the reference's 2e-2.
+A bf16 model's decode and forward are held to a forward in fp32 from the
+same weights upcast: the decode no further from it than twice the bf16
+forward is, or one bf16 ulp of its magnitude.
 """
 import math
 
@@ -777,7 +789,7 @@ def test_decode_matches_forward_on_card(cuda, arch):
     out = {}
     for dev in ("cpu", cuda):
         p = tree_map(lambda t: t.to(dev), params)
-        cache = transformer.init_cache(cfg, 2, 16, device=dev)
+        cache = transformer.init_cache(cfg, 2, 16, torch.float32, device=dev)
         logits = []
         for i in range(12):
             lg, cache = step(p, cache, toks[:, i:i + 1].to(dev))
@@ -793,3 +805,188 @@ def test_decode_matches_forward_on_card(cuda, arch):
         assert LAUNCHES["ssd_scan_fwd"] > 0, LAUNCHES
     torch.testing.assert_close(dec, full, rtol=0, atol=2e-3)
     _close(dec.cpu(), out["cpu"][1])
+
+
+# ----------------------------------------------------------------- bf16
+
+BF16_FLASH_TOL = 2e-2      # the reference's bf16 bar for flash attention
+
+
+def _bf16_close(got, want):
+    """``got`` (bf16) within one bf16 ulp of ``want`` (fp32) rounded to
+    bf16, plus the fp32 bar."""
+    assert got.dtype == torch.bfloat16
+    w = want.to(torch.bfloat16).to(torch.float32)
+    _, e = torch.frexp(w)
+    ulp = torch.where(w != 0, torch.ldexp(torch.ones_like(w), e - 8),
+                      torch.zeros_like(w))
+    err = (got.to(torch.float32) - w).abs()
+    bar = ulp + TOL * max(1.0, float(want.abs().max()))
+    assert bool((err <= bar).all()), float((err - bar).max())
+
+
+@pytest.mark.parametrize("case", [(2, 256, 24, 8, 128, None),
+                                  (2, 256, 32, 32, 64, None),
+                                  (1, 160, 24, 8, 128, 64),
+                                  (2, 100, 4, 4, 40, None)], ids=str)
+def test_flash_attention_bf16_kernel_matches_plain(cuda, case):
+    b, s, hq, hkv, d, window = case
+    gen = torch.Generator(device=cuda).manual_seed(hq + d + 1)
+    q = torch.randn(b, s, hq, d, device=cuda, generator=gen).bfloat16()
+    k, v = (torch.randn(b, s, hkv, d, device=cuda, generator=gen).bfloat16()
+            for _ in range(2))
+    before = dict(LAUNCHES)
+    got = fa_ops.flash_attention_fwd(q, k, v, True, window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_fwd_bf16"] == (
+        before["flash_attention_fwd_bf16"] + 1)
+    assert LAUNCHES["flash_attention_fwd"] == before["flash_attention_fwd"]
+    _bf16_close(got, fa_ref.attention_ref(q.float(), k.float(), v.float(),
+                                          window=window))
+    torch.testing.assert_close(
+        got.float(), fa_ref.attention_ref(q, k, v, window=window).float(),
+        rtol=BF16_FLASH_TOL, atol=BF16_FLASH_TOL)
+
+
+def test_flash_attention_bf16_autograd_and_refusals(cuda):
+    """bf16 gradients through the op (the fp32 backward, cast to the
+    inputs' dtypes); a dtype without a kernel form raises."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn(2, 64, 8, 32, device=cuda, generator=gen).bfloat16()
+    k, v = (torch.randn(2, 64, 2, 32, device=cuda, generator=gen).bfloat16()
+            .requires_grad_(True) for _ in range(2))
+    q.requires_grad_(True)
+    fa_ops.flash_attention_gqa(q, k, v).float().sum().backward()
+    assert all(t.grad.dtype == torch.bfloat16 for t in (q, k, v))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa_ops.flash_attention_fwd(q.detach().half(), k.detach().half(),
+                                   v.detach().half())
+
+
+@pytest.mark.parametrize("t,v", [(2048, 200_064), (256, 10), (1000, 37)])
+def test_kd_kl_and_row_lse_bf16_kernels_match_plain(cuda, t, v):
+    gen = torch.Generator(device=cuda).manual_seed(t + v + 1)
+    lt, ls = ((torch.randn(t, v, device=cuda, generator=gen) * 2).bfloat16()
+              for _ in range(2))
+    g = torch.randn(t, device=cuda, generator=gen)
+    before = dict(LAUNCHES)
+    kl, lse_t, lse_s = kd_ops.kd_kl_fwd(lt, ls, 1.0)
+    dls = kd_ops.kd_kl_bwd(lt, ls, lse_t, lse_s, g, 1.0)
+    lse = kd_ops.row_lse_fwd(ls, 1.0)
+    torch.cuda.synchronize()
+    for name in ("kd_kl_fwd", "kd_kl_bwd", "row_logsumexp"):
+        assert LAUNCHES[name + "_bf16"] == before[name + "_bf16"] + 1
+        assert LAUNCHES[name] == before[name]
+    lt32, ls32 = lt.float(), ls.float()
+    for got, want in zip((kl, lse_t, lse_s),
+                         kd_ref.kd_kl_fwd_ref(lt32, ls32, 1.0)):
+        assert got.dtype == torch.float32
+        _close(got, want)
+    _bf16_close(dls, kd_ref.kd_kl_bwd_ref(lt32, ls32, lse_t, lse_s, g, 1.0))
+    _close(lse, kd_ref.row_logsumexp_ref(ls32, 1.0))
+
+
+def test_kd_kl_mixed_dtypes_and_refusals(cuda):
+    """An fp32 teacher against a bf16 student meets in fp32 (the fp32
+    kernels), dls in the student's bf16; another dtype raises."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    lt = torch.randn(64, 100, device=cuda, generator=gen)
+    ls = torch.randn(64, 100, device=cuda, generator=gen).bfloat16()
+    g = torch.randn(64, device=cuda, generator=gen)
+    kl, lse_t, lse_s = kd_ops.kd_kl_fwd(lt, ls, 1.0)
+    dls = kd_ops.kd_kl_bwd(lt, ls, lse_t, lse_s, g, 1.0)
+    torch.cuda.synchronize()
+    want = kd_ref.kd_kl_fwd_ref(lt, ls.float(), 1.0)
+    for got, w in zip((kl, lse_t, lse_s), want):
+        _close(got, w)
+    _bf16_close(dls, kd_ref.kd_kl_bwd_ref(lt, ls.float(), *want[1:], g, 1.0))
+    with pytest.raises(TypeError):
+        kd_ops.kd_kl_fwd(lt.half(), ls.half(), 1.0)
+
+
+def test_ssd_scan_casting_wrapper_in_bf16(cuda):
+    """B5 through its wrapper on bf16 x, B and C at zamba2's width: the fp32
+    kernels (counted as ``ssd_scan_fwd``) on the inputs cast up, y in
+    bf16, the final state fp32."""
+    shape = (2, 300, 64, 64, 1, 64, 256)
+    x, dt, A, B, C = _ssd_inputs(cuda, shape, seed=21)
+    x, B, C = (t.bfloat16() for t in (x, B, C))
+    before = dict(LAUNCHES)
+    y, state = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=256)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan_fwd"] == before["ssd_scan_fwd"] + 1
+    assert (y.dtype, state.dtype) == (torch.bfloat16, torch.float32)
+    args = (x.float(), dt, A, B.float(), C.float())
+    want = ssd_ref.ssd_scan_ref(*args, 256)
+    exact = ssd_ref.ssd_chunked(*(t.double() for t in args), chunk=256)
+    _ssd_close(state, want[1], exact[1])
+    _bf16_close(y, want[0])
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "zamba2-1.2b"])
+def test_bf16_decode_matches_forward_on_card(cuda, arch):
+    """A bf16 smoke model's greedy decode over bf16 caches (the default)
+    against its teacher-forced forward (B4 in bf16 on the card), both held
+    to the forward in fp32 from the same weights upcast."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+
+    cfg = get_smoke_config(arch).replace(param_dtype="bfloat16",
+                                         activation_dtype="bfloat16")
+    params = tree_map(lambda t: t.to(cuda), transformer.init(
+        torch.Generator().manual_seed(0), cfg))
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    step = make_serve_step(cfg)
+    cache = transformer.init_cache(cfg, 2, 16, device=cuda)
+    assert cache["seg0"][0].dtype == torch.bfloat16
+    dec = []
+    for i in range(12):
+        lg, cache = step(params, cache, toks[:, i:i + 1])
+        dec.append(lg[:, 0])
+    dec = torch.stack(dec, 1)
+    reset_launches()
+    with torch.no_grad():
+        full, _ = transformer.forward(params, cfg, toks)
+        full32, _ = transformer.forward(
+            tree_map(lambda t: t.float(), params),
+            cfg.replace(param_dtype="float32", activation_dtype="float32"),
+            toks)
+    assert LAUNCHES["flash_attention_fwd_bf16"] > 0, LAUNCHES
+    e_full = float((full - full32).abs().max())
+    e_dec = float((dec - full32).abs().max())
+    bar = max(2 * e_full, 2.0 ** -8 * float(full32.abs().max()))
+    assert e_dec <= bar, (e_dec, e_full, bar)
+
+
+def test_run_sharded_on_a_repeated_card_equals_run_serial(cuda):
+    """Two clients on one card (``devices=[card] * 2``) against
+    ``run_serial``'s two clients, bf16 as published: equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_smoke_config("phi4-mini-3.8b").replace(
+        param_dtype="bfloat16", activation_dtype="bfloat16")
+    kw = dict(rounds=1, batches_per_round=2, batch=2, seq=33, verbose=False)
+    reset_launches()
+    sharded = train.run_sharded(cfg, devices=[cuda] * 2, **kw)
+    assert LAUNCHES["flash_attention_fwd_bf16"] > 0, LAUNCHES
+    serial = train.run_serial(cfg, n_clients=2, device=cuda, **kw)
+    for a, b in zip(tree_leaves(sharded["params"]),
+                    tree_leaves(serial["params"]), strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert sharded["history"][0]["ppl"] == serial["history"][0]["ppl"]
+
+
+def test_grouped_conv_refuses_bf16_on_card(cuda):
+    """B3 has no bf16 form (no path of the reference runs a conv in bf16):
+    a bf16 tensor on the card raises, and nothing falls back."""
+    x = torch.zeros(1, 2, 8, 8, 4, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(1, 3, 3, 4, 8, device=cuda, dtype=torch.bfloat16)
+    before = dict(LAUNCHES)
+    with pytest.raises(TypeError, match="float32"):
+        conv_ops.grouped_conv_fwd(x, w, 1, "SAME")
+    assert dict(LAUNCHES) == before

@@ -103,7 +103,8 @@ def _decode_both(cfg, jcfg, init, jdecode, prompt, steps, max_len):
     params = bridge.params_from_numpy(init)
     jcache = jax_transformer.init_cache(jcfg, prompt.shape[0], max_len,
                                         jnp.float32)
-    cache = transformer.init_cache(cfg, prompt.shape[0], max_len)
+    cache = transformer.init_cache(cfg, prompt.shape[0], max_len,
+                                   torch.float32)
     got, want, fed = [], [], []
     tok = None
     for i in range(steps):
@@ -141,7 +142,7 @@ def test_decode_caches_match_reference():
     params = bridge.params_from_numpy(init)
     toks = _prompt(2, length=STEPS)
     jcache = jax_transformer.init_cache(jcfg, 2, 16, jnp.float32)
-    cache = transformer.init_cache(cfg, 2, 16)
+    cache = transformer.init_cache(cfg, 2, 16, torch.float32)
     for i in range(STEPS):
         _, jcache = jdecode(init, jnp.asarray(toks[:, i:i + 1]), jcache)
         with torch.no_grad():
@@ -172,7 +173,7 @@ def test_ring_buffer_decode_matches_windowed_attention(ring):
     params = bridge.params_from_numpy(p)
     full = attention.gqa_attention(params, torch.from_numpy(x),
                                    positions=torch.arange(10)[None], **kw)
-    cache = attention.kv_cache_init(1, ring, n_kv, hd)
+    cache = attention.kv_cache_init(1, ring, n_kv, hd, torch.float32)
     jcache = jax_attention.kv_cache_init(1, ring, n_kv, hd, jnp.float32)
     got, want = [], []
     for i in range(10):
@@ -212,7 +213,7 @@ def test_kv_cache_update_matches_reference(ring):
     """Two tokens at a time into 5 slots: the ring wraps, the plain cache
     clamps its start as ``lax.dynamic_update_slice`` does."""
     rng = np.random.default_rng(5)
-    cache = attention.kv_cache_init(1, 5, 2, 3)
+    cache = attention.kv_cache_init(1, 5, 2, 3, torch.float32)
     jcache = jax_attention.kv_cache_init(1, 5, 2, 3, jnp.float32)
     for _ in range(4):
         k, v = (rng.standard_normal((1, 2, 2, 3)).astype(np.float32)
@@ -226,11 +227,17 @@ def test_kv_cache_update_matches_reference(ring):
 
 
 def test_bf16_caches_raise_naming_a15_3():
-    with pytest.raises(NotImplementedError, match="A15.3"):
-        attention.kv_cache_init(1, 4, 2, 8, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A15.3"):
-        ssm.ssm_cache_init(1, get_smoke_config("mamba2-2.7b").ssm,
-                           dtype=torch.bfloat16)
+    """bf16 caches are ported (ROADMAP A15.3): each cache initialiser's
+    default dtype and leaves, leaf for leaf, are the reference's."""
+    kv, jkv = attention.kv_cache_init(1, 4, 2, 8), \
+        jax_attention.kv_cache_init(1, 4, 2, 8)
+    scfg = get_smoke_config("mamba2-2.7b").ssm
+    sc, jsc = (ssm.ssm_cache_init(1, scfg, dtype=torch.bfloat16),
+               jax_ssm.ssm_cache_init(1, jax_get_smoke("mamba2-2.7b").ssm,
+                                      jnp.bfloat16))
+    for a, b in zip(tuple(kv) + tuple(sc), tuple(jkv) + tuple(jsc)):
+        assert str(a.dtype).split(".")[-1] == str(b.dtype)
+        assert tuple(a.shape) == b.shape and not a.any()
 
 
 # ----------------------------------------------------- SSD entering state
@@ -311,7 +318,8 @@ def test_serve_step_matches_reference():
         init, jax_transformer.init_cache(jcfg, 2, 4, jnp.float32),
         jnp.asarray(tok))
     lg, cache = steps.make_serve_step(cfg)(
-        bridge.params_from_numpy(init), transformer.init_cache(cfg, 2, 4),
+        bridge.params_from_numpy(init),
+        transformer.init_cache(cfg, 2, 4, torch.float32),
         torch.from_numpy(tok))
     _close(lg.numpy(), jl)
     assert int(cache["pos"]) == 1
