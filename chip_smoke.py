@@ -353,7 +353,8 @@ LM_CHECK = dict(LM_RUN, n_clients=2, batch=1, seq=513)
 LM_KERNELS = ["ssd_scan_fwd", "row_logsumexp", "kd_kl_fwd", "kd_kl_bwd"]
 # the CUDA kernels' names in csrc/*.cu, for the profile's device time by
 # kernel, and the port's named ranges (the SSD scan's autograd backward)
-PORT_KERNELS = ["kd_kl_", "conv_fwd_kernel", "flash_fwd_kernel", "row_lse_",
+PORT_KERNELS = ["kd_kl_", "conv_fwd_kernel", "flash_fwd_kernel",
+                "flash_fwd_bf16_kernel", "row_lse_",
                 "ssd_chunk_kernel", "ssd_pass_kernel", "ssd_out_kernel"]
 PORT_RANGES = ["ssd_scan_backward", "grouped_conv_dw", "grouped_conv_dx"]
 # flash attention (B, S, Hq, Hkv, D, causal, window) beyond the text path's
@@ -3314,11 +3315,49 @@ def bf16_parity(label: str, port, cpu_bf16, cpu_fp32,
     return worst
 
 
+def ptxas_of(kernel: str) -> list[str]:
+    """The build log's ``ptxas`` lines (registers, spills) of each
+    compiled kernel whose mangled name holds ``kernel``."""
+    from repro_torch.kernels import build
+
+    out, hit = [], False
+    for line in build.BUILD_LOG.get("ptxas", "").splitlines():
+        if "Compiling entry" in line:
+            hit = kernel in line
+            if hit:
+                out.append(line.split("'")[1])
+        elif hit and ("Used" in line or "spill" in line):
+            out.append("  " + line.split(":", 1)[-1].strip())
+    return out
+
+
+def attention_f64(q, k, v, window=None):
+    """Causal attention in float64 throughout (``ref.attention_ref`` takes
+    its logits and softmax in fp32 whatever the inputs' dtype)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ref
+
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.double().reshape(b, s, hkv, hq // hkv, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double()) / math.sqrt(d)
+    sees = ref.causal_mask(s, k.shape[1], window=window, device=q.device)
+    p = logits.masked_fill(~sees, -math.inf).softmax(-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p, v.double()).reshape(
+        b, s, hq, d)
+
+
 def check_bf16_kernels(dev) -> list[dict]:
     """The kernels' bf16 forms against their plain versions, timed:
     B4 at ``BF16_FLASH`` (the fp32 plain version on the inputs upcast, to
     one bf16 ulp; the bf16 plain version, which rounds P, at the
-    reference's 2e-2; sdpa in bf16 as the library call); B1, B2 and B6 at
+    reference's 2e-2; at the first shape also a float64 attention, read:
+    the largest error and the outputs that are not its bf16 rounding; the
+    library call is sdpa in bf16, with the boolean mask and, where there
+    is no window, with ``is_causal``, which can take the flash backend:
+    the faster of the two is ``library_ms``, both logged; its ``ptxas``
+    registers and spills from the build log); B1, B2 and B6 at
     ``BF16_KD`` (kl and the logsumexps at the fp32 bar, B2's bf16 dls to
     one ulp); B5's casting wrapper, which runs the fp32 kernels, at
     zamba2's prefill (y to one ulp, the fp32 state at the fp32 bar; its
@@ -3339,6 +3378,8 @@ def check_bf16_kernels(dev) -> list[dict]:
 
     gen = torch.Generator(device=dev).manual_seed(22)
     entries = {}
+    for line in ptxas_of("flash_fwd_bf16_kernel"):
+        log(f"  ptxas: {line}")
     for b, s, hq, hkv, d, window in BF16_FLASH:
         q = torch.randn(b, s, hq, d, device=dev, generator=gen).bfloat16()
         k, v = (torch.randn(b, s, hkv, d, device=dev, generator=gen)
@@ -3353,6 +3394,19 @@ def check_bf16_kernels(dev) -> list[dict]:
                      <= BF16_FLASH_TOL * (1 + plain.abs())).all()):
             raise AssertionError(f"flash bf16 {tuple(q.shape)}: {e_plain} "
                                  f"from the bf16 plain version")
+        if not entries:
+            exact = attention_f64(q, k, v, window)
+            rounded = exact.to(torch.bfloat16).double()
+            flips = int((got.double() != rounded).sum())
+            flips_plain = int((want.to(torch.bfloat16).double()
+                               != rounded).sum())
+            log(f"  flash bf16 {tuple(q.shape)} against float64: max err "
+                f"{float((got.double() - exact).abs().max()):.3e} (the fp32 "
+                f"plain version "
+                f"{float((want.double() - exact).abs().max()):.3e}); {flips} "
+                f"of {got.numel()} outputs not float64's bf16 rounding (the "
+                f"fp32 plain version rounded: {flips_plain})")
+            del exact, rounded
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         mask = fa_ref.causal_mask(s, s, window=window, device=dev)
 
@@ -3360,19 +3414,28 @@ def check_bf16_kernels(dev) -> list[dict]:
             return F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=hkv != hq)
 
+        def library_causal():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=hkv != hq)
+
         t = dict(ms=time_ms(lambda: fa_ops.flash_attention_fwd(
                      q, k, v, True, window), reps=5, replays=4),
                  plain_ms=time_ms(lambda: fa_ref.attention_ref(
-                     q, k, v, window=window), reps=2, replays=2),
-                 library_ms=time_ms(library, reps=5, replays=4))
+                     q, k, v, window=window), reps=2, replays=2))
+        lib = {"mask": time_ms(library, reps=5, replays=4)}
+        if window is None:
+            lib["is_causal"] = time_ms(library_causal, reps=5, replays=4)
+        t["library_ms"] = min(lib.values())
         flops = 4 * d * int(mask.sum()) * b * hq
         nbytes = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
         t.update(bf16_flash_bound_ms(nbytes, flops))
+        lib_s = ", ".join(f"{k_} {ms:.4f}" for k_, ms in lib.items())
         log(f"  flash bf16 (B={b}, S={s}, Hq={hq}, Hkv={hkv}, D={d}, window "
             f"{window}): err {err:.2e} (bf16 plain {e_plain:.2e}) kernel "
             f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms sdpa bf16 "
-            f"{t['library_ms']:.4f} ms bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}; 3xTF32 {t['tf32x3_bound_ms']:.4f})")
+            f"({lib_s}) ms bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}; 3xTF32 {t['tf32x3_bound_ms']:.4f}), "
+            f"{t['bound_ms'] / t['ms']:.3f} of it")
         rec = entries.setdefault("flash_attention_fwd_bf16", dict(
             max_abs_err=0.0, **t))
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
@@ -3452,7 +3515,7 @@ def check_bf16_kernels(dev) -> list[dict]:
         f"{e_state:.2e} wrapper {t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms"
         f" bound {t['bound'][0]:.4f} ms ({t['bound'][1]}, FLOP at the bf16 "
         f"peak)")
-    where = {"flash_attention_fwd_bf16": ("flash_attention.cu",
+    where = {"flash_attention_fwd_bf16": ("flash_attention_bf16.cu",
                                           "flash_attention/kernel.py:28"),
              "kd_kl_fwd_bf16": ("kd_kl.cu", "kd_kl/kernel.py:33"),
              "kd_kl_bwd_bf16": ("kd_kl.cu", "kd_kl/kernel.py:113"),

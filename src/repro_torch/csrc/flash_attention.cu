@@ -1,20 +1,11 @@
-// Flash-attention forward for Hopper (sm_90a), fp32 or bf16 in and out,
-// causal / sliding window / full, grouped-query heads, both products on the
-// tensor cores in 3xTF32.
+// Flash-attention forward for Hopper (sm_90a), fp32 in and out, causal /
+// sliding window / full, grouped-query heads, both products on the tensor
+// cores in 3xTF32.
 //
-// Replaces the Pallas TPU kernel of the JAX reference:
-//   flash_attention_fwd_f32  <- repro/kernels/flash_attention/kernel.py:28
-//   flash_attention_fwd_bf16    _flash_kernel (flash_attention_fwd)
-//
-// The bf16 form reads q, k and v in bf16 and computes as the fp32 kernel
-// does: fp32 online softmax, fp32 P, every 8-deep step of a product added
-// in fp32.  It writes o in bf16, rounded once from the fp32 result.  This
-// is the TPU kernel's contract (its blocks are cast to fp32 and P stays
-// fp32; the plain version rounds P to v's dtype, as the reference's
-// dot_product_attention does).  A bf16 value is exact in TF32, so the low
-// halves of 3xTF32's split q, k and v are zero: Q.K^T is one TF32 product
-// (exact products, fp32 sums) and P.V two (P's high and low halves against
-// V), where the fp32 form takes three each.
+// Replaces the Pallas TPU kernel of the JAX reference
+// (repro/kernels/flash_attention/kernel.py:28 _flash_kernel, in
+// flash_attention_fwd) on fp32 inputs; csrc/flash_attention_bf16.cu is its
+// bf16 form.
 //
 //   q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) -> o (B, Sq, Hq, D)
 //   o[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, h/G] * scale) v[b, j, h/G]
@@ -55,14 +46,10 @@
 //   * q's tile and 64-key tiles of k and v are staged in shared memory as
 //     fp32 (zero fill past D, Sq and Skv), head_dim padded to Dp = 32*NC,
 //     rows padded to Dp + 4 floats so every fragment read below is free of
-//     bank conflicts; the next k/v tile's copy is in flight while this one
-//     is computed.  fp32 inputs: cp.async into two stages of fp32 tiles.
-//     bf16 inputs: cp.async of the raw bf16 tiles into two stages, each
-//     widened to the one fp32 k/v tile when its turn comes (q, staged
-//     once, is loaded and widened directly);
+//     bank conflicts, by cp.async into two stages: the next k/v tile's copy
+//     is in flight while this one is computed;
 //   * S = Q.K^T: per warp a 16 x 64 tile of scores as 8 m16n8 accumulator
-//     tiles, over Dp/8 steps of 3xTF32 mma.sync (tf32_mma.cuh; one TF32
-//     product for bf16 inputs);
+//     tiles, over Dp/8 steps of 3xTF32 mma.sync (tf32_mma.cuh);
 //   * online softmax on the accumulator fragments: a thread holds two
 //     columns of rows g and g + 8 in each tile, the row max is reduced over
 //     the quad by two shuffles, the running max and the thread's share of
@@ -81,12 +68,9 @@
 //   * 8-key tiles past a warp's last causal key (or past Skv) are skipped.
 // int64 offsets in global memory; 32-bit inside the shared tiles.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "tf32_mma.cuh"
 
@@ -105,21 +89,17 @@ struct Strides {
   int64_t b, s, h;
 };
 
-// shared bytes of one block: the fp32 q tile; for fp32 inputs two stages
-// of fp32 k and v tiles; for bf16 inputs one fp32 k and v tile and two
-// stages of raw bf16 k and v tiles [64][Dp]
-template <int NC, typename T>
+// shared bytes of one block: the q tile and two stages of k and v tiles
+template <int NC>
 constexpr int smem_bytes() {
   constexpr int tile = kBlockKV * (32 * NC + 4) * 4;
   static_assert(kBlockQ == kBlockKV, "the q tile is a k/v tile's size");
-  if constexpr (std::is_same_v<T, float>) return 5 * tile;
-  return 3 * tile + 2 * 2 * kBlockKV * 32 * NC * 2;
+  return 5 * tile;
 }
 
 // rows [r0, r0 + 64) of a (S, D) slice with row stride rs, into a
-// [64][Dp + 4] fp32 tile; zero past S and D.  fp32 rows by cp.async (16
-// bytes a copy where vec), bf16 rows by a load (16 bytes, 8 values, where
-// vec), converted to fp32 and stored
+// [64][Dp + 4] tile by cp.async (16 bytes a copy where vec); zero past S
+// and D
 template <int NC>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            int64_t rs, int64_t r0, int64_t S,
@@ -144,112 +124,18 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
 }
 
 template <int NC>
-__device__ __forceinline__ void stage_rows(float* dst,
-                                           const __nv_bfloat16* src,
-                                           int64_t rs, int64_t r0, int64_t S,
-                                           int D, bool vec8) {
-  constexpr int Dp = 32 * NC, LD = Dp + 4;
-  if (vec8) {
-    constexpr int per_row = Dp / 8;
-    for (int e = threadIdx.x; e < kBlockKV * per_row; e += kThreads) {
-      const int r = e / per_row, c = (e - r * per_row) * 8;
-      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-      if (r0 + r < S && c < D) {
-        const uint4 raw =
-            *reinterpret_cast<const uint4*>(src + (r0 + r) * rs + c);
-        const __nv_bfloat162* h2 =
-            reinterpret_cast<const __nv_bfloat162*>(&raw);
-        const float2 f0 = __bfloat1622float2(h2[0]);
-        const float2 f1 = __bfloat1622float2(h2[1]);
-        const float2 f2 = __bfloat1622float2(h2[2]);
-        const float2 f3 = __bfloat1622float2(h2[3]);
-        lo = make_float4(f0.x, f0.y, f1.x, f1.y);
-        hi = make_float4(f2.x, f2.y, f3.x, f3.y);
-      }
-      *reinterpret_cast<float4*>(dst + r * LD + c) = lo;
-      *reinterpret_cast<float4*>(dst + r * LD + c + 4) = hi;
-    }
-  } else {
-    for (int e = threadIdx.x; e < kBlockKV * Dp; e += kThreads) {
-      const int r = e / Dp, c = e - r * Dp;
-      dst[r * LD + c] = r0 + r < S && c < D
-                            ? __bfloat162float(src[(r0 + r) * rs + c])
-                            : 0.f;
-    }
-  }
-}
-
-// rows [r0, r0 + 64) of a bf16 (S, D) slice with row stride rs, raw into
-// a [64][Dp] bf16 tile; zero past S and D.  By cp.async (16 bytes, 8
-// values, a copy) where vec8, else by plain loads and stores
-template <int NC>
-__device__ __forceinline__ void stage_raw(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t rs, int64_t r0, int64_t S,
-                                          int D, bool vec8) {
-  constexpr int Dp = 32 * NC;
-  if (vec8) {
-    constexpr int per_row = Dp / 8;
-    for (int e = threadIdx.x; e < kBlockKV * per_row; e += kThreads) {
-      const int r = e / per_row, c = (e - r * per_row) * 8;
-      const bool in = r0 + r < S && c < D;
-      tf32x3::cp_async16(reinterpret_cast<float*>(dst + r * Dp + c),
-                         reinterpret_cast<const float*>(
-                             in ? src + (r0 + r) * rs + c : src),
-                         in);
-    }
-  } else {
-    for (int e = threadIdx.x; e < kBlockKV * Dp; e += kThreads) {
-      const int r = e / Dp, c = e - r * Dp;
-      dst[r * Dp + c] = r0 + r < S && c < D ? src[(r0 + r) * rs + c]
-                                            : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// a stage of raw bf16 k and v tiles ([128][Dp]: k's rows, then v's) into
-// the fp32 k and v tiles ([128][Dp + 4])
-template <int NC>
-__device__ __forceinline__ void widen(float* dst, const __nv_bfloat16* raw) {
-  constexpr int Dp = 32 * NC, LD = Dp + 4, per_row = Dp / 8;
-  for (int e = threadIdx.x; e < 2 * kBlockKV * per_row; e += kThreads) {
-    const int r = e / per_row, c = (e - r * per_row) * 8;
-    const uint4 u = *reinterpret_cast<const uint4*>(raw + r * Dp + c);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-    const float2 f0 = __bfloat1622float2(h2[0]);
-    const float2 f1 = __bfloat1622float2(h2[1]);
-    const float2 f2 = __bfloat1622float2(h2[2]);
-    const float2 f3 = __bfloat1622float2(h2[3]);
-    *reinterpret_cast<float4*>(dst + r * LD + c) =
-        make_float4(f0.x, f0.y, f1.x, f1.y);
-    *reinterpret_cast<float4*>(dst + r * LD + c + 4) =
-        make_float4(f2.x, f2.y, f3.x, f3.y);
-  }
-}
-
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-template <int NC, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  int64_t Sq, int64_t Skv, int64_t Hq, int64_t group, int D,
                  Strides qs, Strides ks, Strides vs, Strides os, int causal,
                  int64_t window, float scale, int vec) {
   constexpr int Dp = 32 * NC;
   constexpr int LD = Dp + 4;
   constexpr int KS = Dp / 8;  // k8 steps of Q.K^T, n8 tiles of O
-  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
   extern __shared__ __align__(16) float smem[];
   float* q_sh = smem;                        // [kBlockQ][LD]
-  // fp32: 2 x {k [64][LD], v [64][LD]}; bf16: {k, v}, then the raw stages
-  float* kv_sh = q_sh + kBlockQ * LD;
-  __nv_bfloat16* raw = reinterpret_cast<__nv_bfloat16*>(
-      kv_sh + (kBf16 ? 2 : 4) * kBlockKV * LD);  // 2 x {k, v} [64][Dp]
+  float* kv_sh = q_sh + kBlockQ * LD;        // 2 x {k [64][LD], v [64][LD]}
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -260,9 +146,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t hk = h / group;
   const int64_t q0 = static_cast<int64_t>(blockIdx.y) * kBlockQ;
 
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
 
   // the block's key range: tiles wholly in the future or before the window
   // are skipped
@@ -275,18 +161,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       kv_begin = ((q0 - window + 1) / kBlockKV) * kBlockKV;
   }
 
-  // the k/v tile of keys [r0, r0 + 64) into stage st: fp32 tiles, or the
-  // raw bf16 ones that widen() turns into the fp32 tile
+  // the k/v tile of keys [r0, r0 + 64) into stage st
   auto issue = [&](int st, int64_t r0) {
-    if constexpr (kBf16) {
-      __nv_bfloat16* dst = raw + st * 2 * kBlockKV * Dp;
-      stage_raw<NC>(dst, kb, ks.s, r0, Skv, D, vec);
-      stage_raw<NC>(dst + kBlockKV * Dp, vb, vs.s, r0, Skv, D, vec);
-    } else {
-      float* dst = kv_sh + st * 2 * kBlockKV * LD;
-      stage_rows<NC>(dst, kb, ks.s, r0, Skv, D, vec);
-      stage_rows<NC>(dst + kBlockKV * LD, vb, vs.s, r0, Skv, D, vec);
-    }
+    float* dst = kv_sh + st * 2 * kBlockKV * LD;
+    stage_rows<NC>(dst, kb, ks.s, r0, Skv, D, vec);
+    stage_rows<NC>(dst + kBlockKV * LD, vb, vs.s, r0, Skv, D, vec);
   };
 
   stage_rows<NC>(q_sh, qb, qs.s, q0, Sq, D, vec);
@@ -313,13 +192,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       tf32x3::cp_async_wait<0>();
     }
     __syncthreads();
-    const float* k_sh = kv_sh;
-    if constexpr (kBf16) {
-      widen<NC>(kv_sh, raw + (it & 1) * 2 * kBlockKV * Dp);
-      __syncthreads();
-    } else {
-      k_sh += (it & 1) * 2 * kBlockKV * LD;
-    }
+    const float* k_sh = kv_sh + (it & 1) * 2 * kBlockKV * LD;
     const float* v_sh = k_sh + kBlockKV * LD;
 
     // the key tiles this warp's rows can see: past its last causal key, or
@@ -354,14 +227,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int n = 0; n < kKeyTiles; ++n) {
           if (n < nt_end) {
-            if constexpr (kBf16) {  // q and k exact in TF32: al == 0
-              tf32x3::mma1_add(s[n], ah, __float_as_uint(kr[n * 8 * LD]),
-                               __float_as_uint(kr[n * 8 * LD + 4]));
-            } else {
-              const Split b0 = tf32x3::split(kr[n * 8 * LD]);
-              const Split b1 = tf32x3::split(kr[n * 8 * LD + 4]);
-              tf32x3::mma3_add(s[n], ah, al, b0, b1);
-            }
+            const Split b0 = tf32x3::split(kr[n * 8 * LD]);
+            const Split b1 = tf32x3::split(kr[n * 8 * LD + 4]);
+            tf32x3::mma3_add(s[n], ah, al, b0, b1);
           }
         }
       }
@@ -437,14 +305,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float* vr = v_sh + (n * 8 + 2 * tq) * LD + gq;
 #pragma unroll
           for (int dn = 0; dn < KS; ++dn) {
-            if constexpr (kBf16) {  // v exact in TF32
-              tf32x3::mma2_add(acc[dn], ph, pl, __float_as_uint(vr[dn * 8]),
-                               __float_as_uint(vr[LD + dn * 8]));
-            } else {
-              const Split b0 = tf32x3::split(vr[dn * 8]);
-              const Split b1 = tf32x3::split(vr[LD + dn * 8]);
-              tf32x3::mma3_add(acc[dn], ph, pl, b0, b1);
-            }
+            const Split b0 = tf32x3::split(vr[dn * 8]);
+            const Split b1 = tf32x3::split(vr[LD + dn * 8]);
+            tf32x3::mma3_add(acc[dn], ph, pl, b0, b1);
           }
         }
       }
@@ -462,42 +325,42 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t qi = rows[r];
     if (qi >= Sq) continue;
     const float inv = lsum > 0.f ? 1.f / lsum : 0.f;  // no key seen: 0
-    T* orow = o + b * os.b + qi * os.s + h * os.h;
+    float* orow = o + b * os.b + qi * os.s + h * os.h;
 #pragma unroll
     for (int dn = 0; dn < KS; ++dn) {
       const int d = dn * 8 + 2 * tq;
-      if (d < D) store_out(orow + d, acc[dn][2 * r] * inv);
-      if (d + 1 < D) store_out(orow + d + 1, acc[dn][2 * r + 1] * inv);
+      if (d < D) orow[d] = acc[dn][2 * r] * inv;
+      if (d + 1 < D) orow[d + 1] = acc[dn][2 * r + 1] * inv;
     }
   }
 }
 
-template <int NC, typename T>
-cudaError_t launch(const T* q, const T* k, const T* v, T* o, int64_t B,
+template <int NC>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o,
+                   int64_t B,
                    int64_t Sq, int64_t Skv, int64_t Hq, int64_t Hkv, int D,
                    Strides qs, Strides ks, Strides vs, Strides os, int causal,
                    int64_t window, float scale, int vec, cudaStream_t stream) {
-  const int smem = smem_bytes<NC, T>();
+  const int smem = smem_bytes<NC>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<NC, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(static_cast<unsigned>(B * Hq),
                   static_cast<unsigned>((Sq + kBlockQ - 1) / kBlockQ));
-  flash_fwd_kernel<NC, T><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<NC><<<grid, kThreads, smem, stream>>>(
       q, k, v, o, Sq, Skv, Hq, Hq / Hkv, D, qs, ks, vs, os, causal, window,
       scale, vec);
   return cudaGetLastError();
 }
 
-// q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), o (B, Sq, Hq, D) of T (float or
-// bf16), the last axis contiguous, the other three axes at the given
-// element strides.  D <= 128, Hq a multiple of Hkv, B*Hq < 2^31,
-// ceil(Sq/64) < 2^16, and a head's rows within 32-bit offsets; causal is 0
-// or 1, window 0 means none (used only when causal).
-template <typename T>
+// q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), o (B, Sq, Hq, D), the last axis
+// contiguous, the other three axes at the given element strides.  D <= 128,
+// Hq a multiple of Hkv, B*Hq < 2^31, ceil(Sq/64) < 2^16, and a head's rows
+// within 32-bit offsets; causal is 0 or 1, window 0 means none (used only
+// when causal).
 cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* o,
                       int64_t B, int64_t Sq, int64_t Skv, int64_t Hq,
                       int64_t Hkv, int64_t D, Strides qs, Strides ks,
@@ -506,16 +369,14 @@ cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (B == 0 || Sq == 0 || Hq == 0) return cudaSuccess;
   if (D < 1 || D > 128 || Hkv < 1 || Hq % Hkv != 0)
     return cudaErrorInvalidValue;
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(o);
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  float* op = static_cast<float*>(o);
   // 16-byte copies where every row start is 16-byte aligned
-  constexpr int64_t kPer16 = 16 / sizeof(T);
   const int vec =
-      D % kPer16 == 0 &&
-      (qs.b | qs.s | qs.h | ks.b | ks.s | ks.h | vs.b | vs.s | vs.h) %
-              kPer16 ==
+      D % 4 == 0 &&
+      (qs.b | qs.s | qs.h | ks.b | ks.s | ks.h | vs.b | vs.s | vs.h) % 4 ==
           0 &&
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16 == 0;
@@ -540,23 +401,16 @@ cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// The C entry points: fp32 or bf16 q, k, v and o as above, each axis's
-// strides in the order (batch, sequence, head).  Each returns the launch's
-// cudaError_t.
-#define FLASH_ENTRY(NAME, T)                                                 \
-  extern "C" int NAME(const void* q, const void* k, const void* v, void* o, \
-                      int64_t B, int64_t Sq, int64_t Skv, int64_t Hq,       \
-                      int64_t Hkv, int64_t D, int64_t q_sb, int64_t q_ss,   \
-                      int64_t q_sh, int64_t k_sb, int64_t k_ss,             \
-                      int64_t k_sh, int64_t v_sb, int64_t v_ss,             \
-                      int64_t v_sh, int64_t o_sb, int64_t o_ss,             \
-                      int64_t o_sh, int64_t causal, int64_t window,         \
-                      float scale, void* stream) {                          \
-    return static_cast<int>(flash_fwd<T>(                                   \
-        q, k, v, o, B, Sq, Skv, Hq, Hkv, D, Strides{q_sb, q_ss, q_sh},      \
-        Strides{k_sb, k_ss, k_sh}, Strides{v_sb, v_ss, v_sh},               \
-        Strides{o_sb, o_ss, o_sh}, causal, window, scale, stream));         \
-  }
-
-FLASH_ENTRY(flash_attention_fwd_f32, float)
-FLASH_ENTRY(flash_attention_fwd_bf16, __nv_bfloat16)
+// The C entry point: fp32 q, k, v and o as above, each axis's strides in
+// the order (batch, sequence, head).  Returns the launch's cudaError_t.
+extern "C" int flash_attention_fwd_f32(
+    const void* q, const void* k, const void* v, void* o, int64_t B,
+    int64_t Sq, int64_t Skv, int64_t Hq, int64_t Hkv, int64_t D, int64_t q_sb,
+    int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+    int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
+    int64_t o_sh, int64_t causal, int64_t window, float scale, void* stream) {
+  return static_cast<int>(flash_fwd(
+      q, k, v, o, B, Sq, Skv, Hq, Hkv, D, Strides{q_sb, q_ss, q_sh},
+      Strides{k_sb, k_ss, k_sh}, Strides{v_sb, v_ss, v_sh},
+      Strides{o_sb, o_ss, o_sh}, causal, window, scale, stream));
+}

@@ -76,31 +76,6 @@ __device__ __forceinline__ void mma3_add(float (&c)[4],
   for (int e = 0; e < 4; ++e) c[e] += d[e];
 }
 
-// c += a * b where a and b are both exact in TF32 (bf16 values): their
-// low halves are zero, so of mma3_add's three products only hi * hi is
-// left; summed from zero and added to c in fp32 as mma3_add does
-__device__ __forceinline__ void mma1_add(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  float d[4];
-  mma_from_zero(d, a, b0, b1);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += d[e];
-}
-
-// c += a * b in 3xTF32 where b is exact in TF32 (a bf16 value): b's low
-// half is zero, so mma3_add's a_hi * b_lo product is left out
-__device__ __forceinline__ void mma2_add(float (&c)[4],
-                                         const uint32_t (&a_hi)[4],
-                                         const uint32_t (&a_lo)[4],
-                                         uint32_t b0, uint32_t b1) {
-  float d[4];
-  mma_from_zero(d, a_lo, b0, b1);
-  mma(d, a_hi, b0, b1);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += d[e];
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -49,9 +49,9 @@ SIGNATURES = {
     # q, k, v and o; causal, window; scale; stream
     "flash_attention_fwd_f32": [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
                                + [_I64, _I64, _F32, _P],
-    # the same on bf16 q, k, v and o
+    # the same on bf16 q, k, v and o, then the launch plan's shared bytes
     "flash_attention_fwd_bf16": [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
-                                + [_I64, _I64, _F32, _P],
+                                + [_I64, _I64, _F32, _I32, _P],
     # logits, out; rows, vocab; 1 / temperature; stream
     "row_lse_f32": [_P, _P, _I64, _I64, _F32, _P],
     "row_lse_bf16": [_P, _P, _I64, _I64, _F32, _P],

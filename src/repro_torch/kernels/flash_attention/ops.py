@@ -5,14 +5,23 @@ reference's layout, q (B, Sq, Hq, D) and k/v (B, Skv, Hkv, D) with Hq a
 multiple of Hkv, and returns (B, Sq, Hq, D).  A ``window`` takes effect
 with ``causal`` only, as in the reference's ``attention_ref``.
 
-Forward: on a CUDA tensor ``flash_attention_fwd`` launches the kernel of
-``csrc/flash_attention.cu`` (built at first use; a failed launch raises)
-and counts the launch; on a CPU tensor it takes ``ref.attention_ref``.
-Nothing falls back from one to the other.  The kernel reads the inputs
-through their strides and copies nothing unless the last axis is strided.
-fp32 inputs take its fp32 form (``flash_attention_fwd``'s count), bf16
-inputs its bf16 form (``flash_attention_fwd_bf16``: bf16 read, fp32
-arithmetic, o written in bf16); any other type raises.
+Forward: on a CUDA tensor ``flash_attention_fwd`` launches a kernel
+(built at first use; a failed launch raises) and counts the launch; on a
+CPU tensor it takes ``ref.attention_ref``.  Nothing falls back from one to
+the other.  fp32 inputs take the fp32 form, ``csrc/flash_attention.cu``
+(3xTF32 ``mma.sync``; ``flash_attention_fwd``'s count), bf16 inputs the
+bf16 form, ``csrc/flash_attention_bf16.cu`` (bf16 ``wgmma`` on bf16
+tiles that a copying warp brings in by TMA; fp32 softmax and P, P·V as
+P's two bf16 halves against V, o rounded once to bf16;
+``flash_attention_fwd_bf16``'s count); any other type raises.  Each form
+has its own launch plan (``launch_plan``); the bf16 form's entry point
+takes its shared bytes and refuses a plan it was not compiled for.  The
+kernels read the inputs through their strides.  The fp32 form copies
+nothing unless the last axis is strided; the bf16 form copies where TMA
+cannot address the layout (``_tma_ready``: head_dim or a stride not a
+multiple of 8 values, data not 16-byte aligned), into contiguous tensors
+with head_dim padded by zeros to a multiple of 8, and slices the output
+back.  No path of the port gives it such a layout.
 
 Backward: attention recomputed with PyTorch matmuls in fp32 on either
 device (``attention_bwd``; the gradients cast to the inputs' dtypes), as
@@ -39,8 +48,9 @@ from repro_torch.kernels.flash_attention import ref
 
 MAX_HEAD_DIM = 128
 BLOCK_Q = 64            # query rows per thread block (csrc kBlockQ)
-BLOCK_KV = 64           # keys per staged tile (csrc kBlockKV)
+BLOCK_KV = 64           # keys per staged tile (csrc kBlockKV), both forms
 THREADS = 128           # 4 warps of 16 query rows
+STAGES_BF16 = 3         # the bf16 form's stages of k and v (csrc kStages)
 MAX_SMEM = 232_448      # the shared memory one block may take on sm_90
 # input type -> (C entry point, launch counter)
 _FORMS = {torch.float32: ("flash_attention_fwd_f32", "flash_attention_fwd"),
@@ -48,15 +58,38 @@ _FORMS = {torch.float32: ("flash_attention_fwd_f32", "flash_attention_fwd"),
                            "flash_attention_fwd_bf16")}
 
 
-def launch_plan(b: int, sq: int, hq: int, d: int):
-    """(grid, threads, shared-memory bytes) of the kernel's launch: a block
-    per (batch * query head, 64 query rows); the q tile and two stages of
-    k and v tiles, head_dim padded to a multiple of 32 and each row by 4
-    floats (csrc smem_bytes of the fp32 form; the bf16 form's one fp32
-    k/v stage and two raw bf16 stages take less)."""
+def launch_plan(b: int, sq: int, hq: int, d: int,
+                dtype: torch.dtype = torch.float32):
+    """(grid, threads, shared-memory bytes) of the launch of the form for
+    ``dtype``.  fp32: a block per (batch * query head, 64 query rows) of
+    4 warps; the q tile and two stages of k and v tiles in fp32, head_dim
+    padded to a multiple of 32 and each row by 4 floats (csrc smem_bytes
+    of flash_attention.cu).  bf16: a block per (batch * query head, 64
+    query rows a warpgroup) of a copying warp and two warpgroups, three at
+    head_dim <= 64; the q tile and three stages of k and v tiles in bf16,
+    head_dim padded to 64 or 128 (one or two 64-column atoms of 128-byte
+    rows), plus 1,024 bytes to align the tiles to the swizzle's period
+    (csrc smem_bytes of flash_attention_bf16.cu, which refuses any other
+    count)."""
+    if dtype == torch.bfloat16:
+        atoms = 1 if d <= 64 else 2
+        consumers = 3 if atoms == 1 else 2
+        rows = 64 * consumers
+        smem = 1024 + (rows + STAGES_BF16 * 2 * BLOCK_KV) * 128 * atoms
+        return (b * hq, -(-sq // rows)), 128 * consumers + 32, smem
     dp = 32 * -(-d // 32)
     smem = 4 * (BLOCK_Q + 4 * BLOCK_KV) * (dp + 4)
     return (b * hq, -(-sq // BLOCK_Q)), THREADS, smem
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether the bf16 form's TMA copies take ``t`` as it is: head_dim
+    and every stride of an axis longer than 1 a multiple of 8 values (16
+    bytes), the last axis contiguous, the data 16-byte aligned."""
+    return (t.shape[-1] % 8 == 0 and t.stride(-1) == 1
+            and t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3])
+                    if n > 1))
 
 
 def _validate(q, k, v, window) -> None:
@@ -91,20 +124,32 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM}: the kernel keeps "
                          f"16 rows of the output in one warp's registers")
-    grid, _, _ = launch_plan(b, sq, hq, d)
+    grid, _, smem = launch_plan(b, sq, hq, d, q.dtype)
     if grid[1] >= 2 ** 16 or grid[0] >= 2 ** 31:
         raise ValueError(f"grid too large for q {tuple(q.shape)}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    o = torch.empty((b, sq, hq, d), device=q.device, dtype=q.dtype)
+    scale = 1.0 / math.sqrt(d)
+    plan, dk = (), d
+    if q.dtype == torch.bfloat16:
+        plan = (smem,)
+        if not all(map(_tma_ready, (q, k, v))):
+            # a layout TMA cannot address: contiguous copies, head_dim
+            # padded with zeros to a multiple of 8
+            dk = d + -d % 8
+            q, k, v = (torch.nn.functional.pad(t, (0, dk - d)).contiguous()
+                       for t in (q, k, v))
+    else:
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
+    o = torch.empty((b, sq, hq, dk), device=q.device, dtype=q.dtype)
     rc = getattr(build.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        b, sq, skv, hq, hkv, d, *q.stride()[:3], *k.stride()[:3],
+        b, sq, skv, hq, hkv, dk, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *o.stride()[:3], int(causal),
         int(window) if (causal and window is not None) else 0,
-        1.0 / math.sqrt(d), build.stream_of(q))
+        scale, *plan, build.stream_of(q))
     build.check(rc, counter)
     LAUNCHES[counter] += 1
-    return o
+    return o if dk == d else o[..., :d].contiguous()
 
 
 def attention_bwd(q, k, v, o, do, causal: bool, window: Optional[int]):

@@ -129,3 +129,28 @@ def test_launch_plan_covers_rows_within_shared_memory(b, s, hq, d):
     dp = -(-d // 32) * 32
     assert smem == 4 * (ops.BLOCK_Q + 4 * ops.BLOCK_KV) * (dp + 4)
     assert smem <= ops.MAX_SMEM == 227 * 1024
+
+
+# the shapes above, phi4-mini's FedGKD step (2, 1,024, 24, 128) and
+# evaluation, and zamba2's shared block at its prefill (4, 1,024, 32, 64)
+@pytest.mark.parametrize("b,s,hq,d", [(64, 64, 4, 32), (256, 64, 4, 32),
+                                      (405, 64, 4, 32), (64, 1, 4, 32),
+                                      (8, 100, 4, 128), (3, 128, 8, 64),
+                                      (2, 37, 6, 7), (1, 300, 2, 96),
+                                      (2, 1024, 24, 128), (8, 1024, 24, 128),
+                                      (4, 1024, 32, 64)])
+def test_bf16_launch_plan_covers_rows_within_shared_memory(b, s, hq, d):
+    """The bf16 form's plan: a block per (batch * query head, 64 query
+    rows a warpgroup) of a copying warp and two warpgroups, three at
+    head_dim <= 64; the q tile and three stages of k and v tiles in bf16 at
+    head_dim 64 or 128 (one or two 64-column atoms of 128-byte rows) and
+    1,024 bytes of alignment fit a block's 227 KB."""
+    (gx, gy), threads, smem = ops.launch_plan(b, s, hq, d, torch.bfloat16)
+    atoms = 1 if d <= 64 else 2
+    consumers = 3 if d <= 64 else 2
+    rows = 64 * consumers
+    assert gx == b * hq and threads == 128 * consumers + 32
+    assert (gy - 1) * rows < s <= gy * rows
+    assert smem == 1024 + (rows + 3 * 2 * 64) * 128 * atoms
+    assert smem <= ops.MAX_SMEM
+    assert ops.launch_plan(b, s, hq, d) != ((gx, gy), threads, smem)

@@ -825,26 +825,48 @@ def _bf16_close(got, want):
     assert bool((err <= bar).all()), float((err - bar).max())
 
 
-@pytest.mark.parametrize("case", [(2, 256, 24, 8, 128, None),
-                                  (2, 256, 32, 32, 64, None),
-                                  (1, 160, 24, 8, 128, 64),
-                                  (2, 100, 4, 4, 40, None)], ids=str)
+# (B, S, Hq, Hkv, D, window[, layout]): phi4-mini's and zamba2's head
+# layouts, the ring gate's window and an odd head_dim; S = 1,024 at D = 128
+# and 64 (many q tiles, causal skipping), a ragged S = 1,000, a window of
+# 100 across tile boundaries, MQA, a head_dim of 7 (staged by plain loads:
+# rows not 16-byte aligned), q, k and v as strided views of one fused
+# (B, S, (Hq + 2 Hkv) D) projection, and non-causal at a ragged S
+BF16_FLASH_CASES = [(2, 256, 24, 8, 128, None), (2, 256, 32, 32, 64, None),
+                    (1, 160, 24, 8, 128, 64), (2, 100, 4, 4, 40, None),
+                    (2, 1024, 24, 8, 128, None), (2, 1024, 32, 32, 64, None),
+                    (1, 1000, 8, 2, 128, None), (1, 300, 8, 2, 128, 100),
+                    (2, 16, 48, 1, 128, None),
+                    (2, 37, 6, 3, 7, None),
+                    (2, 300, 24, 8, 128, None, "fused"),
+                    (2, 200, 8, 2, 64, None, "non-causal")]
+
+
+@pytest.mark.parametrize("case", BF16_FLASH_CASES, ids=str)
 def test_flash_attention_bf16_kernel_matches_plain(cuda, case):
-    b, s, hq, hkv, d, window = case
+    b, s, hq, hkv, d, window, *layout = case
+    causal = layout != ["non-causal"]
     gen = torch.Generator(device=cuda).manual_seed(hq + d + 1)
-    q = torch.randn(b, s, hq, d, device=cuda, generator=gen).bfloat16()
-    k, v = (torch.randn(b, s, hkv, d, device=cuda, generator=gen).bfloat16()
-            for _ in range(2))
+    if layout == ["fused"]:
+        qkv = torch.randn(b, s, (hq + 2 * hkv) * d, device=cuda,
+                          generator=gen).bfloat16()
+        q, k, v = (t.unflatten(-1, (-1, d)) for t in
+                   qkv.split([hq * d, hkv * d, hkv * d], dim=-1))
+        assert not q.is_contiguous() and k.stride(1) == (hq + 2 * hkv) * d
+    else:
+        q = torch.randn(b, s, hq, d, device=cuda, generator=gen).bfloat16()
+        k, v = (torch.randn(b, s, hkv, d, device=cuda, generator=gen)
+                .bfloat16() for _ in range(2))
     before = dict(LAUNCHES)
-    got = fa_ops.flash_attention_fwd(q, k, v, True, window)
+    got = fa_ops.flash_attention_fwd(q, k, v, causal, window)
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention_fwd_bf16"] == (
         before["flash_attention_fwd_bf16"] + 1)
     assert LAUNCHES["flash_attention_fwd"] == before["flash_attention_fwd"]
     _bf16_close(got, fa_ref.attention_ref(q.float(), k.float(), v.float(),
-                                          window=window))
+                                          causal=causal, window=window))
     torch.testing.assert_close(
-        got.float(), fa_ref.attention_ref(q, k, v, window=window).float(),
+        got.float(), fa_ref.attention_ref(q, k, v, causal=causal,
+                                          window=window).float(),
         rtol=BF16_FLASH_TOL, atol=BF16_FLASH_TOL)
 
 

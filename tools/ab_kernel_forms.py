@@ -7,26 +7,41 @@ turns (old, new, new, old).
 
 ``DIR`` holds the old form's ``grouped_conv.cu``, ``flash_attention.cu``
 and/or ``ssd_scan.cu``; each kernel whose source is there is compared.
+Where the old ``flash_attention.cu`` also defines
+``flash_attention_fwd_bf16`` (the bf16 form at commit 3c466fa: 3xTF32
+``mma.sync`` on widened tiles, before it moved to
+``flash_attention_bf16.cu``), that form is held against the port's bf16
+form too; its source includes the ``tf32_mma.cuh`` of its commit, which
+then goes in ``DIR`` beside it:
+
+    git show 3c466fa:src/repro_torch/csrc/flash_attention.cu > DIR/flash_attention.cu
+    git show 3c466fa:src/repro_torch/csrc/tf32_mma.cuh > DIR/tf32_mma.cuh
+
 With ``--interface first`` (the default) they have the C entry points of
 the first forms (``FIRST_SIGNATURES``: the conv without the tile-plan
 arguments, the SSD scan without the scratch and plan arguments); with
 ``current`` they have the port's own entry points (a variant of the
-current kernel, called with the same plan), and ``tf32_mma.cuh`` is on the
-include path.  They are built with the port's ``nvcc`` flags into
-``DIR/libold.so`` and bound with ``ctypes``; the new forms are the port's
-own (``repro_torch.kernels.build``).
+current kernel, called with the same plan), and the port's
+``tf32_mma.cuh`` is on the include path where ``DIR`` has none.  They are
+built with the port's ``nvcc`` flags into ``DIR/libold.so`` and bound with
+``ctypes``; the new forms are the port's own
+(``repro_torch.kernels.build``).
 
 Both forms run on the same inputs at the ResNet-8 path's conv shapes
 (K=4, N=64; K=1 at N=256, 1024 and 788), at ResNet-50's 23 distinct conv
 shapes at 64x64 (K=4, N=64; the group's totals count each shape as often
 as the network has it), at a 1x1 conv over 2,048 input channels (a deep
 reduction, for the error), at the text path's attention
-(B=64 and 256) and at the LM path's SSD scan (B = 4 and 8 of (B, 1023,
-80, 64, 1, 128, 256), inputs strided as ``mamba2_forward`` passes them).
+(B=64 and 256), at the LM path's SSD scan (B = 4 and 8 of (B, 1023,
+80, 64, 1, 128, 256), inputs strided as ``mamba2_forward`` passes them)
+and, for the bf16 forms of flash attention, at ``chip_smoke.BF16_FLASH``.
 Each form's largest error against the plain version is printed beside its
 time; the run fails if the new form is further than 1e-5 of max|plain|
 from it (for the SSD scan, where the fp32 plain version is itself further
-than that from float64: no further from float64 than the plain version).
+than that from float64: no further from float64 than the plain version;
+for bf16 flash attention, chip_smoke's bf16 gate: one bf16 ulp of the
+fp32 plain version plus 1e-5 of its max, and 2e-2 of the bf16 plain
+version).
 Times are CUDA-graph replays (``chip_smoke.time_ms``).  Imports nothing of
 JAX.
 """
@@ -50,6 +65,8 @@ FIRST_SIGNATURES = {
     "flash_attention_fwd_f32": [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
                                + [_I64, _I64, _F32, _P],
     "ssd_scan_fwd_f32": [_P] * 7 + [_I64] * 7 + [_I64] * 16 + [_P],
+    "flash_attention_fwd_bf16": [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
+                                + [_I64, _I64, _F32, _P],
 }
 ENTRY = {"grouped_conv.cu": "grouped_conv_fwd_f32",
          "flash_attention.cu": "flash_attention_fwd_f32",
@@ -76,11 +93,16 @@ def build_old(src_dir: Path, interface: str):
         raise RuntimeError(f"nvcc failed on {srcs}:\n{done.stdout}{done.stderr}")
     lib = ctypes.CDLL(str(out))
     sigs = FIRST_SIGNATURES if interface == "first" else build.SIGNATURES
+    have = {s.name for s in srcs}
     for src in srcs:
         fn = getattr(lib, ENTRY[src.name])
         fn.argtypes = sigs[ENTRY[src.name]]
         fn.restype = ctypes.c_int
-    return lib, {s.name for s in srcs}
+    if hasattr(lib, "flash_attention_fwd_bf16"):
+        lib.flash_attention_fwd_bf16.argtypes = sigs["flash_attention_fwd_bf16"]
+        lib.flash_attention_fwd_bf16.restype = ctypes.c_int
+        have.add("flash_attention_fwd_bf16")
+    return lib, have
 
 
 def main() -> int:
@@ -99,7 +121,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from chip_smoke import (LM_SEQ, R50_HW, RESNET8_CONVS, resnet50_shapes,
+    from chip_smoke import (BF16_FLASH, BF16_FLASH_TOL, LM_SEQ, R50_HW,
+                            RESNET8_CONVS, bf16_compare, resnet50_shapes,
                             ssd_inputs, time_ms)
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -193,6 +216,44 @@ def main() -> int:
         print(f"flash (B={b}, 64, 4, 4, 32) causal: old {t_old:.5f} ms (err "
               f"{e_old:.2e}) new {t_new:.5f} ms (err {e_new:.2e}) "
               f"{t_old / t_new:.2f}x", flush=True)
+
+    for b, s, hq, hkv, d, window in (
+            BF16_FLASH if "flash_attention_fwd_bf16" in have else ()):
+        q = torch.randn(b, s, hq, d, device=dev, generator=gen).bfloat16()
+        kt, v = (torch.randn(b, s, hkv, d, device=dev, generator=gen)
+                 .bfloat16() for _ in range(2))
+        o_old = torch.empty_like(q)
+        plan = ([] if args.interface == "first" else
+                [fa_ops.launch_plan(b, s, hq, d, torch.bfloat16)[2]])
+
+        def f_old():
+            rc = old.flash_attention_fwd_bf16(
+                q.data_ptr(), kt.data_ptr(), v.data_ptr(), o_old.data_ptr(),
+                b, s, s, hq, hkv, d, *q.stride()[:3], *kt.stride()[:3],
+                *v.stride()[:3], *o_old.stride()[:3], 1, window or 0,
+                1.0 / math.sqrt(d), *plan, build.stream_of(q))
+            build.check(rc, "old flash_attention_fwd_bf16")
+
+        def f_new():
+            return fa_ops.flash_attention_fwd(q, kt, v, True, window)
+
+        f_old()
+        new = f_new()
+        want = fa_ref.attention_ref(q.float(), kt.float(), v.float(),
+                                    window=window)
+        plain = fa_ref.attention_ref(q, kt, v, window=window).float()
+        name = f"flash bf16 {tuple(q.shape)} kv {tuple(kt.shape)}"
+        e_old, e_new = (float((y.float() - want).abs().max())
+                        for y in (o_old, new))
+        bf16_compare(name, new, want)
+        if not bool(((new.float() - plain).abs()
+                     <= BF16_FLASH_TOL * (1 + plain.abs())).all()):
+            raise AssertionError(f"{name}: the new form is past "
+                                 f"{BF16_FLASH_TOL} of the bf16 plain version")
+        t_old, t_new = turns(f_old, f_new)
+        print(f"{name} window {window}: old {t_old:.4f} ms (err {e_old:.2e}) "
+              f"new {t_new:.4f} ms (err {e_new:.2e}) {t_old / t_new:.2f}x",
+              flush=True)
 
     for b in (SSD_BATCHES if "ssd_scan.cu" in have else ()):
         shape = (b, LM_SEQ - 1, 80, 64, 1, 128, 256)
