@@ -14,7 +14,8 @@ and nothing of JAX or of the JAX package, and
      the paths' shapes — KD-KL forward and backward at (256, 10),
      FedDistill+'s (64, 10), the population phase's K=64 TOY cohort under
      vmap (1024, 10), (256, 100), (256, 200), a ragged (1000, 37),
-     the text path's (64, 4) and (64, 5) and the LM path's (4092, 50280);
+     the text path's (64, 4) and (64, 5), the LM path's (4092, 50280) and
+     the MoE phase's (2048, 32000);
      the client-batched conv at all 9 ResNet-8 layers at K=4, N=64, at
      K=1, N=64 (the sequential route's step), at K=2 and K=3, N=64 (the
      async loop's refill waves and the fault-tolerant round's retried
@@ -31,7 +32,8 @@ and nothing of JAX or of the JAX package, and
      for coverage at the smoke config's layer, two groups at a ragged
      length, L = 1, one 4,096-token sequence, one full-width chunk, a
      chunk of 48 and P, N not multiples of 4; the row logsumexp at
-     (4092, 50280), (8184, 50280), one and two rows and ragged shapes —
+     (4092, 50280), (8184, 50280), (2048, 32000), one and two rows and
+     ragged shapes —
      to 1e-5 of the plain version's largest magnitude (fp32, TF32 off;
      for the SSD scan, where its fp32 plain version is itself further than
      that from float64, to being no further from float64 than the plain
@@ -155,10 +157,11 @@ and nothing of JAX or of the JAX package, and
         their plain versions at every shape the phase gave them, B5 from
         an entering state, and B6, B1 and B2 at (2,048, 200,064), each
         timed against its bound and a PyTorch call;
-     k. the published dtype, bf16 (``run_bf16``, the last phase): first the
-        kernels' bf16 forms against their plain versions on the same values
-        upcast (B4 at phi4-mini's (2, 1,024, 24/8, 128), zamba2's (4,
-        1,024, 32/32, 64) and the ring gate's window-64 shape, its bf16 o
+     k. the published dtype, bf16 (``run_bf16``): first the kernels' bf16
+        forms against their plain versions on the same values upcast (B4
+        at phi4-mini's (2, 1,024, 24/8, 128), zamba2's (4, 1,024, 32/32,
+        64), the ring gate's window-64 shape and mixtral's (2, 1,024, 32/8,
+        128) with its window of 4,096, its bf16 o
         within one bf16 ulp of the plain output rounded, and within the
         reference's 2e-2 of the bf16 plain version, which rounds P; B1 and
         B6 at the fp32 bar and B2's bf16 dls within one ulp, at (2,048,
@@ -183,6 +186,23 @@ and nothing of JAX or of the JAX package, and
         local step a client (two steps are read, not gated: the second
         amplifies the first's roundings, ROADMAP C); ``run_sharded``
         with two clients on the card, equal to ``run_serial`` with two;
+     l. the MoE family (``run_moe``, the last phase): mixtral-8x7b at its
+        published width in bf16 (8 experts of d_ff 14,336, top-2, capacity
+        factor 1.25), depth 32 -> 2, through two FedGKD rounds of
+        ``run_serial`` (phi4-mini's bf16 run: 2 clients x 2 batches of 2 x
+        1,024 tokens, M = 3, lr 0.1; B4's bf16 form, B6, B1/B2 launched;
+        KD non-zero in round 2; every load-balance loss > 0; the share of
+        (token, choice) entries dropped by capacity; peak memory under 75
+        GiB; a profiled round); depth 32 -> 8 for a prefill of 4 x 1,024
+        and ``ServeLoop`` (tokens/s, a profiled second run); at depth 2 on
+        a copy with a lossless capacity (E / top-k: at 1.25 a decode step
+        of 4 tokens has 2 slots an expert and drops tokens the forward
+        keeps, by design), greedy decode over bf16 caches against the
+        forward in fp32 (``bf16_parity``), in fp32 against the forward at
+        the reference's bar, and the window-64 ring over 160 tokens; round
+        1 of the smoke config and of its DeepSeek-option variant (sigmoid
+        router, a shared expert, a leading dense layer, MTP) on the card
+        against the CPU's, in fp32 (1e-4) and in bf16 (``bf16_parity``);
   5. profiles one steady-state round of each path (``torch.profiler``;
      FedGKD, MOON and FedGen for the baselines, an async aggregation
      pipelined and not, and a population round of the TOY and the
@@ -315,9 +335,11 @@ MULTIHOST_FLAG = "--multihost-child"
 # what a resumed run must reproduce exactly
 REC_FIELDS = ("round", "test_acc", "test_loss", "mean_local_loss",
               "sim_time", "version", "mean_staleness", "sampled")
+# the MoE phase's (rows, vocab) of a step: mixtral-8x7b, 2 x 1,024 positions
+MOE_KD = (2 * 1024, 32_000)
 KD_SHAPES = [(256, 10), (64, 10), (128, 10), (192, 10), (1024, 10),
              (256, 100), (256, 200), (1000, 37), (64, 4), (64, 5),
-             (4092, 50280)]
+             (4092, 50280), MOE_KD]
 # the LM path (mamba2-2.7b at full width, 4 layers): batch 4 of 1,024-token
 # sequences, so 1,023 positions a step; evaluation on 8 such sequences
 LM_BATCH, LM_SEQ, LM_EVAL_BATCH = 4, 1024, 8
@@ -405,7 +427,7 @@ SERVE_KERNELS = ["flash_attention_fwd", "ssd_scan_fwd", "row_logsumexp",
 # mamba2 at depth 4 for one round; run_sharded on the card twice over
 PEAK_BF16 = 989e12
 BF16_FLASH = [(2, 1024, 24, 8, 128, None), (4, 1024, 32, 32, 64, None),
-              (1, 160, 24, 8, 128, 64)]
+              (1, 160, 24, 8, 128, 64), (2, 1024, 32, 8, 128, 4096)]
 BF16_KD = [(2 * 1024, 200_064), (LM_BATCH * (LM_SEQ - 1), LM_VOCAB)]
 BF16_FLASH_TOL = 2e-2      # the reference's bf16 bar (P rounded to bf16)
 BF16_PHI_LAYERS = 8
@@ -421,6 +443,23 @@ BF16_SHARDED = dict(rounds=1, batches_per_round=1, batch=2, seq=257,
                     lr=0.1, seed=0)
 BF16_KERNELS = ["flash_attention_fwd_bf16", "row_logsumexp", "kd_kl_fwd",
                 "kd_kl_bwd"]
+
+# the MoE phase (``run_moe``): mixtral-8x7b (arXiv:2401.04088) at its
+# published width in bf16 (d_model 4,096, 32/8 heads of 128, 8 experts of
+# d_ff 14,336, top-2, vocab 32,000, window 4,096): depth 32 -> 2 through
+# BF16_ROUNDS FedGKD rounds of BF16_FL (phi4-mini's bf16 run: 2 clients x 2
+# batches of 2 x 1,024 tokens, M = 3, lr 0.1), its peak under
+# MOE_PEAK_GIB; depth 32 -> 8 for a prefill of SERVE_PREFILL and
+# ServeLoop; decode against the forward and the ring gate (window 64) at
+# depth 2 on a copy with a lossless capacity (capacity_factor = E / top-k:
+# with the published 1.25 a decode step of B = 4 tokens has 2 slots an
+# expert, so decode drops tokens the forward keeps, by design); round 1 of
+# the smoke config and of its DeepSeek-option variant on the card against
+# the CPU's, in fp32 and in bf16
+MOE_ARCH = "mixtral-8x7b"
+MOE_TRAIN_LAYERS, MOE_SERVE_LAYERS, MOE_DECODE_LAYERS = 2, 8, 2
+MOE_PEAK_GIB = 75.0
+MOE_CHECK = dict(BF16_CHECK)       # 2 clients x 2 batches of 2 x 128
 
 
 def log(msg: str) -> None:
@@ -921,16 +960,17 @@ def check_ssd(dev, round_check_len: int) -> dict:
 
 def check_row_lse(dev) -> dict:
     """B6 against its plain version at the LM path's (4092, V) of a step and
-    (8184, V) of an evaluation, V = 50,280, and at ``ROW_LSE_COVERAGE``;
-    times the kernel, the plain version and ``torch.logsumexp(l / T, -1)``
-    at the step's shape."""
+    (8184, V) of an evaluation, V = 50,280, at the MoE phase's step
+    (``MOE_KD``) and at ``ROW_LSE_COVERAGE``; times the kernel, the plain
+    version and ``torch.logsumexp(l / T, -1)`` at the two steps' shapes
+    (the LM path's is the kernels line's)."""
     import torch
 
     from repro_torch.kernels.kd_kl import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(6)
     rows = LM_BATCH * (LM_SEQ - 1)
-    path = [(rows, LM_VOCAB), (2 * rows, LM_VOCAB)]
+    path = [(rows, LM_VOCAB), (2 * rows, LM_VOCAB), MOE_KD]
     rec = dict(max_abs_err=0.0)
     for t_rows, vocab in path + ROW_LSE_COVERAGE:
         for temp in (1.0, 2.0):
@@ -939,7 +979,7 @@ def check_row_lse(dev) -> dict:
             err = compare(f"row_logsumexp ({t_rows}, {vocab}) T={temp}",
                           ops.row_lse_fwd(logits, temp), want)
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            if (t_rows, vocab) != path[0] or temp != 1.0:
+            if (t_rows, vocab) not in (path[0], MOE_KD) or temp != 1.0:
                 log(f"  row_lse ({t_rows}, {vocab}) T={temp} err {err:.2e}")
                 continue
 
@@ -958,7 +998,8 @@ def check_row_lse(dev) -> dict:
                 f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms library "
                 f"{t['library_ms']:.4f} ms bound {t['bound_ms']:.4f} ms "
                 f"({t['bound_by']})")
-            rec.update(t)
+            if (t_rows, vocab) == path[0]:
+                rec.update(t)
     return dict(name="row_logsumexp", route="cuda",
                 source="src/repro_torch/csrc/kd_kl.cu",
                 replaces="src/repro/kernels/kd_kl/kernel.py:148", **rec)
@@ -3423,7 +3464,7 @@ def check_bf16_kernels(dev) -> list[dict]:
                  plain_ms=time_ms(lambda: fa_ref.attention_ref(
                      q, k, v, window=window), reps=2, replays=2))
         lib = {"mask": time_ms(library, reps=5, replays=4)}
-        if window is None:
+        if window is None or window >= s:      # the same function: causal
             lib["is_causal"] = time_ms(library_causal, reps=5, replays=4)
         t["library_ms"] = min(lib.values())
         flops = 4 * d * int(mask.sum()) * b * hq
@@ -3526,12 +3567,13 @@ def check_bf16_kernels(dev) -> list[dict]:
             for name, rec in entries.items()]
 
 
-def smoke_round_vs_cpu(arch: str, dev, run: dict,
-                       gate: bool = True) -> tuple[float, dict]:
-    """Round 1 of ``arch``'s smoke config in bf16 through ``run_serial`` on
-    the card, against the same round on the CPU in bf16 and in fp32 from
-    the same bf16 init upcast, under ``bf16_parity``: (the worst ratio to
-    the bar, the card run's launch counts)."""
+def smoke_round_vs_cpu(arch: str, dev, run: dict, gate: bool = True,
+                       variant=None) -> tuple[float, dict]:
+    """Round 1 of ``arch``'s smoke config (``variant(cfg)`` where given) in
+    bf16 through ``run_serial`` on the card, against the same round on the
+    CPU in bf16 and in fp32 from the same bf16 init upcast, under
+    ``bf16_parity``: (the worst ratio to the bar, the card run's launch
+    counts)."""
     import torch
 
     from repro_torch.configs import get_smoke_config
@@ -3540,8 +3582,8 @@ def smoke_round_vs_cpu(arch: str, dev, run: dict,
     from repro_torch.models import transformer
     from repro_torch.tree import tree_map
 
-    scfg = get_smoke_config(arch).replace(param_dtype="bfloat16",
-                                          activation_dtype="bfloat16")
+    scfg = (variant or (lambda c: c))(get_smoke_config(arch)).replace(
+        param_dtype="bfloat16", activation_dtype="bfloat16")
     init = transformer.init(torch.Generator().manual_seed(0), scfg)
     rounds, launches = {}, {}
     real_init = transformer.init
@@ -3558,11 +3600,12 @@ def smoke_round_vs_cpu(arch: str, dev, run: dict,
                 launches = dict(LAUNCHES)
     finally:
         transformer.init = real_init
-    worst = bf16_parity(f"bf16 {arch} round 1, card against CPU",
+    name = arch if variant is None else f"{arch} ({variant.__name__})"
+    worst = bf16_parity(f"bf16 {name} round 1, card against CPU",
                         rounds["card"]["params"], rounds["cpu"]["params"],
                         rounds["cpu fp32"]["params"], gate=gate)
     loss = {k: r["history"][0]["loss"] for k, r in rounds.items()}
-    log(f"  round 1 of the smoke {arch} in bf16 ({run}): card at {worst:.3f} "
+    log(f"  round 1 of the smoke {name} in bf16 ({run}): card at {worst:.3f} "
         f"of the bar (2 x the CPU bf16 run's distance to its fp32 run)"
         f"{'' if gate else ', a reading'}; losses card {loss['card']:.6f} "
         f"CPU {loss['cpu']:.6f} fp32 {loss['cpu fp32']:.6f}")
@@ -3789,6 +3832,227 @@ def bf16_runs(dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the MoE phase: mixtral-8x7b at its published width in bf16
+# ---------------------------------------------------------------------------
+
+def deepseek_options(cfg):
+    """DeepSeek-V3's MoE options on a GQA config: sigmoid scores
+    renormalised over the top-k, one shared expert, one leading dense
+    layer and the MTP head (``tests/test_torch_moe.py``'s variant)."""
+    return cfg.replace(moe=cfg.moe._replace(router_type="sigmoid",
+                                            n_shared_experts=1),
+                       first_k_dense=1, mtp_depth=1)
+
+
+def lossless(cfg):
+    """``cfg`` with a capacity of E / top-k: no group can drop a token."""
+    return cfg.replace(moe=cfg.moe._replace(
+        capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+@contextlib.contextmanager
+def moe_reads():
+    """Inside the block, each MoE dispatch's dropped (token, choice)
+    entries and the number it routed, and each MoE layer's load-balance
+    loss, kept on the device (no host sync) and read after the block:
+    ``{"dropped": [...], "entries": n, "aux": [...]}``.  Under remat a
+    layer's dispatch runs again in the backward, and is counted again."""
+    from repro_torch.models import moe
+
+    seen = {"dropped": [], "entries": 0, "aux": []}
+    real_plan, real_apply = moe.dispatch_plan, moe.moe_apply
+
+    def plan(top_idx, cap, n_experts):
+        slot, keep = real_plan(top_idx, cap, n_experts)
+        seen["dropped"].append((~keep).sum())
+        seen["entries"] += keep.numel()
+        return slot, keep
+
+    def apply(params, x, cfg):
+        out, aux = real_apply(params, x, cfg)
+        seen["aux"].append(aux.detach())
+        return out, aux
+
+    moe.dispatch_plan, moe.moe_apply = plan, apply
+    try:
+        yield seen
+    finally:
+        moe.dispatch_plan, moe.moe_apply = real_plan, real_apply
+
+
+def run_moe(dev) -> dict:
+    """mixtral-8x7b in bf16 at published width: ``BF16_ROUNDS`` FedGKD rounds
+    at depth 2 (B4's bf16 form, B6, B1 and B2 launched; KD non-zero in
+    round 2; the load-balance loss > 0; the share of assignments dropped
+    by capacity; peak GiB; a profiled round), depth 8 for a prefill and
+    ``ServeLoop``, then, on lossless copies at depth 2, greedy decode
+    against the forward in fp32 (the reference's bar) and over bf16
+    caches (``bf16_parity``) and the ring gate; round 1 of the smoke config
+    and of ``deepseek_options`` on the card against the CPU in fp32
+    (``first_round_check``) and bf16 (``smoke_round_vs_cpu``).  Each run
+    whose launches count is a main path's, with the counts set to 0 just
+    before and read just after.  Returns the launch counts."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.train import run_serial
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(LAUNCHES, 0)
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] += n
+
+    # training at depth 2
+    cfg = bf16_config(MOE_ARCH, MOE_TRAIN_LAYERS)
+    m = cfg.moe
+    log(f"MoE, {MOE_ARCH}: d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} x {cfg.head_dim}, window {cfg.attn_window}, "
+        f"{m.n_experts} experts of d_ff {m.d_ff}, top-{m.top_k} "
+        f"({m.router_type}), capacity factor {m.capacity_factor}, group "
+        f"{cfg.moe_group_size}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count():,} params ({cfg.active_param_count():,} active "
+        f"a token); cuts: {serve_cuts(cfg)}; remat {cfg.remat}; FedGKD "
+        f"{BF16_FL} x {BF16_ROUNDS} rounds")
+    with moe_reads() as seen:
+        out, launches, peak = bf16_fl(f"bf16 {MOE_ARCH}", cfg, dev, BF16_FL,
+                                      BF16_ROUNDS)
+    add(launches)
+    dropped = int(sum(int(d) for d in seen["dropped"]))
+    aux = torch.stack(seen["aux"]).float().cpu()
+    log(f"  {MOE_ARCH}: {dropped} of {seen['entries']} (token, choice) "
+        f"entries dropped by capacity ({dropped / seen['entries']:.4f}) over "
+        f"{len(seen['dropped'])} dispatches (training, remat, teacher, "
+        f"evaluation; the profiled rounds included); load-balance loss "
+        f"x coef a layer {float(aux.min()):.6f}-{float(aux.max()):.6f}; "
+        f"peak {peak:.2f} GiB (limit {MOE_PEAK_GIB})")
+    missing = [k for k in BF16_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {MOE_ARCH} path: "
+                             f"{missing}")
+    if not out["history"][-1]["kd"] > 0:
+        raise AssertionError(f"{MOE_ARCH}: the KD term is 0 in round 2")
+    if not (bool(torch.isfinite(aux).all()) and float(aux.min()) > 0):
+        raise AssertionError(f"{MOE_ARCH}: load-balance loss not > 0")
+    if out["dtypes"] != ["torch.bfloat16", "torch.float32"]:
+        raise AssertionError(f"{MOE_ARCH}: params in {out['dtypes']} (bf16, "
+                             f"the routers fp32)")
+    if not peak < MOE_PEAK_GIB:
+        raise AssertionError(f"{MOE_ARCH}: peak {peak:.2f} GiB")
+    del out
+
+    # serving at depth 8
+    cfg = bf16_config(MOE_ARCH, MOE_SERVE_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = card_init(cfg, dev)
+    log(f"MoE serve, {MOE_ARCH}: {serve_cuts(cfg)}, {cfg.param_count():,} "
+        f"params")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, SERVE_PREFILL,
+                                     device=dev, generator=gen)}
+    prompts = make_prompts(SERVE_REQ["requests"], cfg.vocab_size,
+                           SERVE_REQ["prompt_len"])
+    reset_launches()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    last = steps.make_prefill_step(cfg, last_only=True)(params, batch)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    stats = serve_on(cfg, params, prompts, dev)
+    add(dict(LAUNCHES))
+    log(f"  prefill (last_only) of {SERVE_PREFILL}: {ms:.1f} ms; ServeLoop: "
+        f"{SERVE_REQ['requests']} requests, batch {SERVE_REQ['batch']}, "
+        f"{SERVE_REQ['gen']} generated: {stats['seconds']:.4f} s, "
+        f"{stats['decode_steps']} decode steps, {stats['tok_per_s']:.2f} "
+        f"tok/s; peak {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} "
+        f"GiB")
+    if not (tuple(last.shape) == (SERVE_PREFILL[0], 1, cfg.vocab_size)
+            and all_finite(last)):
+        raise AssertionError(f"{MOE_ARCH} prefill: wrong shape or non-finite")
+    if len(stats["outputs"]) != SERVE_REQ["requests"]:
+        raise AssertionError(f"{MOE_ARCH} ServeLoop: {stats['outputs']}")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = serve_on(cfg, params, prompts, dev)
+    device_busy(prof, f"{MOE_ARCH} ServeLoop, a second run",
+                again["seconds"] * 1e3, top=6)
+    del params, last, prof
+    torch.cuda.empty_cache()
+
+    # decode against the forward on lossless copies at depth 2
+    cfg = lossless(bf16_config(MOE_ARCH, MOE_DECODE_LAYERS))
+    params = card_init(cfg, dev)
+    slots = max(1, math.ceil(SERVE_REQ["batch"] * m.top_k / m.n_experts
+                             * m.capacity_factor))
+    log(f"MoE decode, {MOE_ARCH}: depth {cfg.n_layers}, capacity factor "
+        f"{cfg.moe.capacity_factor} (lossless: the published "
+        f"{m.capacity_factor} gives a decode step of {SERVE_REQ['batch']} "
+        f"tokens {slots} slots an expert, so decode would drop tokens the "
+        f"forward keeps)")
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (SERVE_CHECK_BATCH, SERVE_DECODE_PROMPT),
+                           device=dev, generator=gen)
+    dec, toks = greedy_decode(cfg, params, prompt, SERVE_DECODE_STEPS, dev)
+    params32 = tree_map(lambda t: t.float(), params)
+    cfg32 = fp32_of(cfg)
+    with torch.no_grad():
+        full, _ = transformer.forward(params, cfg, toks)
+        full32, _ = transformer.forward(params32, cfg32, toks)
+    worst = bf16_parity(f"bf16 {MOE_ARCH} decode against its forward",
+                        [dec], [full], [full32])
+    log(f"  greedy decode over {toks.shape[1]} positions (bf16 caches): "
+        f"{float((dec - full32).abs().max()):.3e} from the fp32 forward, the "
+        f"bf16 forward {float((full - full32).abs().max()):.3e} (max |logit| "
+        f"{float(full32.abs().max()):.3e}); {worst:.3f} of the bar")
+    del params, dec, full, full32
+    decode_vs_forward(f"{MOE_ARCH} fp32", cfg32, params32, dev,
+                      SERVE_DECODE_PROMPT, SERVE_DECODE_STEPS)
+    wcfg = cfg32.replace(attn_window=SERVE_WINDOW)
+    wtoks = torch.randint(0, cfg.vocab_size, (1, SERVE_RING_TOKENS),
+                          device=dev, generator=gen)
+    cache = transformer.init_cache(wcfg, 1, SERVE_RING_TOKENS, torch.float32,
+                                   device=dev)
+    serve_step = steps.make_serve_step(wcfg)
+    outs = []
+    for i in range(SERVE_RING_TOKENS):
+        lg, cache = serve_step(params32, cache, wtoks[:, i:i + 1])
+        outs.append(lg[:, 0])
+    with torch.no_grad():
+        full, _ = transformer.forward(params32, wcfg, wtoks)
+    against_forward(f"{MOE_ARCH} fp32 ring buffer: window {SERVE_WINDOW} (a "
+                    f"ring of {cache['seg0'].k.shape[2]} slots) over "
+                    f"{SERVE_RING_TOKENS} tokens", torch.stack(outs, 1), full)
+    del params32, full, outs, cache
+    torch.cuda.empty_cache()
+
+    # round 1 of the smoke configs, card against CPU: fp32, then bf16
+    for variant in (None, deepseek_options):
+        scfg = fp32_of((variant or (lambda c: c))(get_smoke_config(MOE_ARCH)))
+        name = MOE_ARCH if variant is None else f"{MOE_ARCH} ({variant.__name__})"
+
+        def params_after(device, rounds, scfg=scfg):
+            out = run_serial(scfg, rounds=rounds, algo="fedgkd",
+                             device=device, verbose=False, **MOE_CHECK)
+            return [t.detach().cpu().numpy()
+                    for t in tree_leaves(out["params"])]
+
+        first_round_check(dev, f"fp32 {name} smoke round ({MOE_CHECK})",
+                          MOE_CHECK["lr"], params_after)
+        add(smoke_round_vs_cpu(MOE_ARCH, dev, MOE_CHECK, variant=variant)[1])
+    log(f"MoE phase: {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{ {k: n for k, n in total.items() if n} }")
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3864,6 +4128,7 @@ def main() -> int:
     counts, bf16_entries = run_bf16(dev)
     launches.append(counts)
     kernels += bf16_entries
+    launches.append(run_moe(dev))
     for k in kernels:
         k["launches"] = sum(counts[k["name"]] for counts in launches)
         k["max_abs_err"] = max([k["max_abs_err"]] + [

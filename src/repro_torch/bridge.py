@@ -2,9 +2,11 @@
 
 The port keeps the reference's pytree keys and layouts (conv weights HWIO,
 dense weights ``(in, out)``, stacked leaves ``(K, ...)``), so the bridge is
-a structural copy: numpy arrays in, tensors out, and back.  The tests load
-the reference's initialisation this way, since torch cannot replay
-``jax.random``.
+a structural copy: numpy arrays in, tensors out, and back, each leaf in
+its own dtype (a bf16 model's MoE routers stay fp32; the experts' (E, D,
+F) and (E, F, D) weights, the shared expert and the MTP head keep their
+keys and layouts).  The tests load the reference's initialisation this
+way, since torch cannot replay ``jax.random``.
 
 bfloat16 leaves go through their 16 bits both ways: ``np.asarray`` of a
 JAX bf16 array has numpy's ``bfloat16`` extension type (``ml_dtypes``),

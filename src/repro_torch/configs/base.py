@@ -4,12 +4,13 @@ The port of ``repro.configs.base`` without JAX: ``InputShape``,
 ``SHAPES``, the registry (``register``, ``get_config``,
 ``get_smoke_config``, ``list_archs``) and ``reduce_for_smoke``, which sets
 the fields the port's ``ModelConfig`` has.  Registered: the dense
-phi4-mini-3.8b, minitron-4b, granite-34b and internlm2-20b, the SSM
-mamba2-2.7b and the hybrid zamba2-1.2b; any other name of the reference's
-``ALL_ARCHS`` (MoE, MLA, encoder-decoder, VLM) raises
-``NotImplementedError`` naming ROADMAP A15.5-A15.7.  The reference's
-``train_input_specs``, ``decode_input_specs`` and ``input_specs`` build
-``jax.ShapeDtypeStruct``s for the dry-run tooling and stay with A16.
+phi4-mini-3.8b, minitron-4b, granite-34b and internlm2-20b, the MoE
+mixtral-8x7b, the SSM mamba2-2.7b and the hybrid zamba2-1.2b; any other
+name of the reference's ``ALL_ARCHS`` (deepseek-v3 with MLA, the
+encoder-decoder and VLM models) raises ``NotImplementedError`` naming
+ROADMAP A15.6-A15.7.  The reference's ``train_input_specs``,
+``decode_input_specs`` and ``input_specs`` build ``jax.ShapeDtypeStruct``s
+for the dry-run tooling and stay with A16.
 """
 from __future__ import annotations
 
@@ -52,8 +53,9 @@ def register(name: str, full: Callable[[], ModelConfig],
 def _lookup(table: dict, name: str) -> ModelConfig:
     if name not in table and name in ALL_ARCHS:
         raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ROADMAP A15.5-A15.7);"
-            f" the port has {sorted(table)}")
+            f"architecture {name!r} is not ported yet (ROADMAP A15.6 MLA, "
+            f"A15.7 encoder-decoder and frontends); the port has "
+            f"{sorted(table)}")
     return table[name]()
 
 
@@ -71,21 +73,32 @@ def list_archs() -> list[str]:
 
 def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Shrink a full config to the same-family smoke variant: 2 layers (4
-    for the hybrid, its shared block every 2), d_model 128, small vocab,
-    fp32 (the reference's values for the fields the port has)."""
+    for the hybrid, its shared block every 2; at most 1 leading dense
+    layer), d_model 128, at most 4 experts of d_ff 64 in groups of 64
+    tokens, small vocab, fp32 (the reference's values for the fields the
+    port has)."""
     kw: dict = dict(
         n_layers=2, d_model=128, n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads > 1 else 1,
         head_dim=32, d_ff=256, vocab_size=503,  # odd-ish to catch padding bugs
         param_dtype="float32", activation_dtype="float32",
         remat=False,
+        first_k_dense=min(cfg.first_k_dense, 1),
+        moe_group_size=64,
         attn_window=min(cfg.attn_window, 8) if cfg.attn_window else None,
     )
+    if cfg.moe is not None:
+        kw["moe"] = cfg.moe._replace(
+            d_model=128, d_ff=64, n_experts=4,
+            top_k=min(cfg.moe.top_k, 2), group_size=64,
+            shared_d_ff=64 if cfg.moe.shared_d_ff else 0)
     if cfg.ssm is not None:
         kw["ssm"] = cfg.ssm._replace(d_model=128, d_state=16, head_dim=16,
                                      chunk=16)
         kw["n_layers"] = 4 if cfg.shared_attn_period else 2
     if cfg.shared_attn_period:
         kw["shared_attn_period"] = 2
+    if cfg.mtp_depth:
+        kw["mtp_depth"] = cfg.mtp_depth
     kw.update(overrides)
     return dataclasses.replace(cfg, **kw)

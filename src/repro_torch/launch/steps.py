@@ -3,10 +3,17 @@
 The port of ``repro.launch.steps``.  A client's local step minimises
 (paper Eq. 4)
 
-    L = CE(student(x), y) + aux + (γ/2)·KL(teacher ‖ student)
+    L = CE(student(x), y) + aux [+ λ·CE_MTP] + (γ/2)·KL(teacher ‖ student)
+
+(aux the MoE layers' load-balance loss, 0 without them)
 
 with kd_mode "none" (the FedAvg local step) or "teacher" (a full teacher
-forward each step, under ``torch.no_grad``).  The next-token CE takes its
+forward each step, under ``torch.no_grad``).  With ``cfg.mtp_depth`` the
+MTP head predicts the labels shifted by one (the last position's target
+padded with -1, which the CE ignores) from the trunk's hidden states,
+weighted by ``mtp_weight`` (λ, 0.3 as in the reference); the reference
+runs the trunk a second time for it, the port reuses the hidden states of
+the forward, which are the same values.  The next-token CE takes its
 row logsumexp from ``kernels.kd_kl.ops.row_logsumexp`` (B6) and the KL
 goes through ``core.distillation.kl_divergence`` (B1/B2): the CUDA
 kernels on a card, their plain versions on the CPU.  ``make_serve_step``
@@ -17,7 +24,7 @@ gradients, of every position or of the last only.
 round (``launch.train.run_sharded``).
 
 Not ported yet: kd_mode "cached_topk", frontends and encoder-decoder
-inputs (ROADMAP A15.7) and MTP (A15.5).
+inputs (ROADMAP A15.7).
 """
 from __future__ import annotations
 
@@ -64,18 +71,29 @@ def _forward(params, cfg: ModelConfig, batch: dict):
 
 
 def make_loss_fn(cfg: ModelConfig, *, kd_mode: str = "teacher",
-                 gamma: float = 0.2, kd_temperature: float = 1.0):
-    """loss(params, teacher_params, batch) -> (loss, metrics)."""
+                 gamma: float = 0.2, kd_temperature: float = 1.0,
+                 mtp_weight: float = 0.3):
+    """loss(params, teacher_params, batch) -> (loss, metrics): ``ce``,
+    ``aux``, ``mtp_ce`` with an MTP head and ``kd`` under FedGKD."""
     if kd_mode == "cached_topk":
         _unported("kd_mode='cached_topk'", "A15.7")
     if kd_mode not in KD_MODES:
         raise ValueError(f"kd_mode {kd_mode!r} not in {KD_MODES}")
 
     def loss_fn(params, teacher_params, batch):
-        logits, aux = _forward(params, cfg, batch)
-        ce = lm_cross_entropy(logits, batch["labels"])
+        labels = batch["labels"]
+        h, aux = transformer.hidden_states(params, cfg, batch["tokens"])
+        logits = transformer.logits_from_hidden(params, cfg, h)
+        ce = lm_cross_entropy(logits, labels)
         loss = ce + aux
         metrics = {"ce": ce, "aux": aux}
+        if cfg.mtp_depth:
+            mtp = transformer.mtp_logits(params, cfg, h, labels)
+            targets = torch.cat([labels[:, 1:],
+                                 torch.full_like(labels[:, :1], -1)], dim=1)
+            mtp_ce = lm_cross_entropy(mtp, targets)
+            loss = loss + mtp_weight * mtp_ce
+            metrics["mtp_ce"] = mtp_ce
         if kd_mode == "teacher":
             with torch.no_grad():
                 t_logits, _ = _forward(teacher_params, cfg, batch)
@@ -90,13 +108,15 @@ def make_loss_fn(cfg: ModelConfig, *, kd_mode: str = "teacher",
 
 def make_train_step(cfg: ModelConfig, opt: Optional[Optimizer] = None, *,
                     kd_mode: str = "teacher", gamma: float = 0.2,
-                    kd_temperature: float = 1.0, lr: float = 0.05):
+                    kd_temperature: float = 1.0, lr: float = 0.05,
+                    mtp_weight: float = 0.3):
     """step(params, teacher_params, opt_state, batch) -> (params, opt_state,
     metrics); ``teacher_params=()`` when kd_mode is "none".  The metrics
     come back detached, on the params' device."""
     opt = opt or sgd(momentum=0.9, weight_decay=1e-5)
     loss_fn = make_loss_fn(cfg, kd_mode=kd_mode, gamma=gamma,
-                           kd_temperature=kd_temperature)
+                           kd_temperature=kd_temperature,
+                           mtp_weight=mtp_weight)
 
     def step(params, teacher_params, opt_state, batch):
         leaves, rebuild = tree_flatten(params)

@@ -1,17 +1,21 @@
 """ModelConfig: the architecture description the model stack reads.
 
 The port of the fields of ``repro.models.config.ModelConfig`` that the
-dense, SSM and hybrid families read (the reference module imports
-``jax.numpy`` and the MoE and MLA configs, so the port keeps its own).
-Ported: the dense family (GQA attention; the GELU or SwiGLU MLP), the SSM
-family (Mamba-2, attention-free, no MLP) and the hybrid family (Zamba2:
-Mamba-2 layers with one shared attention + MLP block applied every
+dense, MoE, SSM and hybrid families read (the reference module imports
+``jax.numpy`` and the MLA config, so the port keeps its own).
+Ported: the dense family (GQA attention; the GELU or SwiGLU MLP), the MoE
+family (``moe``: a ``MoEConfig``; ``first_k_dense`` dense layers before
+the MoE layers; ``moe_group_size`` tokens a dispatch group; DeepSeek-V3's
+multi-token prediction head of ``mtp_depth``), the SSM family (Mamba-2,
+attention-free, no MLP) and the hybrid family (Zamba2: Mamba-2 layers
+with one shared attention + MLP block applied every
 ``shared_attn_period`` of them), each with LayerNorm or RMSNorm and a tied
-or untied LM head.  The MoE family raises ``NotImplementedError`` naming
-ROADMAP A15.5, MLA A15.6, and the encoder-decoder and frontend families
-A15.7.  ``param_dtype`` and ``activation_dtype`` are float32 or bfloat16
-(every published LM config is bf16); ``pdtype`` and ``adtype`` give them
-as torch dtypes.  The reference's logit soft cap and
+or untied LM head.  As in the reference, a config without a ``MoEConfig``
+builds dense layers whatever its family says.  MLA raises
+``NotImplementedError`` naming ROADMAP A15.6, and the encoder-decoder and
+frontend families A15.7.  ``param_dtype`` and ``activation_dtype`` are
+float32 or bfloat16 (every published LM config is bf16); ``pdtype`` and
+``adtype`` give them as torch dtypes.  The reference's logit soft cap and
 ``scan_layers`` wait for a config that sets them.  There is no
 ``use_pallas``: in the port the device picks between a kernel and its
 plain version.
@@ -23,10 +27,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.ssm import SSMConfig
 
 # what the port refuses, and the ROADMAP item that brings it
-_UNPORTED = {("family", "moe"): "A15.5", ("attn_type", "mla"): "A15.6",
+_UNPORTED = {("attn_type", "mla"): "A15.6",
              ("family", "encdec"): "A15.7", ("family", "vlm"): "A15.7",
              ("family", "audio"): "A15.7"}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -35,7 +40,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | ssm | hybrid (moe, encdec: A15)
+    family: str                    # dense | moe | ssm | hybrid (encdec: A15.7)
     n_layers: int
     d_model: int
     n_heads: int
@@ -51,6 +56,10 @@ class ModelConfig:
     qkv_bias: bool = False
     use_rope: bool = True
 
+    # MoE
+    moe: Optional[MoEConfig] = None
+    first_k_dense: int = 0         # leading dense layers before MoE layers
+
     # SSM / hybrid
     ssm: Optional[SSMConfig] = None
     shared_attn_period: int = 0    # hybrid: shared attn block every N ssm layers
@@ -60,10 +69,14 @@ class ModelConfig:
     act: str = "swiglu"            # swiglu | gelu
     tie_embeddings: bool = True
 
+    # MTP (DeepSeek-V3 multi-token prediction): extra head depth
+    mtp_depth: int = 0
+
     # execution
     param_dtype: str = "float32"   # float32 | bfloat16
     activation_dtype: str = "float32"
     remat: bool = False            # recompute each layer in the backward
+    moe_group_size: int = 4096     # tokens a MoE dispatch group
 
     def __post_init__(self):
         for (field, value), item in _UNPORTED.items():
@@ -71,7 +84,7 @@ class ModelConfig:
                 raise NotImplementedError(
                     f"ModelConfig {field}={value!r} is not ported yet "
                     f"(ROADMAP {item})")
-        ported = {"family": ("dense", "ssm", "hybrid"),
+        ported = {"family": ("dense", "moe", "ssm", "hybrid"),
                   "attn_type": ("gqa", "none"), "norm": ("ln", "rms"),
                   "act": ("gelu", "swiglu"),
                   "param_dtype": tuple(_DTYPES),
@@ -98,10 +111,18 @@ class ModelConfig:
         return _DTYPES[self.activation_dtype]
 
     def segments(self) -> list[tuple[str, int]]:
-        """Homogeneous layer runs, in order: one dense or one mamba run (the
-        hybrid's shared block is applied between its mamba layers)."""
+        """Homogeneous layer runs, in order: one mamba run (the hybrid's
+        shared block is applied between its mamba layers), ``first_k_dense``
+        dense layers then a moe run where there is a ``MoEConfig``, or one
+        dense run."""
         if self.family in ("ssm", "hybrid"):
             return [("mamba", self.n_layers)]
+        if self.moe is not None:
+            segs = []
+            if self.first_k_dense:
+                segs.append(("dense", self.first_k_dense))
+            segs.append(("moe", self.n_layers - self.first_k_dense))
+            return segs
         return [("dense", self.n_layers)]
 
     def replace(self, **kw) -> "ModelConfig":
@@ -120,6 +141,11 @@ class ModelConfig:
         for kind, count in self.segments():
             if kind == "dense":
                 total += count * (attn + mlp + 2 * d)
+            elif kind == "moe":
+                m = self.moe
+                routed = m.n_experts * 3 * d * m.d_ff + d * m.n_experts
+                shared = m.n_shared_experts * 3 * d * (m.shared_d_ff or m.d_ff)
+                total += count * (attn + routed + shared + 2 * d)
             else:
                 s = self.ssm
                 di, g, n = s.d_inner, s.n_groups, s.d_state
@@ -129,4 +155,18 @@ class ModelConfig:
                 total += count * per
         if self.family == "hybrid" and self.shared_attn_period:
             total += attn + mlp + 2 * d + 2 * d * d
+        if self.mtp_depth:
+            # proj(2d->d) + one dense block + 3 norms
+            total += self.mtp_depth * (2 * d * d + attn + mlp + 5 * d)
         return int(total)
+
+    def active_param_count(self) -> int:
+        """Per-token active parameters: a MoE layer counts its top-k
+        experts only."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        full_moe = m.n_experts * 3 * self.d_model * m.d_ff
+        active_moe = m.top_k * 3 * self.d_model * m.d_ff
+        n_moe_layers = self.n_layers - self.first_k_dense
+        return self.param_count() - n_moe_layers * (full_moe - active_moe)

@@ -1,9 +1,10 @@
-"""The model stack over plain-dict params: dense, Mamba-2 and hybrid LMs.
+"""The model stack over plain-dict params: dense, MoE, Mamba-2 and hybrid LMs.
 
-The port of the dense, SSM and hybrid families of
+The port of the dense, MoE, SSM and hybrid families of
 ``repro.models.transformer``: token embedding, the layer runs that
 ``ModelConfig.segments()`` yields (pre-norm blocks of causal GQA attention
-and a GELU or SwiGLU MLP, or pre-norm residual Mamba-2 blocks), for the
+and a GELU or SwiGLU MLP, the same with a mixture of experts in place of
+the MLP (``models.moe``), or pre-norm residual Mamba-2 blocks), for the
 hybrid (Zamba2) one shared attention + MLP block applied after every
 ``shared_attn_period`` Mamba-2 layers to ``[h ; h0]`` projected back to
 d_model (h0 the embedding stream), the final norm, and the logits (the
@@ -12,7 +13,11 @@ keys and layouts, the per-layer leaves stacked on a leading layer axis
 under ``seg{i}`` (the reference stacks them for ``lax.scan``; the port
 loops over that axis).  ``cfg.remat`` recomputes each layer in the
 backward (``torch.utils.checkpoint``), the counterpart of the reference's
-per-layer ``jax.checkpoint``.
+per-layer ``jax.checkpoint``.  ``hidden_states`` and ``forward`` return
+the MoE layers' load-balance losses summed over every layer (0 without
+MoE layers).  ``mtp_logits`` is DeepSeek-V3's multi-token prediction head
+(``mtp_depth``), which predicts token t+2 from the trunk's hidden state at
+t and the embedding of token t+1.
 
 Every attention of a forward goes through ``kernels.flash_attention.ops.
 flash_attention_gqa`` and every SSD scan through ``kernels.ssd_scan.ops.
@@ -25,15 +30,16 @@ Decode (``init_cache``, ``decode_step``) carries a KV cache per attention
 layer (a ring buffer under a sliding window), one per application of the
 hybrid's shared block, and a conv and SSM state per Mamba-2 layer; one
 token's step is plain PyTorch, as in the reference, which computes it
-outside any Pallas kernel.  The caches default to bf16, as the
+outside any Pallas kernel.  A MoE layer's decode dispatches the B tokens
+of the step as one group under the reference's capacity rule, so a token
+is dropped where the reference drops it.  The caches default to bf16, as the
 reference's do.
 
 Parameters are built in ``cfg.pdtype``, the embedding is cast to
 ``cfg.adtype`` and the logits to fp32, as in the reference; the layers
-round where the reference's round (``models.layers``).  MoE (ROADMAP
-A15.5), MLA (A15.6), encoder-decoder models, prefix embeddings and the
-cross-attention input (A15.7), the logit soft cap and MTP are not ported
-yet.
+round where the reference's round (``models.layers``).  MLA (ROADMAP
+A15.6), encoder-decoder models, prefix embeddings and the cross-attention
+input (A15.7) and the logit soft cap are not ported yet.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params
@@ -107,6 +114,28 @@ def _dense_layer(cfg: ModelConfig, p: Params, h: torch.Tensor,
     return h + _mlp(cfg, p["mlp"], _norm(cfg, p["norm2"], h))
 
 
+def _moe_cfg(cfg: ModelConfig) -> moe_lib.MoEConfig:
+    return cfg.moe._replace(group_size=cfg.moe_group_size)
+
+
+def _moe_layer_init(cfg: ModelConfig, generator: torch.Generator) -> Params:
+    return {"norm1": _norm_init(cfg, cfg.d_model),
+            "attn": _attn_init(cfg, generator),
+            "norm2": _norm_init(cfg, cfg.d_model),
+            "moe": moe_lib.moe_init(generator, cfg.moe, cfg.pdtype)}
+
+
+def _moe_layer(cfg: ModelConfig, p: Params, h: torch.Tensor,
+               positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(h, the layer's load-balance loss): the one layer with an
+    auxiliary loss."""
+    h = h + _attn_apply(cfg, p["attn"], _norm(cfg, p["norm1"], h), positions,
+                        cfg.attn_window)
+    out, aux = moe_lib.moe_apply(p["moe"], _norm(cfg, p["norm2"], h),
+                                 _moe_cfg(cfg))
+    return h + out, aux
+
+
 def _mamba_layer_init(cfg: ModelConfig, generator: torch.Generator) -> Params:
     return {"norm": _norm_init(cfg, cfg.d_model),
             "mixer": ssm_lib.mamba2_init(generator, cfg.ssm, cfg.pdtype)}
@@ -119,8 +148,10 @@ def _mamba_layer(cfg: ModelConfig, p: Params, h: torch.Tensor,
     return h + out
 
 
-_LAYER_INIT = {"dense": _dense_layer_init, "mamba": _mamba_layer_init}
-_LAYER_APPLY = {"dense": _dense_layer, "mamba": _mamba_layer}
+_LAYER_INIT = {"dense": _dense_layer_init, "moe": _moe_layer_init,
+               "mamba": _mamba_layer_init}
+_LAYER_APPLY = {"dense": _dense_layer, "moe": _moe_layer,
+                "mamba": _mamba_layer}
 
 
 def _hybrid(cfg: ModelConfig) -> bool:
@@ -151,11 +182,12 @@ def _shared_block(cfg: ModelConfig, p: Params, h: torch.Tensor,
 
 def init(generator: torch.Generator, cfg: ModelConfig) -> Params:
     """Parameters: ``embed``, ``final_norm``, ``seg{i}`` (each leaf with a
-    leading axis of the segment's layer count), and ``head`` (untied) and
-    ``shared_block`` (hybrid) where the config has them.  The weights are
-    drawn on ``generator``'s device, the norms made on the CPU; every leaf
-    is ``cfg.pdtype`` but the Mamba-2 layers' ``dt_bias``, ``A_log`` and
-    ``D``, which are fp32."""
+    leading axis of the segment's layer count), and ``head`` (untied),
+    ``shared_block`` (hybrid) and ``mtp`` (``proj``, ``norm_h``, ``norm_e``,
+    a dense ``block`` and ``final_norm``) where the config has them.  The
+    weights are drawn on ``generator``'s device, the norms made on the CPU;
+    every leaf is ``cfg.pdtype`` but the Mamba-2 layers' ``dt_bias``,
+    ``A_log`` and ``D`` and the MoE routers, which are fp32."""
     params: Params = {
         "embed": layers.embedding_init(generator, cfg.vocab_size, cfg.d_model,
                                        cfg.pdtype),
@@ -169,6 +201,15 @@ def init(generator: torch.Generator, cfg: ModelConfig) -> Params:
         params[f"seg{i}"] = tree_map(lambda *xs: torch.stack(xs), *per_layer)
     if _hybrid(cfg):
         params["shared_block"] = _shared_block_init(cfg, generator)
+    if cfg.mtp_depth:
+        params["mtp"] = {
+            "proj": layers.dense_init(generator, 2 * cfg.d_model, cfg.d_model,
+                                      cfg.pdtype),
+            "norm_h": _norm_init(cfg, cfg.d_model),
+            "norm_e": _norm_init(cfg, cfg.d_model),
+            "block": _dense_layer_init(cfg, generator),
+            "final_norm": _norm_init(cfg, cfg.d_model),
+        }
     return params
 
 
@@ -177,44 +218,52 @@ def _layer(tree: Any, j: int) -> Any:
 
 
 def _run_layers(cfg: ModelConfig, kind: str, seg: Params, lo: int, hi: int,
-                h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """Layers ``lo`` to ``hi`` of a stacked segment."""
+                h: torch.Tensor, positions: torch.Tensor, aux: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layers ``lo`` to ``hi`` of a stacked segment: (h, ``aux`` plus
+    their load-balance losses where they are MoE layers)."""
     apply = _LAYER_APPLY[kind]
     for j in range(lo, hi):
         p = _layer(seg, j)
         if cfg.remat and torch.is_grad_enabled():
-            h = checkpoint(apply, cfg, p, h, positions, use_reentrant=False)
+            out = checkpoint(apply, cfg, p, h, positions, use_reentrant=False)
         else:
-            h = apply(cfg, p, h, positions)
-    return h
+            out = apply(cfg, p, h, positions)
+        if kind == "moe":
+            h, a = out
+            aux = aux + a
+        else:
+            h = out
+    return h, aux
 
 
 def _hybrid_stack(cfg: ModelConfig, params: Params, h: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
+                  positions: torch.Tensor, aux: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Groups of ``shared_attn_period`` mamba layers, each followed by the
     shared block; then the remaining mamba layers."""
     period, seg = cfg.shared_attn_period, params["seg0"]
     groups = cfg.n_layers // period
     h0 = h
     for gi in range(groups):
-        h = _run_layers(cfg, "mamba", seg, gi * period, (gi + 1) * period, h,
-                        positions)
+        h, aux = _run_layers(cfg, "mamba", seg, gi * period,
+                             (gi + 1) * period, h, positions, aux)
         if cfg.remat and torch.is_grad_enabled():
             h = checkpoint(_shared_block, cfg, params["shared_block"], h, h0,
                            positions, use_reentrant=False)
         else:
             h = _shared_block(cfg, params["shared_block"], h, h0, positions)
     return _run_layers(cfg, "mamba", seg, groups * period, cfg.n_layers, h,
-                       positions)
+                       positions, aux)
 
 
 def hidden_states(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   prefix_embeddings: Optional[torch.Tensor] = None,
                   enc_out: Optional[torch.Tensor] = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Final-normed hidden states (B, S, d_model) and the summed auxiliary
-    loss (0 for dense and Mamba-2 layers) of int ``tokens`` (B, S), the
-    hidden states in ``cfg.adtype``."""
+    """Final-normed hidden states (B, S, d_model) and the auxiliary loss
+    summed over the layers (fp32; 0 without MoE layers) of int ``tokens``
+    (B, S), the hidden states in ``cfg.adtype``."""
     if prefix_embeddings is not None or enc_out is not None:
         raise NotImplementedError(
             "prefix embeddings and encoder outputs are not ported yet "
@@ -222,13 +271,13 @@ def hidden_states(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     h = layers.embed(params["embed"], tokens).to(cfg.adtype)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device)[None].expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if _hybrid(cfg):
-        h = _hybrid_stack(cfg, params, h, positions)
+        h, aux = _hybrid_stack(cfg, params, h, positions, aux)
     else:
         for i, (kind, count) in enumerate(cfg.segments()):
-            h = _run_layers(cfg, kind, params[f"seg{i}"], 0, count, h,
-                            positions)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+            h, aux = _run_layers(cfg, kind, params[f"seg{i}"], 0, count, h,
+                                 positions, aux)
     return _norm(cfg, params["final_norm"], h), aux
 
 
@@ -248,6 +297,22 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """Full forward: (logits (B, S, V) fp32, auxiliary loss)."""
     h, aux = hidden_states(params, cfg, tokens, prefix_embeddings, enc_out)
     return logits_from_hidden(params, cfg, h), aux
+
+
+def mtp_logits(params: Params, cfg: ModelConfig, h: torch.Tensor,
+               next_tokens: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V3's multi-token prediction head (depth 1): logits (B, S,
+    V) fp32 for token t+2 from the trunk's final-normed hidden state ``h``
+    (B, S, D) at t and the embedding of ``next_tokens`` (B, S), token
+    t+1."""
+    p = params["mtp"]
+    emb = layers.embed(params["embed"], next_tokens).to(h.dtype)
+    x = layers.dense(p["proj"], torch.cat(
+        [_norm(cfg, p["norm_h"], h), _norm(cfg, p["norm_e"], emb)], dim=-1))
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    x = _dense_layer(cfg, p["block"], x, positions)
+    return logits_from_hidden(params, cfg, _norm(cfg, p["final_norm"], x))
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +360,10 @@ def _layer_decode(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
     out, new_cache = _attn_decode(cfg, p["attn"], _norm(cfg, p["norm1"], h),
                                   cache, cfg.attn_window)
     h = h + out
+    if kind == "moe":
+        out, _ = moe_lib.moe_apply(p["moe"], _norm(cfg, p["norm2"], h),
+                                   _moe_cfg(cfg))
+        return h + out, new_cache
     return h + _mlp(cfg, p["mlp"], _norm(cfg, p["norm2"], h)), new_cache
 
 

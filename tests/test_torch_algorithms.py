@@ -48,6 +48,7 @@ from test_torch_baselines_batched import (  # noqa: E402
     TOL, fixture_data, max_diff, reference_init)
 from test_torch_baselines_stateful import (  # noqa: E402
     reference_client_noise, reference_fedgen, reference_server_noise)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 C = 10
 T = bridge.params_from_numpy

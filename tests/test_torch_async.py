@@ -58,6 +58,7 @@ from test_torch_faults import (CHAOS, JAX_CHAOS, TOL,  # noqa: E402
                                assert_matches_reference, max_diff,
                                ragged_data, run_own, run_port,
                                run_reference)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ASYNC_KW = dict(staleness_cutoff=4, staleness_a=0.5)
 

@@ -38,6 +38,7 @@ from repro_torch.core import executor, modelzoo  # noqa: E402
 from test_torch_baselines_batched import (  # noqa: E402
     FIXTURE, TOL, assert_trajectories_match, fixture_data, max_diff,
     reference_init, run_port, run_reference)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 SEED = 0
 

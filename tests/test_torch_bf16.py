@@ -66,6 +66,7 @@ from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
 from repro_torch.launch import steps, train  # noqa: E402
 from repro_torch.models import attention, layers, ssm, transformer  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BF16 = dict(param_dtype="bfloat16", activation_dtype="bfloat16")
 FP32 = dict(param_dtype="float32", activation_dtype="float32")
@@ -74,16 +75,6 @@ KD_TOL, FLASH_TOL, STATE_TOL = 5e-2, 2e-2, 1e-5
 ARCHS = ["phi4-mini-3.8b", "mamba2-2.7b", "zamba2-1.2b"]
 PORTED = ARCHS + ["minitron-4b", "granite-34b", "internlm2-20b"]
 STEP = dict(gamma=0.2, lr=0.1)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread: the models are tiny, and the cores are shared
-    with the other test workers; restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _dtype(x) -> str:

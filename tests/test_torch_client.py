@@ -15,6 +15,7 @@ from repro_torch.configs.paper import CIFAR10  # noqa: E402
 from repro_torch.core import algorithms, client, modelzoo  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 K, S, B, HW = 3, 3, 4, 8
 

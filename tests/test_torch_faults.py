@@ -50,6 +50,7 @@ from repro_torch.core.systemsim import (CORRUPT_MODES,  # noqa: E402
                                         derive_rng)
 from repro_torch.data.pipeline import ClientData, FederatedData  # noqa: E402
 from repro_torch.tree import tree_flatten, tree_leaves  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 RAGGED_SIZES = (20, 45, 64, 100, 130, 150)
 FIXTURE = dict(n_clients=len(RAGGED_SIZES), participation=1.0,

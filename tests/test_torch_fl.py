@@ -32,6 +32,7 @@ from repro_torch.core import modelzoo  # noqa: E402
 from repro_torch.core.systemsim import FaultProfile  # noqa: E402
 from repro_torch.data.pipeline import ClientData, FederatedData  # noqa: E402
 from repro_torch.population import HostPlacement, Population  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 SIZES = (5, 9, 12, 20, 8, 16)       # ragged, as tests/test_executor.py
 FIXTURE = dict(n_clients=len(SIZES), participation=1.0, batch_size=8,

@@ -25,6 +25,7 @@ import torch  # noqa: E402
 from repro.kernels.flash_attention import ops as jax_ops  # noqa: E402
 from repro.kernels.flash_attention import ref as jax_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops, ref  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-5
 BLOCK = 32

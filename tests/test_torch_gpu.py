@@ -826,7 +826,8 @@ def _bf16_close(got, want):
 
 
 # (B, S, Hq, Hkv, D, window[, layout]): phi4-mini's and zamba2's head
-# layouts, the ring gate's window and an odd head_dim; S = 1,024 at D = 128
+# layouts, the ring gate's window and an odd head_dim; mixtral's step
+# (32/8 heads, its window of 4,096 past the sequence); S = 1,024 at D = 128
 # and 64 (many q tiles, causal skipping), a ragged S = 1,000, a window of
 # 100 across tile boundaries, MQA, a head_dim of 7 (staged by plain loads:
 # rows not 16-byte aligned), q, k and v as strided views of one fused
@@ -834,6 +835,7 @@ def _bf16_close(got, want):
 BF16_FLASH_CASES = [(2, 256, 24, 8, 128, None), (2, 256, 32, 32, 64, None),
                     (1, 160, 24, 8, 128, 64), (2, 100, 4, 4, 40, None),
                     (2, 1024, 24, 8, 128, None), (2, 1024, 32, 32, 64, None),
+                    (2, 1024, 32, 8, 128, 4096),
                     (1, 1000, 8, 2, 128, None), (1, 300, 8, 2, 128, 100),
                     (2, 16, 48, 1, 128, None),
                     (2, 37, 6, 3, 7, None),
@@ -945,7 +947,8 @@ def test_ssd_scan_casting_wrapper_in_bf16(cuda):
     _bf16_close(y, want[0])
 
 
-@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "zamba2-1.2b",
+                                  "mixtral-8x7b"])
 def test_bf16_decode_matches_forward_on_card(cuda, arch):
     """A bf16 smoke model's greedy decode over bf16 caches (the default)
     against its teacher-forced forward (B4 in bf16 on the card), both held
@@ -957,6 +960,9 @@ def test_bf16_decode_matches_forward_on_card(cuda, arch):
 
     cfg = get_smoke_config(arch).replace(param_dtype="bfloat16",
                                          activation_dtype="bfloat16")
+    if cfg.moe is not None:      # lossless: decode keeps what forward keeps
+        cfg = cfg.replace(moe=cfg.moe._replace(
+            capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
     params = tree_map(lambda t: t.to(cuda), transformer.init(
         torch.Generator().manual_seed(0), cfg))
     toks = torch.randint(0, cfg.vocab_size, (2, 12),
@@ -981,6 +987,63 @@ def test_bf16_decode_matches_forward_on_card(cuda, arch):
     e_dec = float((dec - full32).abs().max())
     bar = max(2 * e_full, 2.0 ** -8 * float(full32.abs().max()))
     assert e_dec <= bar, (e_dec, e_full, bar)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_layer_at_mixtral_width_matches_the_cpu(cuda, dtype):
+    """One MoE layer of mixtral-8x7b at full width (8 experts of 4,096 x
+    14,336, top-2) on 256 tokens at capacity factor 0.5 (32 slots an
+    expert, so entries drop), on the card against the CPU from the same
+    weights (drawn on the card): fp32 to 1e-5 of max|CPU|; bf16 held as a
+    bf16 model's decode is held, to the layer in fp32 on the CPU from the
+    same values upcast: no further from it than twice the CPU's bf16
+    layer, or one bf16 ulp of its magnitude (one ulp of the CPU's bf16
+    output does not hold: h is rounded to bf16 between the up and down
+    products, and the two devices' 4,096-deep sums round some of its
+    values to neighbouring bf16 values, which the 14,336-deep down product
+    carries past an ulp of the output); the same entries dropped; the
+    load-balance loss to 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+
+    dt = getattr(torch, dtype)
+    cfg = get_config("mixtral-8x7b").moe._replace(capacity_factor=0.5)
+    params = moe.moe_init(torch.Generator(device=cuda).manual_seed(0), cfg,
+                          dt)
+    x = torch.randn(2, 128, cfg.d_model, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    x = x.to(dt)
+    drops = {}
+    real = moe.dispatch_plan
+
+    def spy(top_idx, cap, n_experts):
+        slot, keep = real(top_idx, cap, n_experts)
+        drops[top_idx.device.type] = keep.cpu()
+        return slot, keep
+
+    moe.dispatch_plan = spy
+    try:
+        with torch.no_grad():
+            out, aux = moe.moe_apply(params, x, cfg)
+            cpu_out, cpu_aux = moe.moe_apply(
+                tree_map(lambda t: t.cpu(), params), x.cpu(), cfg)
+    finally:
+        moe.dispatch_plan = real
+    assert out.dtype == cpu_out.dtype == dt
+    assert torch.equal(drops["cuda"], drops["cpu"])
+    assert int((~drops["cpu"]).sum()) > 0
+    assert abs(float(aux) - float(cpu_aux)) <= TOL * float(cpu_aux)
+    if dt == torch.float32:
+        _close(out.cpu(), cpu_out)
+        return
+    with torch.no_grad():
+        out32, _ = moe.moe_apply(tree_map(lambda t: t.cpu().float(), params),
+                                 x.cpu().float(), cfg)
+    e_card = float((out.cpu().float() - out32).abs().max())
+    e_cpu = float((cpu_out.float() - out32).abs().max())
+    bar = max(2 * e_cpu, 2.0 ** -8 * float(out32.abs().max()))
+    assert e_card <= bar, (e_card, e_cpu, bar)
 
 
 def test_run_sharded_on_a_repeated_card_equals_run_serial(cuda):

@@ -19,6 +19,7 @@ import torch  # noqa: E402
 
 from repro.kernels.grouped_conv import ops as jax_ops  # noqa: E402
 from repro_torch.kernels.grouped_conv import ops, ref  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 # (K, N, H, Cin, Cout, k, stride, padding)
 RESNET8 = [
@@ -93,7 +94,6 @@ def test_rejects_mismatched_clients():
     with pytest.raises(ValueError, match="client axes"):
         ops.client_batched_conv(torch.zeros(2, 1, 4, 4, 3),
                                 torch.zeros(3, 3, 3, 3, 8))
-
 
 
 # The CUDA kernel's tile plan (``ops.conv_plan``), which the wrapper makes

@@ -18,6 +18,7 @@ import torch  # noqa: E402
 
 from repro.kernels.kd_kl import ops as jax_ops  # noqa: E402
 from repro_torch.kernels.kd_kl import ops, ref  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 CASES = [(7, 10), (64, 100), (33, 200)]
 TEMPS = [1.0, 2.0]

@@ -59,6 +59,7 @@ from repro_torch.launch import steps, train  # noqa: E402
 from repro_torch.models import layers, ssm, transformer  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
 from repro_torch.tree import tree_flatten, tree_leaves  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-5
 SRC = Path(__file__).resolve().parent.parent / "src"
@@ -117,9 +118,9 @@ def test_full_config_is_the_published_one():
 
 
 # the architectures the port has: mamba2 here, the dense and hybrid ones in
-# tests/test_torch_dense_lm.py
+# tests/test_torch_dense_lm.py, mixtral in tests/test_torch_moe.py
 PORTED = (ARCH, "phi4-mini-3.8b", "minitron-4b", "granite-34b",
-          "internlm2-20b", "zamba2-1.2b")
+          "internlm2-20b", "zamba2-1.2b", "mixtral-8x7b")
 
 
 @pytest.mark.parametrize("name", [a for a in ALL_ARCHS if a not in PORTED])
@@ -132,8 +133,9 @@ def test_unported_archs_raise_naming_a15(name):
 
 def test_bf16_and_unported_families_raise_naming_a15():
     """bf16 is ported (ROADMAP A15.3): the published config's caches come
-    in bf16 (the SSM state fp32); prefix embeddings, MoE, MLA and the
-    cached top-k KD still raise naming their items."""
+    in bf16 (the SSM state fp32); prefix embeddings, MLA and the cached
+    top-k KD still raise naming their items (MoE is ported: ROADMAP
+    A15.5)."""
     cfg = get_config(ARCH).replace(n_layers=1)
     assert (cfg.pdtype, cfg.adtype) == (torch.bfloat16, torch.bfloat16)
     cache = transformer.init_cache(cfg, 1, 4)["seg0"]
@@ -142,9 +144,8 @@ def test_bf16_and_unported_families_raise_naming_a15():
     with pytest.raises(NotImplementedError, match="A15"):
         transformer.hidden_states({}, cfg, torch.zeros(1, 4, dtype=torch.long),
                                   prefix_embeddings=torch.zeros(1, 1, 4))
-    for field, value in [("family", "moe"), ("attn_type", "mla")]:
-        with pytest.raises(NotImplementedError, match="A15"):
-            cfg.replace(**{field: value})
+    with pytest.raises(NotImplementedError, match="A15"):
+        cfg.replace(attn_type="mla")
     with pytest.raises(NotImplementedError, match="A15"):
         steps.make_loss_fn(get_smoke_config(ARCH), kd_mode="cached_topk")
 

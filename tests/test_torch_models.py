@@ -20,6 +20,7 @@ from repro.core.modelzoo import make_model as jax_make_model  # noqa: E402
 from repro.models import resnet as jax_resnet  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.models import resnet  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-5
 K = 3

@@ -76,6 +76,7 @@ from repro_torch.population.placement import publish  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 from test_multihost import _reference_history  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 TOL = 1e-5
@@ -89,17 +90,6 @@ ASYNC_HOST_FAULTS = {"crash_prob": 0.1, "corrupt_prob": 0.1,
                      "timeout_prob": 0.05, "host_crash_prob": 0.3}
 FAULT_KEYS = ("host_crashes", "host_timeouts", "crashes", "corrupt_injected",
               "retries", "dropped_clients", "quorum_shortfalls")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The module's runs are tiny: one intra-op thread (the worker
-    processes take one too) spares the cores that the other test workers
-    share; the count is restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def task_of(rounds=2):

@@ -18,6 +18,7 @@ from repro.optim import optimizers as jax_optim  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-6
 CONFIGS = [

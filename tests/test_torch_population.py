@@ -65,6 +65,7 @@ from repro_torch.tree import tree_leaves  # noqa: E402
 
 from test_torch_faults import (assert_histories_identical,  # noqa: E402
                                max_diff, ragged_data, reference_init)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-5
 CPU = torch.device("cpu")

@@ -43,6 +43,7 @@ from repro_torch.tree import tree_flatten, tree_map  # noqa: E402
 from test_torch_faults import (CHAOS, assert_histories_identical,  # noqa: E402
                                assert_matches_reference, run_own, run_port,
                                run_reference)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 

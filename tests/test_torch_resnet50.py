@@ -35,6 +35,7 @@ from repro_torch.core import algorithms, fl_loop, modelzoo  # noqa: E402
 from repro_torch.data.pipeline import ClientData, FederatedData  # noqa: E402
 from repro_torch.models import layers, resnet  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 REL = 1e-5          # of max |reference|
 C = 200

@@ -44,6 +44,7 @@ from repro_torch.configs import phi4_mini_3_8b  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.launch import serve, steps  # noqa: E402
 from repro_torch.models import attention, ssm, transformer  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-5
 DECODE_TOL = 2e-3     # decode against forward: tests/test_arch_smoke.py:79
@@ -51,17 +52,6 @@ RING_TOL = 2e-5       # the ring buffer: tests/test_arch_smoke.py:125
 ARCHS = ["phi4-mini-3.8b", "minitron-4b", "granite-34b", "internlm2-20b",
          "zamba2-1.2b", "mamba2-2.7b"]
 PROMPT, STEPS = 4, 12
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The module's models are tiny: one intra-op thread spares the cores
-    that the other test workers share; the count is restored after the
-    module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _diff(a, b) -> float:

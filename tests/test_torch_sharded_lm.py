@@ -46,20 +46,11 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.launch import steps, train  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-5
 ARCH = "phi4-mini-3.8b"
 RUN = dict(rounds=1, batches_per_round=2, batch=2, seq=9, lr=0.1, seed=0)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread: the models are tiny, and the cores are shared
-    with the other test workers; restored after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ from repro.models.ssm import ssd_chunked as jax_chunked  # noqa: E402
 from repro.models.ssm import ssd_reference as jax_sequential  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops, ref  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 REL_TOL = 1e-5
 

@@ -44,6 +44,7 @@ from repro_torch.core import algorithms, executor, fl_loop, modelzoo  # noqa: E4
 from repro_torch.data.synthetic import SyntheticTextTask  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.tree import tree_paths  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 SMALL = dict(d_model=32, seq_len=16, vocab_size=200, train_size=240,
              batch_size=8, lr=1e-3)

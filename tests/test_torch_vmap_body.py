@@ -58,6 +58,7 @@ from test_torch_baselines_batched import \
     run_reference as run_reference_resnet8  # noqa: E402
 from test_torch_baselines_stateful import (  # noqa: E402
     SEED, reference_client_noise, reference_fedgen, reference_server_noise)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROUNDS = 2
 # 8 local steps at most: the four smallest clients have 6 and are padded to
