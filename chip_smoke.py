@@ -203,6 +203,33 @@ and nothing of JAX or of the JAX package, and
         1 of the smoke config and of its DeepSeek-option variant (sigmoid
         router, a shared expert, a leading dense layer, MTP) on the card
         against the CPU's, in fp32 (1e-4) and in bf16 (``bf16_parity``);
+     m. the last families (``run_families``, the last phase), each at its
+        published width in bf16: deepseek-v3-671b (MLA of 128 heads, kv
+        rank 512; 256 experts top-8, sigmoid router, a shared expert; MTP;
+        vocab 129,280) at depth 61 -> 1 with first_k_dense 3 -> 1 (one
+        dense MLA layer, the MoE run empty) through two FedGKD rounds of
+        ``run_serial`` (the bf16 phase's 2 clients x 2 batches of 2 x
+        1,024; B6, B1/B2 launched; KD non-zero in round 2; peak under 75
+        GiB; a profiled round), depth 4 (3 dense + 1 MoE) for a prefill
+        of 4 x 1,024 and ``ServeLoop`` over MLA caches (a profiled second
+        run; the cache's bytes a token), a lossless copy at depth 2 for
+        greedy decode against the forward (bf16 under ``bf16_parity``,
+        fp32 at the reference's bar), its smoke round 1 against the CPU's
+        in fp32 and bf16; seamless-m4t-large-v2 uncut (24 encoder + 24
+        decoder layers, 1.37B) through two FedGKD rounds driven by
+        ``launch.steps`` (``step_rounds``: 2 clients x 2 batches of 2 x
+        1,024 tokens after 384 synthetic frames, the teacher the previous
+        global, ``make_aggregate_step``), a prefill of the last position,
+        greedy decode with the encoder's output against the forward (bf16
+        and fp32); llava-next-34b at depth 60 -> 2 through two such rounds
+        on 576 patches + 448 tokens, one ``cached_topk`` step (K = 64 from
+        ``torch.topk`` of the teacher's logits), depth 8 for a prefill of
+        4 x (576 + 448); the smoke rounds of seamless and llava through
+        the steps on the card against the CPU's; then B4 (both forms: the
+        encoder's bidirectional attention, cross-attention with Sq != Skv
+        and in decode, a GQA group of 7), B1, B2 and B6 held to their
+        plain versions at every shape the phase gave them, each timed
+        against its bound and a PyTorch call (``check_family_kernels``);
   5. profiles one steady-state round of each path (``torch.profiler``;
      FedGKD, MOON and FedGen for the baselines, an async aggregation
      pipelined and not, and a population round of the TOY and the
@@ -228,6 +255,7 @@ kernels' JSON record, the ``nvidia-smi`` line and
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -460,6 +488,34 @@ MOE_ARCH = "mixtral-8x7b"
 MOE_TRAIN_LAYERS, MOE_SERVE_LAYERS, MOE_DECODE_LAYERS = 2, 8, 2
 MOE_PEAK_GIB = 75.0
 MOE_CHECK = dict(BF16_CHECK)       # 2 clients x 2 batches of 2 x 128
+
+# the families' phase (``run_families``), every model at its published
+# width in bf16: deepseek-v3-671b (arXiv:2412.19437; MLA of 128 heads, kv
+# rank 512, 256 experts of d_ff 2,048 top-8 with a sigmoid router and a
+# shared expert, 3 leading dense layers of d_ff 18,432, MTP, vocab 129,280)
+# at depth 61 -> 1 with first_k_dense 3 -> 1 (one dense MLA layer, the MoE
+# run empty: a MoE layer alone holds 11.3B parameters, so no round with one
+# fits a card) through BF16_ROUNDS FedGKD rounds of BF16_FL, its peak under
+# FAM_PEAK_GIB; depth 4 (3 dense + 1 MoE) for a prefill of SERVE_PREFILL and
+# ServeLoop over MLA caches; a lossless copy at depth 2 (1 dense + 1 MoE) for
+# decode against the forward; its smoke round 1 against the CPU's;
+# seamless-m4t-large-v2 (arXiv:2308.11596) uncut (24 encoder + 24 decoder
+# layers) and llava-next-34b (hf:llava-hf/llava-v1.6; 56/8 heads of 128) at
+# depth 60 -> 2 through BF16_ROUNDS FedGKD rounds driven by the steps
+# (``step_rounds``: FAM_FL, the teacher the previous global), seamless on
+# 384 frames and a prefill and decode with the encoder's output, llava on
+# 576 patches + 448 tokens, a cached_topk step and depth 8 for a prefill
+DS_ARCH, SEAMLESS_ARCH, LLAVA_ARCH = ("deepseek-v3-671b",
+                                      "seamless-m4t-large-v2",
+                                      "llava-next-34b")
+DS_TRAIN_LAYERS, DS_SERVE_LAYERS = 1, 4
+LLAVA_TRAIN_LAYERS, LLAVA_SERVE_LAYERS = 2, 8
+FAM_PEAK_GIB = 75.0
+FAM_FL = dict(clients=2, batches=2, batch=2, seq=1024, gamma=0.2, lr=0.1)
+FAM_TOPK = 64
+DS_KERNELS = ["row_logsumexp", "kd_kl_fwd", "kd_kl_bwd"]   # MLA: no B4
+FAM_KERNELS = ["flash_attention_fwd_bf16", "row_logsumexp", "kd_kl_fwd",
+               "kd_kl_bwd"]
 
 
 def log(msg: str) -> None:
@@ -1540,45 +1596,64 @@ def assert_same_history(label, a, b) -> float:
 
 
 @contextlib.contextmanager
+def _on_card_calls(keys: dict, on_call):
+    """Inside the block, every call of a wrapper ``getattr(module, name)``
+    of ``keys`` whose first argument lies on the card first calls
+    ``on_call(name, keys[(module, name)](*args, **kwargs))``; the wrappers
+    are put back on exit."""
+    originals = {mn: getattr(*mn) for mn in keys}
+
+    def recorder(mn, fn):
+        def call(*args, **kwargs):
+            if args[0].is_cuda:
+                on_call(mn[1], keys[mn](*args, **kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    for mn, fn in originals.items():
+        setattr(*mn, recorder(mn, fn))
+    try:
+        yield
+    finally:
+        for mn, fn in originals.items():
+            setattr(*mn, fn)
+
+
+@contextlib.contextmanager
 def record_shapes():
-    """Record the shapes that the wrappers of B1-B3, B4 and B5 are called
-    with on the card while the block runs: yields {wrapper name: set of
-    (argument shapes, constants)}; the wrappers are put back on exit."""
+    """Count the calls that the wrappers of B1-B6 get on the card while the
+    block runs, by (wrapper name, argument shapes, constants[, B4's
+    dtype]): yields the ``collections.Counter``; ``shapes`` gives one
+    wrapper's keys.  The wrappers are put back on exit."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.grouped_conv import ops as conv_ops
     from repro_torch.kernels.kd_kl import ops as kd_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    keys = {"grouped_conv_fwd": lambda x, w, stride, padding: (
+    keys = {(conv_ops, "grouped_conv_fwd"): lambda x, w, stride, padding: (
                 tuple(x.shape), tuple(w.shape), stride, padding),
-            "kd_kl_fwd": lambda lt, ls, temp: (tuple(lt.shape), temp),
-            "kd_kl_bwd": lambda lt, ls, lse_t, lse_s, g, temp: (
+            (kd_ops, "kd_kl_fwd"): lambda lt, ls, temp: (tuple(lt.shape),
+                                                         temp),
+            (kd_ops, "kd_kl_bwd"): lambda lt, ls, lse_t, lse_s, g, temp: (
                 tuple(lt.shape), temp),
-            "flash_attention_fwd": lambda q, k, v, causal=True, window=None: (
-                tuple(q.shape), tuple(k.shape), causal, window),
-            "ssd_scan_fwd": lambda x, dt, A, B, C, chunk, init_state=None: (
-                tuple(x.shape), tuple(B.shape), chunk,
-                init_state is not None)}
-    seen = {name: set() for name in keys}
-    wrapped = [(conv_ops, "grouped_conv_fwd"), (kd_ops, "kd_kl_fwd"),
-               (kd_ops, "kd_kl_bwd"), (fa_ops, "flash_attention_fwd"),
-               (ssd_ops, "ssd_scan_fwd")]
-    originals = [getattr(mod, name) for mod, name in wrapped]
-
-    def recorder(name, fn):
-        def call(*args, **kwargs):
-            if args[0].is_cuda:
-                seen[name].add(keys[name](*args, **kwargs))
-            return fn(*args, **kwargs)
-        return call
-
-    for (mod, name), fn in zip(wrapped, originals):
-        setattr(mod, name, recorder(name, fn))
-    try:
+            (kd_ops, "row_lse_fwd"): lambda logits, temp: (
+                tuple(logits.shape), temp),
+            (fa_ops, "flash_attention_fwd"):
+                lambda q, k, v, causal=True, window=None: (
+                    tuple(q.shape), tuple(k.shape), bool(causal), window,
+                    str(q.dtype)),
+            (ssd_ops, "ssd_scan_fwd"):
+                lambda x, dt, A, B, C, chunk, init_state=None: (
+                    tuple(x.shape), tuple(B.shape), chunk,
+                    init_state is not None)}
+    seen: collections.Counter = collections.Counter()
+    with _on_card_calls(keys, lambda name, key: seen.update([(name,) + key])):
         yield seen
-    finally:
-        for (mod, name), fn in zip(wrapped, originals):
-            setattr(mod, name, fn)
+
+
+def shapes(seen, name: str) -> set:
+    """The keys that ``record_shapes`` counted for the wrapper ``name``."""
+    return {key[1:] for key in seen if key[0] == name}
 
 
 def check_path_shapes(dev, seen: dict, phase: str) -> dict:
@@ -1595,7 +1670,7 @@ def check_path_shapes(dev, seen: dict, phase: str) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(2)
     err = dict.fromkeys(("grouped_conv_fwd", "kd_kl_fwd", "kd_kl_bwd"), 0.0)
-    for xs, ws, stride, padding in sorted(seen["grouped_conv_fwd"]):
+    for xs, ws, stride, padding in sorted(shapes(seen, "grouped_conv_fwd")):
         x = torch.randn(xs, device=dev, generator=gen)
         w = torch.randn(ws, device=dev, generator=gen) / math.sqrt(
             ws[1] * ws[2] * ws[3])
@@ -1603,7 +1678,8 @@ def check_path_shapes(dev, seen: dict, phase: str) -> dict:
             f"grouped_conv x{xs} w{ws} stride {stride}",
             conv_ops.grouped_conv_fwd(x, w, stride, padding),
             conv_ref.grouped_conv_ref(x, w, stride, padding)))
-    for (rows, vocab), temp in sorted(seen["kd_kl_fwd"] | seen["kd_kl_bwd"]):
+    kd = shapes(seen, "kd_kl_fwd") | shapes(seen, "kd_kl_bwd")
+    for (rows, vocab), temp in sorted(kd):
         lt = torch.randn(rows, vocab, device=dev, generator=gen) * 2
         ls = torch.randn(rows, vocab, device=dev, generator=gen) * 2
         g = torch.randn(rows, device=dev, generator=gen)
@@ -1617,10 +1693,11 @@ def check_path_shapes(dev, seen: dict, phase: str) -> dict:
             f"kd_kl_bwd{(rows, vocab)} T={temp}",
             kd_ops.kd_kl_bwd(lt, ls, lse_t, lse_s, g, temp),
             kd_ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g, temp)))
-    conv_kn = sorted({xs[:2] for xs, *_ in seen["grouped_conv_fwd"]})
-    kd_rows = sorted({key[0] for key in seen["kd_kl_fwd"] | seen["kd_kl_bwd"]})
+    conv = shapes(seen, "grouped_conv_fwd")
+    conv_kn = sorted({xs[:2] for xs, *_ in conv})
+    kd_rows = sorted({key[0] for key in kd})
     log(f"{phase} path shapes against their plain versions: B3 at "
-        f"{len(seen['grouped_conv_fwd'])} shapes, (K, N) in {conv_kn}; B1/B2 "
+        f"{len(conv)} shapes, (K, N) in {conv_kn}; B1/B2 "
         f"at {kd_rows}; max abs err {err}")
     return err
 
@@ -2302,8 +2379,7 @@ def run_multihost(dev) -> tuple[dict, dict]:
     and each kernel's max abs error."""
     with record_shapes() as seen:
         total, child_seen = multihost_runs(dev)
-    for name, shapes in child_seen.items():
-        seen[name] |= shapes
+    seen.update(child_seen)
     return total, check_path_shapes(dev, seen, "multihost")
 
 
@@ -2430,7 +2506,7 @@ def multihost_child(argv: list[str]) -> int:
                 faults=mh_faults(), max_batches_per_client=MH_CPU_BATCHES,
                 eval_every=MH_KILL_ROUNDS)
     (root / "out" / f"shapes_{stage}_host{host}.json").write_text(json.dumps(
-        {name: sorted(shapes) for name, shapes in seen.items()}))
+        list(seen.items())))
     if stage == "main":
         # the kill: host 1 exits right after round 2's checkpoint; host 0
         # misses its deadline once and runs on alone
@@ -2699,14 +2775,13 @@ def multihost_runs(dev) -> tuple[dict, dict]:
             f"the uninterrupted run {diff!r}; counters {res['faults']}")
         if diff != 0.0 or res["faults"] != faults["faults"]:
             raise AssertionError(f"multihost resume: {diff}")
-        child_seen = {}
+        child_seen = collections.Counter()
         for stage in ("main", "resume"):
             for h in range(MH_HOSTS):
                 got = json.loads((root / "out" /
                                   f"shapes_{stage}_host{h}.json").read_text())
-                for name, shapes in got.items():
-                    child_seen.setdefault(name, set()).update(
-                        _tuples(shapes))
+                for key, n in got:
+                    child_seen[_tuples(key)] += n
     log(f"multihost phase: {time.perf_counter() - t_phase:.1f} s")
     return total, child_seen
 
@@ -2865,11 +2940,12 @@ def card_weights(dev):
         transformer.init = real_init
 
 
-def greedy_decode(cfg, params, prompt, steps: int, dev):
+def greedy_decode(cfg, params, prompt, steps: int, dev, enc_out=None):
     """Decode ``prompt`` (B, S) one position at a time through caches in
     the activations' dtype (fp32 for the fp32 phases, the reference's bf16
     default for bf16 models), then ``steps`` greedy tokens: (each fed
-    position's logits (B, S + steps, V), the tokens fed (B, S + steps))."""
+    position's logits (B, S + steps, V), the tokens fed (B, S + steps)).
+    An encoder-decoder's steps attend to ``enc_out``."""
     import torch
 
     from repro_torch.launch.steps import make_serve_step
@@ -2882,17 +2958,18 @@ def greedy_decode(cfg, params, prompt, steps: int, dev):
     for i in range(s + steps):
         tok = prompt[:, i:i + 1] if i < s else tok
         fed.append(tok)
-        logits, cache = step(params, cache, tok)
+        logits, cache = step(params, cache, tok, enc_out)
         outs.append(logits[:, 0])
         tok = torch.argmax(logits[:, -1:], dim=-1)
     return torch.stack(outs, dim=1), torch.cat(fed, dim=1)
 
 
 def decode_vs_forward(label, cfg, params, dev, prompt_len: int,
-                      steps: int) -> float:
+                      steps: int, enc_out=None) -> float:
     """Greedy decode logits against the teacher-forced forward over the
-    same tokens on the card; gates at the reference's bar (``DECODE_TOL``
-    absolute and relative, tests/test_arch_smoke.py:79)."""
+    same tokens on the card (an encoder-decoder's both with ``enc_out``);
+    gates at the reference's bar (``DECODE_TOL`` absolute and relative,
+    tests/test_arch_smoke.py:79)."""
     import torch
 
     from repro_torch.models import transformer
@@ -2900,9 +2977,9 @@ def decode_vs_forward(label, cfg, params, dev, prompt_len: int,
     gen = torch.Generator(device=dev).manual_seed(7)
     prompt = torch.randint(0, cfg.vocab_size, (SERVE_CHECK_BATCH, prompt_len),
                            device=dev, generator=gen)
-    dec, toks = greedy_decode(cfg, params, prompt, steps, dev)
+    dec, toks = greedy_decode(cfg, params, prompt, steps, dev, enc_out)
     with torch.no_grad():
-        full, _ = transformer.forward(params, cfg, toks)
+        full, _ = transformer.forward(params, cfg, toks, enc_out=enc_out)
     return against_forward(f"{label}: greedy decode over {toks.shape[1]} "
                            f"positions", dec, full)
 
@@ -3011,8 +3088,8 @@ def check_serve_kernels(dev, seen: dict) -> tuple[dict, list]:
 
     gen = torch.Generator(device=dev).manual_seed(11)
     err, rows = {}, []
-    for qs, ks, causal, window in sorted(seen["flash_attention_fwd"],
-                                         key=str):
+    for qs, ks, causal, window in sorted(
+            {key[:4] for key in shapes(seen, "flash_attention_fwd")}, key=str):
         q = torch.randn(qs, device=dev, generator=gen)
         k = torch.randn(ks, device=dev, generator=gen)
         v = torch.randn(ks, device=dev, generator=gen)
@@ -3047,7 +3124,8 @@ def check_serve_kernels(dev, seen: dict) -> tuple[dict, list]:
             f"{t['fp32_bound_ms']:.4f})")
         rows.append(dict(name="flash_attention_fwd", shape=(qs, ks, window),
                          **t))
-    for xs, bs, chunk, from_state in sorted(seen["ssd_scan_fwd"], key=str) + [
+    for xs, bs, chunk, from_state in sorted(shapes(seen, "ssd_scan_fwd"),
+                                            key=str) + [
             (SERVE_SSD_INIT[0], SERVE_SSD_INIT[1], SERVE_SSD_INIT[2], True)]:
         b, l, h, p = xs
         g, n = bs[2], bs[3]
@@ -4053,6 +4131,641 @@ def run_moe(dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the last families: MLA (deepseek-v3), the encoder-decoder (seamless-m4t)
+# and the frontend prefix (llava-next), at their published widths in bf16
+# ---------------------------------------------------------------------------
+
+def check_family_kernels(dev, seen) -> tuple[dict, list]:
+    """B4 (both forms), B1, B2 and B6 against their plain versions at every
+    shape that the families' phase gave them on the card (``record_shapes``),
+    each with its launches there: B4's fp32 form to ``KERNEL_TOL``, its
+    bf16 form to one bf16 ulp of the fp32 plain version on the same values
+    upcast and to the reference's 2e-2 of the bf16 plain version; B1, B2
+    and B6 (fp32 logits) to ``KERNEL_TOL``.  Each B4 shape, and each B1,
+    B2, B6 shape of a vocabulary of 10,000 or more, is timed against its
+    plain version, its bound and a PyTorch call (sdpa: without a mask for
+    the non-causal forms, ``is_causal`` where Sq = Skv, else the boolean
+    mask; ``logsumexp``; ``kl_div`` of ``log_softmax``).  Returns (max abs
+    error by launch counter, the timed rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.kd_kl import ops as kd_ops
+    from repro_torch.kernels.kd_kl import ref as kd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    err, rows = {}, []
+
+    def note(counter, e):
+        err[counter] = max(err.get(counter, 0.0), e)
+
+    flash = sorted((k for k in seen if k[0] == "flash_attention_fwd"),
+                   key=str)
+    for key in flash:
+        _, qs, ks, causal, window, dtype = key
+        b, sq, hq, d = qs
+        skv, hkv = ks[1], ks[2]
+        bf16 = dtype == "torch.bfloat16"
+        q, k, v = (torch.randn(s_, device=dev, generator=gen)
+                   for s_ in (qs, ks, ks))
+        if bf16:
+            q, k, v = (t.bfloat16() for t in (q, k, v))
+        got = fa_ops.flash_attention_fwd(q, k, v, causal, window)
+        want = fa_ref.attention_ref(q.float(), k.float(), v.float(),
+                                    causal=causal, window=window)
+        name = f"flash q{qs} kv{ks} causal {causal} window {window} {dtype}"
+        if bf16:
+            counter = "flash_attention_fwd_bf16"
+            e = bf16_compare(name, got, want)
+            plain = fa_ref.attention_ref(q, k, v, causal=causal,
+                                         window=window).float()
+            if not bool(((got.float() - plain).abs()
+                         <= BF16_FLASH_TOL * (1 + plain.abs())).all()):
+                raise AssertionError(f"{name}: past {BF16_FLASH_TOL} of the "
+                                     f"bf16 plain version")
+        else:
+            counter = "flash_attention_fwd"
+            e = compare(name, got, want)
+        note(counter, e)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = (fa_ref.causal_mask(sq, skv, window=window, device=dev)
+                if causal else None)
+        lib_kw = dict(enable_gqa=hkv != hq)
+        if causal and sq == skv and window is None:
+            lib_kw["is_causal"], lib_form = True, "is_causal"
+        elif causal:
+            lib_kw["attn_mask"], lib_form = mask, "mask"
+        else:
+            lib_form = "no mask"
+
+        def library(lib_kw=lib_kw):
+            return F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
+
+        pairs = int(mask.sum()) if causal else sq * skv
+        elt = 2 if bf16 else 4
+        nbytes = elt * (2 * b * sq * hq * d + 2 * b * skv * hkv * d)
+        t = dict(ms=time_ms(lambda: fa_ops.flash_attention_fwd(
+                     q, k, v, causal, window), reps=5, replays=4),
+                 plain_ms=time_ms(lambda: fa_ref.attention_ref(
+                     q, k, v, causal=causal, window=window), reps=2,
+                     replays=2),
+                 library_ms=time_ms(library, reps=5, replays=4))
+        t.update((bf16_flash_bound_ms if bf16 else tf32x3_bound_ms)(
+            nbytes, 4 * d * pairs * b * hq))
+        row = dict(name=counter, shape=[list(qs), list(ks), causal, window],
+                   launches=seen[key], max_abs_err=e, library=lib_form, **t)
+        rows.append(row)
+        log(f"  {name}: {seen[key]} launches, err {e:.2e}, kernel "
+            f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms sdpa "
+            f"({lib_form}) {t['library_ms']:.4f} ms bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
+            f"{t['bound_ms'] / t['ms']:.3f} of it")
+        del q, k, v, qt, kt, vt, got, want
+    kd = sorted({k_[1:] for k_ in seen if k_[0] in ("kd_kl_fwd", "kd_kl_bwd")},
+                key=str)
+    for (rows_n, vocab), temp in kd:
+        lt = torch.randn(rows_n, vocab, device=dev, generator=gen) * 2
+        ls = torch.randn(rows_n, vocab, device=dev, generator=gen) * 2
+        g = torch.randn(rows_n, device=dev, generator=gen)
+        kl, lse_t, lse_s = kd_ops.kd_kl_fwd(lt, ls, temp)
+        want = kd_ref.kd_kl_fwd_ref(lt, ls, temp)
+        note("kd_kl_fwd", max(compare(f"kd_kl_fwd ({rows_n}, {vocab}):{nm}",
+                                      a, w)
+                              for nm, a, w in zip(("kl", "lse_t", "lse_s"),
+                                                  (kl, lse_t, lse_s), want)))
+        note("kd_kl_bwd", compare(
+            f"kd_kl_bwd ({rows_n}, {vocab})",
+            kd_ops.kd_kl_bwd(lt, ls, lse_t, lse_s, g, temp),
+            kd_ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g, temp)))
+        if vocab >= 10_000:
+            n = rows_n * vocab
+            for name, kern, plain, lib, (bnd, by) in (
+                    ("kd_kl_fwd", lambda: kd_ops.kd_kl_fwd(lt, ls, temp),
+                     lambda: kd_ref.kd_kl_fwd_ref(lt, ls, temp),
+                     lambda: F.kl_div(F.log_softmax(ls, -1),
+                                      F.log_softmax(lt, -1), reduction="none",
+                                      log_target=True).sum(-1),
+                     bound_ms(8 * n + 12 * rows_n, 12 * n)),
+                    ("kd_kl_bwd",
+                     lambda: kd_ops.kd_kl_bwd(lt, ls, lse_t, lse_s, g, temp),
+                     lambda: kd_ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g,
+                                                  temp), None,
+                     bound_ms(12 * n + 12 * rows_n, 8 * n))):
+                t = dict(ms=time_ms(kern, reps=5, replays=4),
+                         plain_ms=time_ms(plain, reps=2, replays=2),
+                         library_ms=(time_ms(lib, reps=2, replays=2) if lib
+                                     else None), bound_ms=bnd, bound_by=by)
+                launches = seen[(name, (rows_n, vocab), temp)]
+                rows.append(dict(name=name, shape=[rows_n, vocab],
+                                 launches=launches, **t))
+                lib_s = (f"{t['library_ms']:.4f}" if lib else "none")
+                log(f"  {name} ({rows_n}, {vocab}): {launches} launches, "
+                    f"kernel {t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms "
+                    f"library {lib_s} ms bound {bnd:.4f} ms ({by}), "
+                    f"{bnd / t['ms']:.3f} of it")
+        del lt, ls, g, kl, lse_t, lse_s, want
+    for key in sorted((k_ for k_ in seen if k_[0] == "row_lse_fwd"), key=str):
+        _, (rows_n, vocab), temp = key
+        ls = torch.randn(rows_n, vocab, device=dev, generator=gen) * 2
+        e = compare(f"row_logsumexp ({rows_n}, {vocab})",
+                    kd_ops.row_lse_fwd(ls, temp),
+                    kd_ref.row_logsumexp_ref(ls, temp))
+        note("row_logsumexp", e)
+        if vocab >= 10_000:
+            n = rows_n * vocab
+            bnd, by = bound_ms(4 * n + 4 * rows_n, 4 * n)
+            t = dict(ms=time_ms(lambda: kd_ops.row_lse_fwd(ls, temp), reps=5,
+                                replays=4),
+                     plain_ms=time_ms(lambda: kd_ref.row_logsumexp_ref(
+                         ls, temp), reps=2, replays=2),
+                     library_ms=time_ms(lambda: torch.logsumexp(ls / temp, -1),
+                                        reps=2, replays=2),
+                     bound_ms=bnd, bound_by=by)
+            rows.append(dict(name="row_logsumexp", shape=[rows_n, vocab],
+                             launches=seen[key], max_abs_err=e, **t))
+            log(f"  row_logsumexp ({rows_n}, {vocab}): {seen[key]} launches, "
+                f"err {e:.2e}, kernel {t['ms']:.4f} ms plain "
+                f"{t['plain_ms']:.4f} ms logsumexp {t['library_ms']:.4f} ms "
+                f"bound {bnd:.4f} ms ({by}), {bnd / t['ms']:.3f} of it")
+        del ls
+    log(f"  families' kernel shapes: B4 at {len(flash)}, B1/B2 at {len(kd)}, "
+        f"B6 at {sum(1 for k_ in seen if k_[0] == 'row_lse_fwd')}; max abs "
+        f"err {err}")
+    return err, rows
+
+
+def fp32_in_place(tree: dict) -> dict:
+    """A params dict's leaves cast to fp32 one at a time, each old leaf
+    freed (and the allocator's cache emptied) before the next: a 14B-
+    parameter tree in bf16 and in fp32 at once does not fit the card."""
+    import torch
+
+    for key in list(tree):
+        if isinstance(tree[key], dict):
+            fp32_in_place(tree[key])
+        else:
+            tree[key] = tree[key].float()
+            torch.cuda.empty_cache()
+    return tree
+
+
+def step_rounds(label, cfg, params, batches, rounds: int, dev,
+                round_callback=None) -> tuple:
+    """FedGKD rounds driven through ``launch.steps``: each client (a list of
+    batches in ``batches``) runs ``make_train_step(kd_mode="teacher")``
+    from the global params with a fresh SGD momentum, the teacher the
+    previous round's global (round 1's the initial params), and the
+    clients are averaged by ``make_aggregate_step`` with equal weights.
+    Returns (the final params, [{round, seconds, loss, kd}]), each round's
+    seconds between two synchronisations of ``dev``;
+    ``round_callback(round)`` is called after each round's
+    synchronisation (``profile_round``'s window)."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.optim import sgd
+
+    opt = sgd(momentum=0.9)
+    step = steps.make_train_step(cfg, opt, kd_mode="teacher",
+                                 gamma=FAM_FL["gamma"], lr=FAM_FL["lr"])
+    aggregate = steps.make_aggregate_step()
+    teacher, history = params, []
+    for rnd in range(1, rounds + 1):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        clients, last = [], []
+        for client in batches:
+            p, state = params, opt.init(params)
+            for batch in client:
+                p, state, m = step(p, teacher, state, batch)
+            clients.append(p)
+            last.append(m)
+        teacher, params = params, aggregate(clients, [1.0] * len(clients))
+        del clients, p, state
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        if round_callback is not None:
+            round_callback(rnd)
+        rec = dict(round=rnd, seconds=seconds,
+                   loss=sum(float(m["loss"]) for m in last) / len(last),
+                   kd=sum(float(m["kd"]) for m in last) / len(last))
+        history.append(rec)
+        if label:
+            log(f"  {label} round {rnd}: {rec['seconds']:.3f} s loss "
+                f"{rec['loss']:.6f} kd {rec['kd']:.6e}")
+    return params, history
+
+
+def family_batches(cfg, dev, n_clients: int, n_batches: int, batch: int,
+                   seq: int, frames: int, seed: int) -> list:
+    """Client batches for ``step_rounds``: ``seq`` + 1 random tokens a row
+    (tokens and labels of ``seq`` positions) and, for an encoder-decoder
+    or a frontend model, ``frames`` synthetic frontend embeddings a row
+    (``models.frontends.synth_embeddings``), drawn on ``dev`` from the
+    seed."""
+    import torch
+
+    from repro_torch.models import frontends
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for _ in range(n_clients):
+        client = []
+        for _ in range(n_batches):
+            toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                                 device=dev, generator=gen)
+            b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            if cfg.enc_layers or cfg.frontend:
+                key = ("enc_embeddings" if cfg.enc_layers
+                       else "frontend_embeddings")
+                b[key] = frontends.synth_embeddings(gen, batch, frames,
+                                                    cfg.d_model, cfg.adtype)
+            client.append(b)
+        out.append(client)
+    return out
+
+
+def smoke_steps_vs_cpu(arch: str, dev) -> None:
+    """Round 1 of ``step_rounds`` on ``arch``'s smoke config in fp32 (2
+    clients x 2 batches of 2 x 32 positions, 16 frontend positions), card
+    against CPU from the same init (``first_round_check``)."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    scfg = get_smoke_config(arch)
+    init = transformer.init(torch.Generator().manual_seed(0), scfg)
+    batches = family_batches(scfg, torch.device("cpu"), 2, 2, 2, 32,
+                             scfg.frontend_seq, seed=5)
+
+    def params_after(device, rounds):
+        device = torch.device(device)
+        to = lambda t: t.to(device)                      # noqa: E731
+        p, _ = step_rounds("", scfg, tree_map(to, init),
+                           [[{k: to(v) for k, v in b.items()} for b in c]
+                            for c in batches], rounds, device)
+        return [t.detach().cpu().numpy() for t in tree_leaves(p)]
+
+    first_round_check(dev, f"fp32 {arch} smoke round through the steps (2 "
+                      f"clients x 2 batches of 2 x 32)", FAM_FL["lr"],
+                      params_after)
+
+
+def run_families(dev) -> tuple[dict, dict]:
+    """The last model families at published widths in bf16
+    (``family_runs``), with the shapes of B4, B1, B2 and B6 counted, then
+    each kernel held to its plain version at every one of them and timed
+    (``check_family_kernels``).  Returns (launch counts, max abs errors)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with record_shapes() as seen:
+        launches = family_runs(dev)
+    torch.cuda.empty_cache()
+    err, rows = check_family_kernels(dev, seen)
+    log(f"families kernel rows (JSON): {json.dumps(rows)}")
+    log(f"families phase: {time.perf_counter() - t0:.1f} s; launches "
+        f"{ {k: n for k, n in launches.items() if n} }; max abs err {err}")
+    return launches, err
+
+
+def timed_prefill(cfg, params, batch, dev) -> tuple:
+    """``make_prefill_step(last_only=True)`` twice on the card, each call
+    between two synchronisations: (the logits, "first / second" ms; the
+    first call also pays for its shapes' first use)."""
+    import torch
+
+    from repro_torch.launch import steps
+
+    prefill = steps.make_prefill_step(cfg, last_only=True)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        last = prefill(params, batch)
+        torch.cuda.synchronize(dev)
+        times.append(f"{(time.perf_counter() - t0) * 1e3:.1f}")
+    return last, " / ".join(times)
+
+
+def family_runs(dev) -> dict:
+    """deepseek-v3 (MLA, the MoE run, MTP), seamless-m4t (the
+    encoder-decoder at full depth) and llava-next (the frontend prefix),
+    each run whose launches count as a main path's with the counts set to 0
+    just before and read just after.  Returns the summed launch counts."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.train import run_serial
+    from repro_torch.models import frontends, transformer
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves, tree_map
+
+    total = dict.fromkeys(LAUNCHES, 0)
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] += n
+
+    def gate(label, counts, kernels):
+        missing = [k for k in kernels if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {label} path: "
+                                 f"{missing}")
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+    def fresh():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    # ---- deepseek-v3: training at depth 1 (one dense MLA layer, the MoE
+    # run empty, MTP), serving at depth 4 (3 dense + 1 MoE)
+    cfg = bf16_config(DS_ARCH, DS_TRAIN_LAYERS).replace(
+        first_k_dense=DS_TRAIN_LAYERS)
+    m, mla = cfg.moe, cfg.mla
+    log(f"families, {DS_ARCH}: d_model {cfg.d_model}, MLA {cfg.n_heads} "
+        f"heads (q rank {mla.q_lora_rank}, kv rank {mla.kv_lora_rank}, nope "
+        f"{mla.qk_nope_dim} + rope {mla.qk_rope_dim}, v {mla.v_head_dim}), "
+        f"dense d_ff {cfg.d_ff}, {m.n_experts} experts of d_ff {m.d_ff} "
+        f"top-{m.top_k} ({m.router_type}) + {m.n_shared_experts} shared, "
+        f"MTP {cfg.mtp_depth}, vocab {cfg.vocab_size}; training: "
+        f"{cfg.segments()}, {cfg.param_count():,} params; cuts: "
+        f"{serve_cuts(cfg)}, first_k_dense 3 -> {cfg.first_k_dense} (a MoE "
+        f"layer alone holds {m.n_experts * 3 * cfg.d_model * m.d_ff:,}); "
+        f"FedGKD {BF16_FL} x {BF16_ROUNDS} rounds")
+    out, launches, peak = bf16_fl(f"bf16 {DS_ARCH}", cfg, dev, BF16_FL,
+                                  BF16_ROUNDS)
+    add(launches)
+    gate(DS_ARCH, launches, DS_KERNELS)
+    if not out["history"][-1]["kd"] > 0:
+        raise AssertionError(f"{DS_ARCH}: the KD term is 0 in round 2")
+    if out["dtypes"] != ["torch.bfloat16", "torch.float32"]:
+        raise AssertionError(f"{DS_ARCH}: params in {out['dtypes']}")
+    if not peak < FAM_PEAK_GIB:
+        raise AssertionError(f"{DS_ARCH}: peak {peak:.2f} GiB")
+    log(f"  {DS_ARCH} depth {cfg.n_layers}: peak {peak:.2f} GiB (limit "
+        f"{FAM_PEAK_GIB})")
+    del out
+
+    cfg = bf16_config(DS_ARCH, DS_SERVE_LAYERS)
+    fresh()
+    params = card_init(cfg, dev)
+    log(f"families serve, {DS_ARCH}: {cfg.segments()}, {serve_cuts(cfg)}, "
+        f"{cfg.param_count():,} params")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, SERVE_PREFILL,
+                                     device=dev, generator=gen)}
+    prompts = make_prompts(SERVE_REQ["requests"], cfg.vocab_size,
+                           SERVE_REQ["prompt_len"])
+    reset_launches()
+    last, ms = timed_prefill(cfg, params, batch, dev)
+    stats = serve_on(cfg, params, prompts, dev)
+    add(dict(LAUNCHES))
+    one = transformer.init_cache(cfg, 1, 1)["seg0"]
+    per_token = sum(t.numel() * t.element_size() for t in one[:2]) // \
+        one.c_kv.shape[0]
+    gqa = 2 * cfg.n_heads * cfg.mla.v_head_dim * one.c_kv.element_size()
+    log(f"  prefill (last_only) of {SERVE_PREFILL}: {ms} ms; ServeLoop: "
+        f"{SERVE_REQ['requests']} requests, batch {SERVE_REQ['batch']}, "
+        f"{SERVE_REQ['gen']} generated: {stats['seconds']:.4f} s, "
+        f"{stats['decode_steps']} decode steps, {stats['tok_per_s']:.2f} "
+        f"tok/s; peak {peak_gib():.2f} GiB; the MLA cache {per_token} bytes "
+        f"a token a layer in bf16 ({cfg.mla.kv_lora_rank} + "
+        f"{cfg.mla.qk_rope_dim} values), where {cfg.n_heads} heads of "
+        f"{cfg.mla.v_head_dim} keys and values would take {gqa}")
+    if not (tuple(last.shape) == (SERVE_PREFILL[0], 1, cfg.vocab_size)
+            and all_finite(last)):
+        raise AssertionError(f"{DS_ARCH} prefill: wrong shape or non-finite")
+    if len(stats["outputs"]) != SERVE_REQ["requests"]:
+        raise AssertionError(f"{DS_ARCH} ServeLoop: {stats['outputs']}")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = serve_on(cfg, params, prompts, dev)
+    device_busy(prof, f"{DS_ARCH} ServeLoop, a second run",
+                again["seconds"] * 1e3, top=6)
+    del params, last, prof
+
+    # decode against the forward: a lossless copy at depth 2 (one dense
+    # MLA layer and one MoE layer), no MTP head (decode never reads it)
+    cfg = lossless(bf16_config(DS_ARCH, 2).replace(first_k_dense=1,
+                                                   mtp_depth=0))
+    fresh()
+    params = card_init(cfg, dev)
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (SERVE_CHECK_BATCH, SERVE_DECODE_PROMPT),
+                           device=dev, generator=gen)
+    dec, toks = greedy_decode(cfg, params, prompt, SERVE_DECODE_STEPS, dev)
+    with torch.no_grad():
+        full, _ = transformer.forward(params, cfg, toks)
+    cfg32 = fp32_of(cfg)
+    params32 = fp32_in_place(params)
+    with torch.no_grad():
+        full32, _ = transformer.forward(params32, cfg32, toks)
+    worst = bf16_parity(f"bf16 {DS_ARCH} decode against its forward", [dec],
+                        [full], [full32])
+    log(f"  {DS_ARCH} decode check: {cfg.segments()}, capacity factor "
+        f"{cfg.moe.capacity_factor} (lossless), {cfg.param_count():,} "
+        f"params; greedy decode over {toks.shape[1]} positions (bf16 MLA "
+        f"caches): {float((dec - full32).abs().max()):.3e} from the fp32 "
+        f"forward, the bf16 forward {float((full - full32).abs().max()):.3e} "
+        f"(max |logit| {float(full32.abs().max()):.3e}); {worst:.3f} of the "
+        f"bar")
+    del dec, full, full32
+    decode_vs_forward(f"{DS_ARCH} fp32", cfg32, params32, dev,
+                      SERVE_DECODE_PROMPT, SERVE_DECODE_STEPS)
+    log(f"  peak {peak_gib():.2f} GiB")
+    del params, params32
+
+    # round 1 of the smoke config on the card against the CPU's
+    scfg = fp32_of(get_smoke_config(DS_ARCH))
+
+    def params_after(device, rounds):
+        out = run_serial(scfg, rounds=rounds, algo="fedgkd", device=device,
+                         verbose=False, **MOE_CHECK)
+        return [t.detach().cpu().numpy() for t in tree_leaves(out["params"])]
+
+    first_round_check(dev, f"fp32 {DS_ARCH} smoke round ({MOE_CHECK})",
+                      MOE_CHECK["lr"], params_after)
+    add(smoke_round_vs_cpu(DS_ARCH, dev, MOE_CHECK)[1])
+
+    # ---- seamless-m4t at full width and depth: two FedGKD rounds through
+    # the steps, a prefill, decode with the encoder's output
+    cfg = bf16_config(SEAMLESS_ARCH, get_config(SEAMLESS_ARCH).n_layers)
+    fresh()
+    params = card_init(cfg, dev)
+    log(f"families, {SEAMLESS_ARCH}: {cfg.enc_layers} encoder + "
+        f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size} (tied), {cfg.param_count():,} params, "
+        f"{cfg.param_dtype}, no cut; {FAM_FL['clients']} clients x "
+        f"{FAM_FL['batches']} batches of {FAM_FL['batch']} x "
+        f"{FAM_FL['seq']} tokens after "
+        f"{frontends.AUDIO_FRAMES} frames, {BF16_ROUNDS} rounds")
+    batches = family_batches(cfg, dev, FAM_FL["clients"], FAM_FL["batches"],
+                             FAM_FL["batch"], FAM_FL["seq"],
+                             frontends.AUDIO_FRAMES, seed=9)
+    reset_launches()
+    trained, hist = step_rounds(f"bf16 {SEAMLESS_ARCH}", cfg, params, batches,
+                                BF16_ROUNDS, dev)
+    launches = dict(LAUNCHES)
+    add(launches)
+    log(f"  {SEAMLESS_ARCH}: peak {peak_gib():.2f} GiB, launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    gate(SEAMLESS_ARCH, launches, FAM_KERNELS)
+    if not (hist[-1]["kd"] > 0 and all(math.isfinite(r["loss"])
+                                       for r in hist)
+            and all_finite(trained)):
+        raise AssertionError(f"{SEAMLESS_ARCH}: KD 0 in round 2 or "
+                             f"non-finite: {hist}")
+    del trained
+    profile_round(dev, f"bf16 {SEAMLESS_ARCH}", lambda cb: step_rounds(
+        "", cfg, params, batches, 2, dev, round_callback=cb))
+    del batches
+    pbatch = {"tokens": torch.randint(0, cfg.vocab_size, SERVE_PREFILL,
+                                      device=dev, generator=gen),
+              "enc_embeddings": frontends.synth_embeddings(
+                  gen, SERVE_PREFILL[0], frontends.AUDIO_FRAMES, cfg.d_model,
+                  cfg.adtype)}
+    reset_launches()
+    last, ms = timed_prefill(cfg, params, pbatch, dev)
+    frames = frontends.synth_embeddings(gen, SERVE_CHECK_BATCH,
+                                        frontends.AUDIO_FRAMES, cfg.d_model,
+                                        cfg.adtype)
+    with torch.no_grad():
+        enc = transformer.encode(params, cfg, frames)
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (SERVE_CHECK_BATCH, SERVE_DECODE_PROMPT),
+                           device=dev, generator=gen)
+    dec, toks = greedy_decode(cfg, params, prompt, SERVE_DECODE_STEPS, dev,
+                              enc)
+    launches = dict(LAUNCHES)
+    add(launches)
+    gate(f"{SEAMLESS_ARCH} prefill and decode", launches,
+         ["flash_attention_fwd_bf16"])
+    log(f"  prefill (last_only) of {SERVE_PREFILL} tokens after "
+        f"{frontends.AUDIO_FRAMES} frames: {ms} ms")
+    if not (tuple(last.shape) == (SERVE_PREFILL[0], 1, cfg.vocab_size)
+            and all_finite(last)):
+        raise AssertionError(f"{SEAMLESS_ARCH} prefill: wrong shape or "
+                             f"non-finite")
+    cfg32 = fp32_of(cfg)
+    params32 = tree_map(lambda t: t.float(), params)
+    with torch.no_grad():
+        full, _ = transformer.forward(params, cfg, toks, enc_out=enc)
+        enc32 = transformer.encode(params32, cfg32, frames.float())
+        full32, _ = transformer.forward(params32, cfg32, toks, enc_out=enc32)
+    worst = bf16_parity(f"bf16 {SEAMLESS_ARCH} decode against its forward",
+                        [dec], [full], [full32])
+    log(f"  greedy decode with the encoder's output over {toks.shape[1]} "
+        f"positions (bf16 caches): {float((dec - full32).abs().max()):.3e} "
+        f"from the fp32 forward, the bf16 forward "
+        f"{float((full - full32).abs().max()):.3e} (max |logit| "
+        f"{float(full32.abs().max()):.3e}); {worst:.3f} of the bar")
+    del params, dec, full, full32, last
+    decode_vs_forward(f"{SEAMLESS_ARCH} fp32", cfg32, params32, dev,
+                      SERVE_DECODE_PROMPT, SERVE_DECODE_STEPS, enc32)
+    del params32, enc, enc32
+    smoke_steps_vs_cpu(SEAMLESS_ARCH, dev)
+
+    # ---- llava-next: depth 2 through two FedGKD rounds of the steps, a
+    # cached_topk step, depth 8 for a prefill
+    cfg = bf16_config(LLAVA_ARCH, LLAVA_TRAIN_LAYERS)
+    fresh()
+    params = card_init(cfg, dev)
+    patches = steps.text_offset(cfg)            # the prefix: 576 patches
+    text = FAM_FL["seq"] - patches
+    log(f"families, {LLAVA_ARCH}: d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim} (a group of "
+        f"{cfg.n_heads // cfg.n_kv_heads}), theta {cfg.rope_theta:g}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; {cfg.param_count():,} params; "
+        f"cuts: {serve_cuts(cfg)}; {FAM_FL['clients']} clients x "
+        f"{FAM_FL['batches']} batches of {FAM_FL['batch']} x "
+        f"({patches} patches + {text} tokens), {BF16_ROUNDS} "
+        f"rounds")
+    batches = family_batches(cfg, dev, FAM_FL["clients"], FAM_FL["batches"],
+                             FAM_FL["batch"], text, patches,
+                             seed=10)
+    reset_launches()
+    trained, hist = step_rounds(f"bf16 {LLAVA_ARCH}", cfg, params, batches,
+                                BF16_ROUNDS, dev)
+    launches = dict(LAUNCHES)
+    add(launches)
+    log(f"  {LLAVA_ARCH}: peak {peak_gib():.2f} GiB, launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    gate(LLAVA_ARCH, launches, FAM_KERNELS)
+    if not (hist[-1]["kd"] > 0 and all(math.isfinite(r["loss"])
+                                       for r in hist)
+            and all_finite(trained)):
+        raise AssertionError(f"{LLAVA_ARCH}: KD 0 in round 2 or non-finite: "
+                             f"{hist}")
+    b = batches[0][0]
+    with torch.no_grad():
+        t_logits, _ = transformer.forward(
+            params, cfg, b["tokens"],
+            prefix_embeddings=b["frontend_embeddings"])
+        vals, idx = torch.topk(t_logits[:, patches:], FAM_TOPK)
+    del t_logits
+    opt = sgd(momentum=0.9)
+    topk_step = steps.make_train_step(cfg, opt, kd_mode="cached_topk",
+                                      gamma=FAM_FL["gamma"], lr=FAM_FL["lr"])
+    reset_launches()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    _, _, mk = topk_step(trained, (), opt.init(trained),
+                         {**b, "teacher_topk_vals": vals,
+                          "teacher_topk_idx": idx})
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    add(dict(LAUNCHES))
+    log(f"  cached_topk step (K = {FAM_TOPK} from torch.topk of the "
+        f"teacher's logits at the {text} text positions): {ms:.1f} ms, loss "
+        f"{float(mk['loss']):.6f} ce {float(mk['ce']):.6f} kd "
+        f"{float(mk['kd']):.6e}")
+    if not (math.isfinite(float(mk["loss"])) and float(mk["kd"]) > 0):
+        raise AssertionError(f"{LLAVA_ARCH} cached_topk: {mk}")
+    del params, trained, batches, b, vals, idx, mk
+    cfg = bf16_config(LLAVA_ARCH, LLAVA_SERVE_LAYERS)
+    fresh()
+    params = card_init(cfg, dev)
+    pbatch = {"tokens": torch.randint(
+                  0, cfg.vocab_size,
+                  (SERVE_PREFILL[0], SERVE_PREFILL[1] - patches),
+                  device=dev, generator=gen),
+              "frontend_embeddings": frontends.synth_embeddings(
+                  gen, SERVE_PREFILL[0], patches, cfg.d_model,
+                  cfg.adtype)}
+    reset_launches()
+    last, ms = timed_prefill(cfg, params, pbatch, dev)
+    add(dict(LAUNCHES))
+    log(f"  {LLAVA_ARCH} {serve_cuts(cfg)} ({cfg.param_count():,} params): "
+        f"prefill (last_only) of {SERVE_PREFILL[0]} x "
+        f"({patches} patches + "
+        f"{SERVE_PREFILL[1] - patches} tokens): {ms} ms; "
+        f"peak {peak_gib():.2f} GiB")
+    if not (tuple(last.shape) == (SERVE_PREFILL[0], 1, cfg.vocab_size)
+            and all_finite(last)):
+        raise AssertionError(f"{LLAVA_ARCH} prefill: wrong shape or "
+                             f"non-finite")
+    del params, last
+    torch.cuda.empty_cache()
+    smoke_steps_vs_cpu(LLAVA_ARCH, dev)
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -4129,6 +4842,9 @@ def main() -> int:
     launches.append(counts)
     kernels += bf16_entries
     launches.append(run_moe(dev))
+    counts, errs = run_families(dev)
+    launches.append(counts)
+    path_errs.append(errs)
     for k in kernels:
         k["launches"] = sum(counts[k["name"]] for counts in launches)
         k["max_abs_err"] = max([k["max_abs_err"]] + [

@@ -2,9 +2,10 @@
 
 ``get_config(name)`` returns the published ModelConfig and
 ``get_smoke_config(name)`` the reduced same-family variant of the CPU
-tests.  Ported: phi4-mini-3.8b, minitron-4b, granite-34b, internlm2-20b
-(dense), mixtral-8x7b (MoE), mamba2-2.7b (SSM) and zamba2-1.2b (hybrid);
-the other names of ``ALL_ARCHS`` raise, naming ROADMAP A15.6-A15.7.
+tests, for every name of ``ALL_ARCHS``: phi4-mini-3.8b, minitron-4b,
+granite-34b, internlm2-20b (dense), mixtral-8x7b and deepseek-v3-671b
+(MoE; deepseek with MLA), mamba2-2.7b (SSM), zamba2-1.2b (hybrid),
+seamless-m4t-large-v2 (audio encoder-decoder) and llava-next-34b (VLM).
 ``configs.paper`` holds the paper's tasks.
 """
 from repro_torch.configs.base import (  # noqa: F401
@@ -14,6 +15,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 # imported for their registration
 from repro_torch.configs import (  # noqa: F401,E402
-    granite_34b, internlm2_20b, mamba2_2_7b, minitron_4b, mixtral_8x7b,
-    phi4_mini_3_8b, zamba2_1_2b,
+    deepseek_v3_671b, granite_34b, internlm2_20b, llava_next_34b,
+    mamba2_2_7b, minitron_4b, mixtral_8x7b, phi4_mini_3_8b,
+    seamless_m4t_large_v2, zamba2_1_2b,
 )

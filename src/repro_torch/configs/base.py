@@ -2,15 +2,14 @@
 
 The port of ``repro.configs.base`` without JAX: ``InputShape``,
 ``SHAPES``, the registry (``register``, ``get_config``,
-``get_smoke_config``, ``list_archs``) and ``reduce_for_smoke``, which sets
-the fields the port's ``ModelConfig`` has.  Registered: the dense
-phi4-mini-3.8b, minitron-4b, granite-34b and internlm2-20b, the MoE
-mixtral-8x7b, the SSM mamba2-2.7b and the hybrid zamba2-1.2b; any other
-name of the reference's ``ALL_ARCHS`` (deepseek-v3 with MLA, the
-encoder-decoder and VLM models) raises ``NotImplementedError`` naming
-ROADMAP A15.6-A15.7.  The reference's ``train_input_specs``,
-``decode_input_specs`` and ``input_specs`` build ``jax.ShapeDtypeStruct``s
-for the dry-run tooling and stay with A16.
+``get_smoke_config``, ``list_archs``) and ``reduce_for_smoke``.  Every
+name of ``ALL_ARCHS`` is registered: the dense phi4-mini-3.8b,
+minitron-4b, granite-34b and internlm2-20b, the MoE mixtral-8x7b and
+deepseek-v3-671b (MLA), the SSM mamba2-2.7b, the hybrid zamba2-1.2b, the
+audio encoder-decoder seamless-m4t-large-v2 and the VLM llava-next-34b.
+The reference's ``train_input_specs``, ``decode_input_specs`` and
+``input_specs`` build ``jax.ShapeDtypeStruct``s for the dry-run tooling
+and stay with A16.
 """
 from __future__ import annotations
 
@@ -18,6 +17,7 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.frontends import SMOKE_FRONTEND_SEQ
 
 
 class InputShape(NamedTuple):
@@ -50,21 +50,12 @@ def register(name: str, full: Callable[[], ModelConfig],
     _SMOKE[name] = smoke
 
 
-def _lookup(table: dict, name: str) -> ModelConfig:
-    if name not in table and name in ALL_ARCHS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ROADMAP A15.6 MLA, "
-            f"A15.7 encoder-decoder and frontends); the port has "
-            f"{sorted(table)}")
-    return table[name]()
-
-
 def get_config(name: str) -> ModelConfig:
-    return _lookup(_REGISTRY, name)
+    return _REGISTRY[name]()
 
 
 def get_smoke_config(name: str) -> ModelConfig:
-    return _lookup(_SMOKE, name)
+    return _SMOKE[name]()
 
 
 def list_archs() -> list[str]:
@@ -74,9 +65,9 @@ def list_archs() -> list[str]:
 def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Shrink a full config to the same-family smoke variant: 2 layers (4
     for the hybrid, its shared block every 2; at most 1 leading dense
-    layer), d_model 128, at most 4 experts of d_ff 64 in groups of 64
-    tokens, small vocab, fp32 (the reference's values for the fields the
-    port has)."""
+    layer; 2 encoder layers), d_model 128, at most 4 experts of d_ff 64 in
+    groups of 64 tokens, a small MLA, 16 frontend positions, small vocab,
+    fp32 (the reference's values)."""
     kw: dict = dict(
         n_layers=2, d_model=128, n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads > 1 else 1,
@@ -84,6 +75,8 @@ def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         param_dtype="float32", activation_dtype="float32",
         remat=False,
         first_k_dense=min(cfg.first_k_dense, 1),
+        enc_layers=2 if cfg.enc_layers else 0,
+        frontend_seq=SMOKE_FRONTEND_SEQ if cfg.frontend else 0,
         moe_group_size=64,
         attn_window=min(cfg.attn_window, 8) if cfg.attn_window else None,
     )
@@ -92,6 +85,10 @@ def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
             d_model=128, d_ff=64, n_experts=4,
             top_k=min(cfg.moe.top_k, 2), group_size=64,
             shared_d_ff=64 if cfg.moe.shared_d_ff else 0)
+    if cfg.mla is not None:
+        kw["mla"] = cfg.mla._replace(
+            d_model=128, n_heads=4, q_lora_rank=32, kv_lora_rank=16,
+            qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16)
     if cfg.ssm is not None:
         kw["ssm"] = cfg.ssm._replace(d_model=128, d_state=16, head_dim=16,
                                      chunk=16)

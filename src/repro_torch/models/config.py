@@ -1,24 +1,28 @@
 """ModelConfig: the architecture description the model stack reads.
 
-The port of the fields of ``repro.models.config.ModelConfig`` that the
-dense, MoE, SSM and hybrid families read (the reference module imports
-``jax.numpy`` and the MLA config, so the port keeps its own).
-Ported: the dense family (GQA attention; the GELU or SwiGLU MLP), the MoE
-family (``moe``: a ``MoEConfig``; ``first_k_dense`` dense layers before
-the MoE layers; ``moe_group_size`` tokens a dispatch group; DeepSeek-V3's
-multi-token prediction head of ``mtp_depth``), the SSM family (Mamba-2,
-attention-free, no MLP) and the hybrid family (Zamba2: Mamba-2 layers
-with one shared attention + MLP block applied every
-``shared_attn_period`` of them), each with LayerNorm or RMSNorm and a tied
-or untied LM head.  As in the reference, a config without a ``MoEConfig``
-builds dense layers whatever its family says.  MLA raises
-``NotImplementedError`` naming ROADMAP A15.6, and the encoder-decoder and
-frontend families A15.7.  ``param_dtype`` and ``activation_dtype`` are
-float32 or bfloat16 (every published LM config is bf16); ``pdtype`` and
-``adtype`` give them as torch dtypes.  The reference's logit soft cap and
-``scan_layers`` wait for a config that sets them.  There is no
-``use_pallas``: in the port the device picks between a kernel and its
-plain version.
+The port of ``repro.models.config.ModelConfig`` (the reference module
+imports ``jax.numpy``, so the port keeps its own; ``MLAConfig`` is the
+port's, in ``models.attention``).  All of the reference's families: dense
+(GQA attention; the GELU or SwiGLU MLP), MoE (``moe``: a ``MoEConfig``;
+``first_k_dense`` dense layers before the MoE layers; ``moe_group_size``
+tokens a dispatch group; DeepSeek-V3's multi-token prediction head of
+``mtp_depth``), MLA attention (``attn_type="mla"`` with an ``MLAConfig``:
+deepseek-v3), SSM (Mamba-2, attention-free, no MLP), hybrid (Zamba2:
+Mamba-2 layers with one shared attention + MLP block applied every
+``shared_attn_period`` of them), encoder-decoder (``enc_layers`` > 0: a
+bidirectional encoder over frontend embeddings and decoder layers with
+cross-attention; seamless-m4t) and the frontend families (``frontend``
+"audio" or "vision", ``frontend_seq`` positions of precomputed
+embeddings: the encoder's input, or a prefix of the decoder's; the
+frontends themselves are stubs, as in the reference), each with LayerNorm
+or RMSNorm and a tied or untied LM head.  As in the reference, a config
+without a ``MoEConfig`` builds dense layers whatever its family says.
+``param_dtype`` and ``activation_dtype`` are float32 or bfloat16 (every
+published LM config is bf16); ``pdtype`` and ``adtype`` give them as
+torch dtypes.  The reference's logit soft cap, ``scan_layers`` and the
+attention and residual sharding axes wait for a config that sets them.
+There is no ``use_pallas``: in the port the device picks between a kernel
+and its plain version.
 """
 from __future__ import annotations
 
@@ -27,20 +31,17 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models.attention import MLAConfig
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.ssm import SSMConfig
 
-# what the port refuses, and the ROADMAP item that brings it
-_UNPORTED = {("attn_type", "mla"): "A15.6",
-             ("family", "encdec"): "A15.7", ("family", "vlm"): "A15.7",
-             ("family", "audio"): "A15.7"}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | ssm | hybrid (encdec: A15.7)
+    family: str                    # dense | moe | ssm | hybrid | encdec | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -50,7 +51,7 @@ class ModelConfig:
     head_dim: int = 0              # 0 -> d_model // n_heads
 
     # attention
-    attn_type: str = "gqa"         # gqa | none (mla: A15.6)
+    attn_type: str = "gqa"         # gqa | mla | none
     attn_window: Optional[int] = None   # sliding-window size
     rope_theta: float = 10000.0
     qkv_bias: bool = False
@@ -60,9 +61,20 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     first_k_dense: int = 0         # leading dense layers before MoE layers
 
+    # MLA
+    mla: Optional[MLAConfig] = None
+
     # SSM / hybrid
     ssm: Optional[SSMConfig] = None
     shared_attn_period: int = 0    # hybrid: shared attn block every N ssm layers
+
+    # encoder-decoder
+    enc_layers: int = 0            # >0 -> enc-dec; encoder is bidirectional
+
+    # modality frontend (stubbed): tokens replaced/prefixed by embeddings
+    frontend: Optional[str] = None  # None | "audio" | "vision"
+    frontend_seq: int = 0           # frontend embedding positions (0: the
+    #                                 frontend's default, frontends.py)
 
     # norm / act / embeddings
     norm: str = "rms"              # rms | ln
@@ -79,14 +91,11 @@ class ModelConfig:
     moe_group_size: int = 4096     # tokens a MoE dispatch group
 
     def __post_init__(self):
-        for (field, value), item in _UNPORTED.items():
-            if getattr(self, field) == value:
-                raise NotImplementedError(
-                    f"ModelConfig {field}={value!r} is not ported yet "
-                    f"(ROADMAP {item})")
-        ported = {"family": ("dense", "moe", "ssm", "hybrid"),
-                  "attn_type": ("gqa", "none"), "norm": ("ln", "rms"),
+        ported = {"family": ("dense", "moe", "ssm", "hybrid", "encdec",
+                             "vlm", "audio"),
+                  "attn_type": ("gqa", "mla", "none"), "norm": ("ln", "rms"),
                   "act": ("gelu", "swiglu"),
+                  "frontend": (None, "audio", "vision"),
                   "param_dtype": tuple(_DTYPES),
                   "activation_dtype": tuple(_DTYPES)}
         for field, allowed in ported.items():
@@ -95,6 +104,8 @@ class ModelConfig:
                                  f"{getattr(self, field)!r} not in {allowed}")
         if self.family in ("ssm", "hybrid") and self.ssm is None:
             raise ValueError(f"family={self.family!r} needs an SSMConfig")
+        if self.attn_type == "mla" and self.mla is None:
+            raise ValueError("attn_type='mla' needs an MLAConfig")
 
     @property
     def head_dim_(self) -> int:
@@ -135,8 +146,17 @@ class ModelConfig:
         total = v * d  # embed
         if not self.tie_embeddings:
             total += v * d
-        attn = (d * hd * (self.n_heads + 2 * self.n_kv_heads)
-                + self.n_heads * hd * d)
+        if self.attn_type == "mla":
+            m = self.mla
+            attn = (d * m.q_lora_rank + m.q_lora_rank * m.n_heads
+                    * (m.qk_nope_dim + m.qk_rope_dim)
+                    + d * (m.kv_lora_rank + m.qk_rope_dim)
+                    + m.kv_lora_rank * m.n_heads
+                    * (m.qk_nope_dim + m.v_head_dim)
+                    + m.n_heads * m.v_head_dim * d)
+        else:
+            attn = (d * hd * (self.n_heads + 2 * self.n_kv_heads)
+                    + self.n_heads * hd * d)
         mlp = (3 if self.act == "swiglu" else 2) * d * self.d_ff
         for kind, count in self.segments():
             if kind == "dense":
@@ -158,6 +178,10 @@ class ModelConfig:
         if self.mtp_depth:
             # proj(2d->d) + one dense block + 3 norms
             total += self.mtp_depth * (2 * d * d + attn + mlp + 5 * d)
+        if self.enc_layers:
+            # encoder self-attn+mlp and decoder cross-attn
+            total += self.enc_layers * (attn + mlp + 2 * d)
+            total += self.n_layers * (attn + d)
         return int(total)
 
     def active_param_count(self) -> int:

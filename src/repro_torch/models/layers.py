@@ -33,7 +33,12 @@ def trunc_normal(generator: torch.Generator, shape: Sequence[int],
     fp32 and cast to ``dtype``.
 
     ``trunc_normal_`` takes ABSOLUTE bounds, hence ``a=-2·std, b=2·std``.
-    The tensor lies on ``generator``'s device."""
+    The tensor lies on ``generator``'s device.  Without a generator it is
+    a tensor of the shape and dtype on the meta device, holding no data:
+    the shapes of a layer that is never built (``transformer.init``'s
+    empty segments)."""
+    if generator is None:
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     t = torch.empty(tuple(shape), dtype=torch.float32,
                     device=generator.device)
     torch.nn.init.trunc_normal_(t, mean=0.0, std=std, a=-2.0 * std,

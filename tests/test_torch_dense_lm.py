@@ -13,7 +13,8 @@ counts (the analytic ``param_count`` and the leaves of the initialised
 tree equal to the reference's, and the analytic count within 15% of the
 leaves, the reference's own bar: ``tests/test_arch_smoke.py:148``); the
 forward logits; one FedGKD train step (loss, metrics and params after;
-``:57``); SwiGLU alone; the registry's remaining refusals; and
+``:57``); SwiGLU alone; the registry (every name of ``ALL_ARCHS`` builds,
+and each config's parameter counts equal the reference's); and
 ``launch.train``'s ``--fl-task`` path against the reference's on TOY.
 One reference init and one jitted forward per architecture are shared
 across the cases.
@@ -42,6 +43,7 @@ from repro.models import transformer as jax_transformer  # noqa: E402
 from repro.optim import sgd as jax_sgd  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import list_archs as base_list_archs  # noqa: E402
 from repro_torch.configs import phi4_mini_3_8b  # noqa: E402
 from repro_torch.core import fl_loop, modelzoo  # noqa: E402
 from repro_torch.data.synthetic import lm_token_batches  # noqa: E402
@@ -54,7 +56,6 @@ from torch_threads import one_torch_thread  # noqa: E402,F401
 TOL = 1e-5
 ARCHS = ["phi4-mini-3.8b", "minitron-4b", "granite-34b", "internlm2-20b",
          "zamba2-1.2b"]
-PORTED = ARCHS + ["mamba2-2.7b", "mixtral-8x7b"]
 
 
 def _max_diff(a, b):
@@ -121,19 +122,30 @@ def test_param_counts_equal_reference(arch):
     assert abs(cfg.param_count() - actual) / actual < 0.15
 
 
-@pytest.mark.parametrize("arch", [a for a in ALL_ARCHS if a not in PORTED])
-def test_moe_mla_and_encdec_archs_raise_naming_their_items(arch):
-    with pytest.raises(NotImplementedError,
-                       match="A15.6 MLA, A15.7 encoder-decoder"):
-        get_config(arch)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_arch_builds_its_configs(arch):
+    """Every name of the reference's ``ALL_ARCHS`` is registered: the
+    published and the smoke config build, with the reference's name,
+    family, attention type and depths."""
+    assert sorted(base_list_archs()) == sorted(ALL_ARCHS)
+    for get, jget in ((get_config, jax_get_config),
+                      (get_smoke_config, jax_get_smoke)):
+        cfg, jcfg = get(arch), jget(arch)
+        for f in ("name", "family", "attn_type", "n_layers", "enc_layers",
+                  "first_k_dense", "frontend", "frontend_seq"):
+            assert getattr(cfg, f) == getattr(jcfg, f), (arch, f)
 
 
-def test_refusals_name_their_roadmap_items():
-    cfg = get_smoke_config("phi4-mini-3.8b")
-    for field, value, item in [("attn_type", "mla", "A15.6"),
-                               ("family", "encdec", "A15.7")]:
-        with pytest.raises(NotImplementedError, match=item):
-            cfg.replace(**{field: value})
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_param_counts_of_every_arch_equal_reference(arch):
+    """The analytic total and active parameter counts of the published and
+    the smoke config, the reference's formula term for term (MLA, MoE,
+    MTP, the encoder and cross-attention included)."""
+    for get, jget in ((get_config, jax_get_config),
+                      (get_smoke_config, jax_get_smoke)):
+        cfg, jcfg = get(arch), jget(arch)
+        assert cfg.param_count() == jcfg.param_count()
+        assert cfg.active_param_count() == jcfg.active_param_count()
 
 
 # ------------------------------------------------------------------ model

@@ -831,7 +831,10 @@ def _bf16_close(got, want):
 # and 64 (many q tiles, causal skipping), a ragged S = 1,000, a window of
 # 100 across tile boundaries, MQA, a head_dim of 7 (staged by plain loads:
 # rows not 16-byte aligned), q, k and v as strided views of one fused
-# (B, S, (Hq + 2 Hkv) D) projection, and non-causal at a ragged S
+# (B, S, (Hq + 2 Hkv) D) projection, and non-causal at a ragged S;
+# seamless-m4t's encoder (non-causal at 384), its decoder's cross-attention
+# ("cross", Skv: 1,024 queries and one decode query against 384 keys) and
+# llava-next's GQA group of 7 (56/8 heads)
 BF16_FLASH_CASES = [(2, 256, 24, 8, 128, None), (2, 256, 32, 32, 64, None),
                     (1, 160, 24, 8, 128, 64), (2, 100, 4, 4, 40, None),
                     (2, 1024, 24, 8, 128, None), (2, 1024, 32, 32, 64, None),
@@ -840,13 +843,18 @@ BF16_FLASH_CASES = [(2, 256, 24, 8, 128, None), (2, 256, 32, 32, 64, None),
                     (2, 16, 48, 1, 128, None),
                     (2, 37, 6, 3, 7, None),
                     (2, 300, 24, 8, 128, None, "fused"),
-                    (2, 200, 8, 2, 64, None, "non-causal")]
+                    (2, 200, 8, 2, 64, None, "non-causal"),
+                    (2, 384, 16, 16, 64, None, "non-causal"),
+                    (2, 1024, 16, 16, 64, None, "cross", 384),
+                    (2, 1, 16, 16, 64, None, "cross", 384),
+                    (2, 1024, 56, 8, 128, None)]
 
 
 @pytest.mark.parametrize("case", BF16_FLASH_CASES, ids=str)
 def test_flash_attention_bf16_kernel_matches_plain(cuda, case):
     b, s, hq, hkv, d, window, *layout = case
-    causal = layout != ["non-causal"]
+    causal = not layout or layout[0] not in ("non-causal", "cross")
+    skv = layout[1] if layout and layout[0] == "cross" else s
     gen = torch.Generator(device=cuda).manual_seed(hq + d + 1)
     if layout == ["fused"]:
         qkv = torch.randn(b, s, (hq + 2 * hkv) * d, device=cuda,
@@ -856,7 +864,7 @@ def test_flash_attention_bf16_kernel_matches_plain(cuda, case):
         assert not q.is_contiguous() and k.stride(1) == (hq + 2 * hkv) * d
     else:
         q = torch.randn(b, s, hq, d, device=cuda, generator=gen).bfloat16()
-        k, v = (torch.randn(b, s, hkv, d, device=cuda, generator=gen)
+        k, v = (torch.randn(b, skv, hkv, d, device=cuda, generator=gen)
                 .bfloat16() for _ in range(2))
     before = dict(LAUNCHES)
     got = fa_ops.flash_attention_fwd(q, k, v, causal, window)

@@ -4,8 +4,8 @@ At the smoke config of ``mamba2-2.7b`` (2 Mamba-2 layers, d_model 128,
 vocab 503, N 16, P 16, chunk 16), from the reference's initialisation
 loaded through the bridge, with inputs from numpy seeds.  Checked, each
 within TOL = 1e-5 max-abs unless it says otherwise (fp32, different
-summation orders): the registry (smoke fields, parameter counts, what
-raises); the token streams byte for byte; ``row_logsumexp`` against the
+summation orders): the registry (smoke fields, parameter counts, the
+published config's bf16 caches); the token streams byte for byte; ``row_logsumexp`` against the
 reference's Pallas kernel in interpret mode (whole blocks only: the
 reference drops a ragged edge) and ``jax.nn.logsumexp``, with its
 gradient; RMSNorm, one Mamba-2 block, the model's logits, the LM
@@ -50,7 +50,7 @@ from repro.models import ssm as jax_ssm  # noqa: E402
 from repro.models import transformer as jax_transformer  # noqa: E402
 from repro.optim import sgd as jax_sgd  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.paper import AG_NEWS, distilbert_class_config  # noqa: E402
 from repro_torch.data.synthetic import lm_token_batches  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
@@ -117,37 +117,14 @@ def test_full_config_is_the_published_one():
     assert cfg.replace(n_layers=4).param_count() == 289_561_216
 
 
-# the architectures the port has: mamba2 here, the dense and hybrid ones in
-# tests/test_torch_dense_lm.py, mixtral in tests/test_torch_moe.py
-PORTED = (ARCH, "phi4-mini-3.8b", "minitron-4b", "granite-34b",
-          "internlm2-20b", "zamba2-1.2b", "mixtral-8x7b")
-
-
-@pytest.mark.parametrize("name", [a for a in ALL_ARCHS if a not in PORTED])
-def test_unported_archs_raise_naming_a15(name):
-    with pytest.raises(NotImplementedError, match="A15"):
-        get_config(name)
-    with pytest.raises(NotImplementedError, match="A15"):
-        get_smoke_config(name)
-
-
-def test_bf16_and_unported_families_raise_naming_a15():
+def test_published_config_caches_take_bf16():
     """bf16 is ported (ROADMAP A15.3): the published config's caches come
-    in bf16 (the SSM state fp32); prefix embeddings, MLA and the cached
-    top-k KD still raise naming their items (MoE is ported: ROADMAP
-    A15.5)."""
+    in bf16, the SSM state in fp32, as the reference's."""
     cfg = get_config(ARCH).replace(n_layers=1)
     assert (cfg.pdtype, cfg.adtype) == (torch.bfloat16, torch.bfloat16)
     cache = transformer.init_cache(cfg, 1, 4)["seg0"]
     assert (cache.conv_state.dtype, cache.ssm_state.dtype) == (
         torch.bfloat16, torch.float32)
-    with pytest.raises(NotImplementedError, match="A15"):
-        transformer.hidden_states({}, cfg, torch.zeros(1, 4, dtype=torch.long),
-                                  prefix_embeddings=torch.zeros(1, 1, 4))
-    with pytest.raises(NotImplementedError, match="A15"):
-        cfg.replace(attn_type="mla")
-    with pytest.raises(NotImplementedError, match="A15"):
-        steps.make_loss_fn(get_smoke_config(ARCH), kd_mode="cached_topk")
 
 
 # ------------------------------------------------------------------- data

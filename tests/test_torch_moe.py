@@ -551,8 +551,3 @@ def test_entry_points_run_mixtral_on_the_cpu(capsys):
     serial = train.run_serial(cfg, n_clients=2, device="cpu", **kw)
     assert all(torch.equal(a, b) for a, b in zip(
         tree_leaves(sharded["params"]), tree_leaves(serial["params"])))
-
-
-def test_deepseek_v3_still_raises_naming_a15_6():
-    with pytest.raises(NotImplementedError, match="A15.6"):
-        get_config("deepseek-v3-671b")
