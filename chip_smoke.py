@@ -14,8 +14,9 @@ and nothing of JAX or of the JAX package, and
      the paths' shapes — KD-KL forward and backward at (256, 10),
      FedDistill+'s (64, 10), the population phase's K=64 TOY cohort under
      vmap (1024, 10), (256, 100), (256, 200), a ragged (1000, 37),
-     the text path's (64, 4) and (64, 5), the LM path's (4092, 50280) and
-     the MoE phase's (2048, 32000);
+     the text path's (64, 4) and (64, 5), the LM path's (4092, 50280),
+     the MoE phase's (2048, 32000) and (64, 256206) with both bases one
+     element past a 16-byte boundary; each with its share of its bound;
      the client-batched conv at all 9 ResNet-8 layers at K=4, N=64, at
      K=1, N=64 (the sequential route's step), at K=2 and K=3, N=64 (the
      async loop's refill waves and the fault-tolerant round's retried
@@ -365,9 +366,13 @@ REC_FIELDS = ("round", "test_acc", "test_loss", "mean_local_loss",
               "sim_time", "version", "mean_staleness", "sampled")
 # the MoE phase's (rows, vocab) of a step: mixtral-8x7b, 2 x 1,024 positions
 MOE_KD = (2 * 1024, 32_000)
+# B1/B2 (rows, vocab[, storage offset in elements]): the main path's, the
+# LM's and the MoE phase's, and seamless-m4t's odd vocab with both bases
+# one element past a 16-byte boundary (B1 peels a head before its 16-byte
+# loads)
 KD_SHAPES = [(256, 10), (64, 10), (128, 10), (192, 10), (1024, 10),
              (256, 100), (256, 200), (1000, 37), (64, 4), (64, 5),
-             (4092, 50280), MOE_KD]
+             (4092, 50280), MOE_KD, (64, 256_206, 1)]
 # the LM path (mamba2-2.7b at full width, 4 layers): batch 4 of 1,024-token
 # sequences, so 1,023 positions a step; evaluation on 8 such sequences
 LM_BATCH, LM_SEQ, LM_EVAL_BATCH = 4, 1024, 8
@@ -618,9 +623,12 @@ def check_kd_kl(dev) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(0)
     temp = 1.0
     rec = {"kd_kl_fwd": {"max_abs_err": 0.0}, "kd_kl_bwd": {"max_abs_err": 0.0}}
-    for rows, vocab in KD_SHAPES:
-        lt = torch.randn(rows, vocab, device=dev, generator=gen) * 2
-        ls = torch.randn(rows, vocab, device=dev, generator=gen) * 2
+    for line in ptxas_of("kd_kl_fwd"):      # B1's forms: registers, spills
+        log(f"  ptxas: {line}")
+    for rows, vocab, *offset in KD_SHAPES:
+        off = offset[0] if offset else 0
+        lt, ls = ((torch.randn(rows * vocab + off, device=dev, generator=gen)
+                   * 2)[off:].view(rows, vocab) for _ in range(2))
         g = torch.randn(rows, device=dev, generator=gen)
         kl, lse_t, lse_s = ops.kd_kl_fwd(lt, ls, temp)
         want = ref.kd_kl_fwd_ref(lt, ls, temp)
@@ -654,11 +662,14 @@ def check_kd_kl(dev) -> list[dict]:
         # bytes: both logits and three row vectors read, the gradient
         # written; operations: ~8 per element (2 scalings, 2 exps, 4 arith)
         bwd["bound_ms"], bwd["bound_by"] = bound_ms(12 * n + 12 * rows, 8 * n)
-        log(f"  kd_kl ({rows:4d},{vocab:3d}) fwd err {err_f:.2e} "
+        log(f"  kd_kl ({rows:4d},{vocab:3d}){f' offset {off}' if off else ''}"
+            f" fwd err {err_f:.2e} "
             f"kernel {fwd['ms']:.5f} ms plain {fwd['plain_ms']:.5f} ms "
             f"library {fwd['library_ms']:.5f} ms bound {fwd['bound_ms']:.3g} "
-            f"ms | bwd err {err_b:.2e} kernel {bwd['ms']:.5f} ms plain "
-            f"{bwd['plain_ms']:.5f} ms bound {bwd['bound_ms']:.3g} ms")
+            f"ms, {fwd['bound_ms'] / fwd['ms']:.3f} of it | bwd err "
+            f"{err_b:.2e} kernel {bwd['ms']:.5f} ms plain "
+            f"{bwd['plain_ms']:.5f} ms bound {bwd['bound_ms']:.3g} ms, "
+            f"{bwd['bound_ms'] / bwd['ms']:.3f} of it")
         if (rows, vocab) == (256, 10):          # the CIFAR-10 main path
             rec["kd_kl_fwd"].update(fwd)
             rec["kd_kl_bwd"].update(bwd)
@@ -3200,7 +3211,7 @@ def check_serve_kernels(dev, seen: dict) -> tuple[dict, list]:
         lib_s = f"{t['library_ms']:.4f}" if lib else "none"
         log(f"  {name} ({rows_n}, {vocab}): err {err[name]:.2e} kernel "
             f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms library {lib_s} "
-            f"ms bound {bnd:.4f} ms ({by})")
+            f"ms bound {bnd:.4f} ms ({by}), {bnd / t['ms']:.3f} of it")
         rows.append(dict(name=name, shape=(rows_n, vocab), **t))
     return err, rows
 
@@ -3602,7 +3613,8 @@ def check_bf16_kernels(dev) -> list[dict]:
             lib_s = f"{t['library_ms']:.4f}" if lib else "none"
             log(f"  {name} ({rows}, {vocab}): err {errs[name]:.2e} kernel "
                 f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms library "
-                f"{lib_s} ms bound {bnd:.4f} ms ({by})")
+                f"{lib_s} ms bound {bnd:.4f} ms ({by}), {bnd / t['ms']:.3f} "
+                f"of it")
             rec = entries.setdefault(name, dict(max_abs_err=0.0, **t))
             rec["max_abs_err"] = max(rec["max_abs_err"], errs[name])
     (b, l, h, p), (_, _, g, n), chunk = SERVE_SSD_TIMED

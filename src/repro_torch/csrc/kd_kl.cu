@@ -24,14 +24,42 @@
 // and both row logsumexps are written as the backward's residuals.  KL is
 // not clamped at 0, as in the reference.
 //
-// What bounds it on the card: on the FedGKD main path vocab is the class
-// count (10, 100 or 200) and rows = K*B = 256 per local step, so one call
-// moves ~20-200 KB: it is bound by launch latency, not by bytes or
-// arithmetic.  The design keeps it to ONE pass and ONE launch: a warp per
-// row, lanes stride over the vocab keeping the five online accumulators in
-// registers, then a shuffle reduction merges the lanes.  No probability
-// tensor and no padded copy is ever written: ragged rows and vocab edges
-// are handled by the loop bounds instead of the reference's -1e30 padding.
+// What bounds it on the card.  On the FedGKD main path vocab is the class
+// count (4-200) and rows = K*B = 64-1,024 a call: a call moves 2-800 KB
+// and is bound by launch latency.  On the LM paths rows >= 2,048 and vocab
+// is 32,000-256,206: a call reads 0.26-4.2 GB (fp32) and is bound by bytes
+// (3.35 TB/s); its 12 operations an element take under a quarter of that
+// time at the fp32 rate if the exponentials are cheap.  The first form, a
+// warp per row with scalar loads and four accurate expf an element, held
+// about half the byte bound at 2,048 rows: 256 blocks of 8 warps left an
+// SM a quarter of its warps, each lane with 4-8 bytes in flight, and the
+// time went per element, not per byte (its bf16 form was hardly faster).
+//
+// The design: two geometries, picked by vocab at launch.
+//   vocab >= kBlockVocab: a block of kFwdThreads = 512 per row (2,048
+//     blocks of 16 warps at the LM shapes).  Each thread reads 16 bytes (4
+//     fp32 or 8 bf16) of each tensor a load, with kFwdUnroll loads of each
+//     in flight before it uses them.  Row starts
+//     are not 16-byte aligned in general (vocab 256,206 is odd; a view can
+//     carry a storage offset), so each row peels a scalar head up to the
+//     teacher row's first 16-byte address, taken from the pointer, then
+//     runs the vector body and a scalar tail.  Where the teacher's and the
+//     student's addresses differ by other than a multiple of 16 bytes, the
+//     same kernel reads both with scalar loads.  A thread takes each
+//     vector's max first, rescales (st, acc) or ss once, only when that max
+//     moves (an accurate expf), and then spends ONE exponential an element
+//     a tensor: 2^(a log2(e) - m log2(e)) on the MUFU's ex2 (one fma forms
+//     the argument; results below 2^-126 flush to 0, which the row sums,
+//     >= 1, cannot see).  The statistics stay in natural units (m is the
+//     largest l / T), so the threads, the lanes (shuffles) and the warps
+//     (shared memory) are merged by merge(), in a fixed order: the kernel is
+//     deterministic, with no atomics.  A thread with no element merges as
+//     (-1e30, 0, 0, -1e30, 0), finite.
+//   vocab < kBlockVocab: the first form, a warp per row, lanes striding
+//     over the vocab with the branch-free update (a warp covers a row of
+//     <= 32 classes in one step).  The main path's class counts (4-200) lie
+//     below the switch and every LM vocab (>= 32,000) above it.
+// No probability tensor and no padded copy is ever written.
 //
 // Backward: dL/dls = g_row * (p_S - p_T) * T, rebuilt elementwise from the
 // saved logsumexps (no second reduction over the vocab).  This is the
@@ -55,7 +83,11 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpsPerBlock = 8;   // the forward's warp-per-row form
+// the forward's block-per-row form from kBlockVocab columns up: kFwdThreads
+// a row, each with kFwdUnroll 16-byte loads of each tensor in flight
+constexpr int64_t kBlockVocab = 1024;
+constexpr int kFwdThreads = 512, kFwdUnroll = 2;
 constexpr float kNegInit = -1e30f;   // finite: exp(kNegInit - kNegInit) = 1
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -75,6 +107,11 @@ struct RowStats {
   float mt, st, acc, ms, ss;
 };
 
+// the statistics of no element (finite, so merging two of them is exact)
+__host__ __device__ __forceinline__ RowStats empty_row() {
+  return RowStats{kNegInit, 0.f, 0.f, kNegInit, 0.f};
+}
+
 // (m, s) <- the online (max, exp-sum) pair of the union of two row parts
 __device__ __forceinline__ void merge_lse(float& m, float& s, float mo,
                                           float so) {
@@ -92,20 +129,128 @@ __device__ __forceinline__ void merge(RowStats& a, const RowStats& b) {
   merge_lse(a.ms, a.ss, b.ms, b.ss);
 }
 
+__device__ __forceinline__ void warp_merge(RowStats& r) {
+  for (int off = 16; off > 0; off >>= 1) {
+    RowStats o;
+    o.mt = __shfl_xor_sync(kFull, r.mt, off);
+    o.st = __shfl_xor_sync(kFull, r.st, off);
+    o.acc = __shfl_xor_sync(kFull, r.acc, off);
+    o.ms = __shfl_xor_sync(kFull, r.ms, off);
+    o.ss = __shfl_xor_sync(kFull, r.ss, off);
+    merge(r, o);
+  }
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the MUFU; results below 2^-126 flush to 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One thread's part of a row: RowStats with mt and ms also in log2 units
+// (kept in step with them), so that an element costs one fma and one ex2.
+struct FwdScan {
+  RowStats r = empty_row();
+  float mt2 = kNegInit * kLog2e, ms2 = kNegInit * kLog2e;
+
+  // a, b: N teacher and student logits, already scaled by 1 / T
+  template <int N>
+  __device__ __forceinline__ void add(const float (&a)[N],
+                                      const float (&b)[N]) {
+    float vt = a[0], vs = b[0];
+#pragma unroll
+    for (int i = 1; i < N; ++i) {
+      vt = fmaxf(vt, a[i]);
+      vs = fmaxf(vs, b[i]);
+    }
+    if (vt > r.mt) {
+      const float c = expf(r.mt - vt);
+      r.st *= c;
+      r.acc *= c;
+      r.mt = vt;
+      mt2 = vt * kLog2e;
+    }
+    if (vs > r.ms) {
+      r.ss *= expf(r.ms - vs);
+      r.ms = vs;
+      ms2 = vs * kLog2e;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float e = exp2_approx(fmaf(a[i], kLog2e, -mt2));
+      r.st += e;
+      r.acc = fmaf(e, a[i] - b[i], r.acc);
+      r.ss += exp2_approx(fmaf(b[i], kLog2e, -ms2));
+    }
+  }
+
+  template <typename T>
+  __device__ __forceinline__ void add1(T t, T s, float inv_temp) {
+    const float a[1] = {to_f32(t) * inv_temp}, b[1] = {to_f32(s) * inv_temp};
+    add(a, b);
+  }
+};
+
+// 16 bytes of logits, scaled to fp32
+template <typename T>
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void unpack(uint4 v, float inv_temp,
+                                                float (&out)[N]) {
+    out[0] = __uint_as_float(v.x) * inv_temp;
+    out[1] = __uint_as_float(v.y) * inv_temp;
+    out[2] = __uint_as_float(v.z) * inv_temp;
+    out[3] = __uint_as_float(v.w) * inv_temp;
+  }
+};
+
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;   // the lower address in the lower half-word
+  static __device__ __forceinline__ void unpack(uint4 v, float inv_temp,
+                                                float (&out)[N]) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[2 * i] = __uint_as_float(w[i] << 16) * inv_temp;
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u) * inv_temp;
+    }
+  }
+};
+
+__device__ __forceinline__ void write_row(const RowStats& r, int64_t row,
+                                          float* __restrict__ kl,
+                                          float* __restrict__ lse_t,
+                                          float* __restrict__ lse_s,
+                                          float temp_sq) {
+  const float lt_row = r.mt + logf(r.st);
+  const float ls_row = r.ms + logf(r.ss);
+  lse_t[row] = lt_row;
+  lse_s[row] = ls_row;
+  kl[row] = (r.acc / r.st - lt_row + ls_row) * temp_sq;
+}
+
+// vocab < kBlockVocab: a warp per row, scalar loads, the first form's
+// branch-free update (four expf an element)
 template <typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-kd_kl_fwd_kernel(const T* __restrict__ lt, const T* __restrict__ ls,
-                 float* __restrict__ kl, float* __restrict__ lse_t,
-                 float* __restrict__ lse_s, int64_t rows, int64_t vocab,
-                 float inv_temp, float temp_sq) {
+kd_kl_fwd_warp_kernel(const T* __restrict__ lt, const T* __restrict__ ls,
+                      float* __restrict__ kl, float* __restrict__ lse_t,
+                      float* __restrict__ lse_s, int64_t rows, int64_t vocab,
+                      float inv_temp, float temp_sq) {
   const int lane = threadIdx.x & 31;
   const int64_t row =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= rows) return;  // uniform across the warp: all lanes share `row`
   const T* t = lt + row * vocab;
   const T* s = ls + row * vocab;
-
-  RowStats r{kNegInit, 0.f, 0.f, kNegInit, 0.f};
+  RowStats r = empty_row();
   for (int64_t j = lane; j < vocab; j += 32) {
     const float a = to_f32(t[j]) * inv_temp;
     const float b = to_f32(s[j]) * inv_temp;
@@ -119,21 +264,70 @@ kd_kl_fwd_kernel(const T* __restrict__ lt, const T* __restrict__ ls,
     r.ss = r.ss * expf(r.ms - ms) + expf(b - ms);
     r.ms = ms;
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    RowStats o;
-    o.mt = __shfl_xor_sync(kFull, r.mt, off);
-    o.st = __shfl_xor_sync(kFull, r.st, off);
-    o.acc = __shfl_xor_sync(kFull, r.acc, off);
-    o.ms = __shfl_xor_sync(kFull, r.ms, off);
-    o.ss = __shfl_xor_sync(kFull, r.ss, off);
-    merge(r, o);
+  warp_merge(r);
+  if (lane == 0) write_row(r, row, kl, lse_t, lse_s, temp_sq);
+}
+
+// vocab >= kBlockVocab: a block of kFwdThreads per row.  kVec: the
+// teacher's and the student's addresses differ by a multiple of 16 bytes,
+// so one head peeled from the teacher row aligns both.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kFwdThreads)
+kd_kl_fwd_block_kernel(const T* __restrict__ lt, const T* __restrict__ ls,
+                       float* __restrict__ kl, float* __restrict__ lse_t,
+                       float* __restrict__ lse_s, int64_t vocab,
+                       float inv_temp, float temp_sq) {
+  using V = Vec16<T>;
+  constexpr int kWarps = kFwdThreads / 32;
+  __shared__ RowStats part[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t row = blockIdx.x;
+  const T* t = lt + row * vocab;
+  const T* s = ls + row * vocab;
+  FwdScan f;
+  int64_t head = 0, nvec = 0;
+  if constexpr (kVec) {
+    const unsigned mis = static_cast<unsigned>(
+        reinterpret_cast<uintptr_t>(t) & 15u);
+    head = static_cast<int64_t>(((16u - mis) & 15u) / sizeof(T));
+    if (head > vocab) head = vocab;
+    nvec = (vocab - head) / V::N;
+    if (tid < head) f.add1(t[tid], s[tid], inv_temp);
+    const uint4* tv = reinterpret_cast<const uint4*>(t + head);
+    const uint4* sv = reinterpret_cast<const uint4*>(s + head);
+    int64_t v = tid;
+    for (; v + (kFwdUnroll - 1) * kFwdThreads < nvec;
+         v += kFwdUnroll * kFwdThreads) {
+      uint4 rt[kFwdUnroll], rs[kFwdUnroll];
+#pragma unroll
+      for (int u = 0; u < kFwdUnroll; ++u) {
+        rt[u] = tv[v + u * kFwdThreads];
+        rs[u] = sv[v + u * kFwdThreads];
+      }
+#pragma unroll
+      for (int u = 0; u < kFwdUnroll; ++u) {
+        float a[V::N], b[V::N];
+        V::unpack(rt[u], inv_temp, a);
+        V::unpack(rs[u], inv_temp, b);
+        f.add(a, b);
+      }
+    }
+    for (; v < nvec; v += kFwdThreads) {
+      float a[V::N], b[V::N];
+      V::unpack(tv[v], inv_temp, a);
+      V::unpack(sv[v], inv_temp, b);
+      f.add(a, b);
+    }
   }
-  if (lane == 0) {
-    const float lt_row = r.mt + logf(r.st);
-    const float ls_row = r.ms + logf(r.ss);
-    lse_t[row] = lt_row;
-    lse_s[row] = ls_row;
-    kl[row] = (r.acc / r.st - lt_row + ls_row) * temp_sq;
+  for (int64_t j = head + nvec * V::N + tid; j < vocab; j += kFwdThreads)
+    f.add1(t[j], s[j], inv_temp);
+  warp_merge(f.r);
+  if (lane == 0) part[warp] = f.r;
+  __syncthreads();
+  if (warp == 0) {
+    RowStats r = lane < kWarps ? part[lane] : empty_row();
+    warp_merge(r);
+    if (lane == 0) write_row(r, row, kl, lse_t, lse_s, temp_sq);
   }
 }
 
@@ -212,12 +406,26 @@ cudaError_t kd_kl_fwd(const void* lt, const void* ls, void* kl, void* lse_t,
                       void* lse_s, int64_t rows, int64_t vocab,
                       float inv_temp, float temp_sq, void* stream) {
   if (rows == 0) return cudaSuccess;
-  const int64_t blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  kd_kl_fwd_kernel<T><<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32,
-                        0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(lt), static_cast<const T*>(ls),
-      static_cast<float*>(kl), static_cast<float*>(lse_t),
-      static_cast<float*>(lse_s), rows, vocab, inv_temp, temp_sq);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* t = static_cast<const T*>(lt);
+  const T* s = static_cast<const T*>(ls);
+  float* out[3] = {static_cast<float*>(kl), static_cast<float*>(lse_t),
+                   static_cast<float*>(lse_s)};
+  if (vocab < kBlockVocab) {
+    const int64_t blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    kd_kl_fwd_warp_kernel<T><<<static_cast<unsigned>(blocks),
+                               kWarpsPerBlock * 32, 0, st>>>(
+        t, s, out[0], out[1], out[2], rows, vocab, inv_temp, temp_sq);
+  } else if (((reinterpret_cast<uintptr_t>(t) -
+               reinterpret_cast<uintptr_t>(s)) & 15u) == 0) {
+    kd_kl_fwd_block_kernel<T, true>
+        <<<static_cast<unsigned>(rows), kFwdThreads, 0, st>>>(
+            t, s, out[0], out[1], out[2], vocab, inv_temp, temp_sq);
+  } else {
+    kd_kl_fwd_block_kernel<T, false>
+        <<<static_cast<unsigned>(rows), kFwdThreads, 0, st>>>(
+            t, s, out[0], out[1], out[2], vocab, inv_temp, temp_sq);
+  }
   return cudaGetLastError();
 }
 

@@ -936,6 +936,53 @@ def test_kd_kl_mixed_dtypes_and_refusals(cuda):
         kd_ops.kd_kl_fwd(lt.half(), ls.half(), 1.0)
 
 
+# B1's geometries (csrc/kd_kl.cu: a warp per row below kBlockVocab = 1,024
+# columns, a block of 512 threads per row from there with 16-byte loads): a
+# vocab on each side of the threshold, odd vocabularies on the large side
+# (rows not 16-byte aligned), seamless-m4t's 256,206
+KD_FWD_SHAPES = [(64, 1023), (64, 1024), (5, 4097), (3, 256_206)]
+# "offset": both bases one element past a 16-byte boundary (a head is
+# peeled); "teacher offset": the teacher's only, so the two rows never
+# align together and the block form reads both with scalar loads
+KD_FWD_LAYOUTS = ["contiguous", "offset", "teacher offset"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", KD_FWD_LAYOUTS)
+@pytest.mark.parametrize("t,v", KD_FWD_SHAPES)
+def test_kd_kl_fwd_geometries_and_alignment(cuda, t, v, layout, dtype):
+    """B1 against the plain version (the fp32 one on bf16 values upcast) at
+    both geometries and every alignment, with a row of equal teacher
+    logits (row 0) and a row where the student equals the teacher (row 1:
+    KL ~0 within the bar); two calls give bitwise-equal outputs."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(t + v)
+
+    def logits(offset):
+        flat = (torch.randn(t * v + offset, device=cuda, generator=gen)
+                * 2).to(dt)
+        return flat[offset:].view(t, v)
+
+    lt = logits(0 if layout == "contiguous" else 1)
+    ls = logits(1 if layout == "offset" else 0)
+    assert lt.is_contiguous() and ls.is_contiguous()
+    assert (lt.data_ptr() % 16 != 0) == (layout != "contiguous")
+    lt[0] = 0.75
+    ls[1] = lt[1]
+    before = dict(LAUNCHES)
+    counter = "kd_kl_fwd" + ("_bf16" if dtype == "bfloat16" else "")
+    got = kd_ops.kd_kl_fwd(lt, ls, 2.0)
+    again = kd_ops.kd_kl_fwd(lt, ls, 2.0)
+    torch.cuda.synchronize()
+    assert LAUNCHES[counter] == before[counter] + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for a, w in zip(got, kd_ref.kd_kl_fwd_ref(lt.float(), ls.float(), 2.0)):
+        assert a.dtype == torch.float32
+        _close(a, w)
+    assert abs(float(got[0][1])) <= TOL
+
+
 def test_ssd_scan_casting_wrapper_in_bf16(cuda):
     """B5 through its wrapper on bf16 x, B and C at zamba2's width: the fp32
     kernels (counted as ``ssd_scan_fwd``) on the inputs cast up, y in

@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
-"""Hold two forms of the client-batched conv, flash attention or the SSD scan
-against the plain version and time them in one process on one CUDA card, in
-turns (old, new, new, old).
+"""Hold two forms of the client-batched conv, flash attention, the SSD scan
+or the fused KD-KL forward against the plain version and time them in one
+process on one CUDA card, in turns (old, new, new, old).
 
     python3 tools/ab_kernel_forms.py --old DIR [--interface first|current]
 
-``DIR`` holds the old form's ``grouped_conv.cu``, ``flash_attention.cu``
-and/or ``ssd_scan.cu``; each kernel whose source is there is compared.
+``DIR`` holds the old form's ``grouped_conv.cu``, ``flash_attention.cu``,
+``ssd_scan.cu`` and/or ``kd_kl.cu``; each kernel whose source is there is
+compared.  For B1's first form (a warp per row, scalar loads, four expf an
+element; its entry points are the port's, so either interface binds it):
+
+    git show 11219f7:src/repro_torch/csrc/kd_kl.cu > DIR/kd_kl.cu
+
 Where the old ``flash_attention.cu`` also defines
 ``flash_attention_fwd_bf16`` (the bf16 form at commit 3c466fa: 3xTF32
 ``mma.sync`` on widened tiles, before it moved to
@@ -33,15 +38,23 @@ shapes at 64x64 (K=4, N=64; the group's totals count each shape as often
 as the network has it), at a 1x1 conv over 2,048 input channels (a deep
 reduction, for the error), at the text path's attention
 (B=64 and 256), at the LM path's SSD scan (B = 4 and 8 of (B, 1023,
-80, 64, 1, 128, 256), inputs strided as ``mamba2_forward`` passes them)
-and, for the bf16 forms of flash attention, at ``chip_smoke.BF16_FLASH``.
+80, 64, 1, 128, 256), inputs strided as ``mamba2_forward`` passes them),
+for the bf16 forms of flash attention at ``chip_smoke.BF16_FLASH``, and
+for B1 (``kd_kl_fwd_f32`` and ``kd_kl_fwd_bf16``) at ``KD_FWD_SHAPES``:
+2,048 rows at every LM vocabulary of the port (phi4-mini, seamless-m4t,
+deepseek-v3, llava-next, mixtral), mamba2's (4,092, 50,280) and the main
+path's (256, 10), (256, 200) and (1,024, 10), each form's share of its
+bound beside its time (bytes: both logits read once, three (rows,) fp32
+outputs written; 12 operations an element at the fp32 rate, as
+``chip_smoke.check_kd_kl`` counts them).
 Each form's largest error against the plain version is printed beside its
 time; the run fails if the new form is further than 1e-5 of max|plain|
 from it (for the SSD scan, where the fp32 plain version is itself further
 than that from float64: no further from float64 than the plain version;
 for bf16 flash attention, chip_smoke's bf16 gate: one bf16 ulp of the
 fp32 plain version plus 1e-5 of its max, and 2e-2 of the bf16 plain
-version).
+version; B1's kl and logsumexps each to 1e-5 of their max|plain|, bf16
+logits against the fp32 plain version on the same values upcast).
 Times are CUDA-graph replays (``chip_smoke.time_ms``).  Imports nothing of
 JAX.
 """
@@ -67,10 +80,19 @@ FIRST_SIGNATURES = {
     "ssd_scan_fwd_f32": [_P] * 7 + [_I64] * 7 + [_I64] * 16 + [_P],
     "flash_attention_fwd_bf16": [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12
                                 + [_I64, _I64, _F32, _P],
+    "kd_kl_fwd_f32": [_P, _P, _P, _P, _P, _I64, _I64, _F32, _F32, _P],
+    "kd_kl_fwd_bf16": [_P, _P, _P, _P, _P, _I64, _I64, _F32, _F32, _P],
 }
 ENTRY = {"grouped_conv.cu": "grouped_conv_fwd_f32",
          "flash_attention.cu": "flash_attention_fwd_f32",
-         "ssd_scan.cu": "ssd_scan_fwd_f32"}
+         "ssd_scan.cu": "ssd_scan_fwd_f32",
+         "kd_kl.cu": "kd_kl_fwd_f32"}
+# B1's (rows, vocab): 2,048 rows at phi4-mini's, seamless-m4t's,
+# deepseek-v3's, llava-next's and mixtral's vocabularies, mamba2's step,
+# and the main path's FedGKD step, ResNet-50's and the 1M-client cohort's
+KD_FWD_SHAPES = [(2048, 200_064), (2048, 256_206), (2048, 129_280),
+                 (2048, 64_000), (2048, 32_000), (4092, 50_280), (256, 10),
+                 (256, 200), (1024, 10)]
 SSD_BATCHES = (4, 8)       # the LM path's step and evaluation
 CONV_GROUPS = {"K=4 step": [(4, 64)], "K=1 eval": [(1, 256)],
                "K=1 teacher": [(1, 1024), (1, 788)],
@@ -98,10 +120,11 @@ def build_old(src_dir: Path, interface: str):
         fn = getattr(lib, ENTRY[src.name])
         fn.argtypes = sigs[ENTRY[src.name]]
         fn.restype = ctypes.c_int
-    if hasattr(lib, "flash_attention_fwd_bf16"):
-        lib.flash_attention_fwd_bf16.argtypes = sigs["flash_attention_fwd_bf16"]
-        lib.flash_attention_fwd_bf16.restype = ctypes.c_int
-        have.add("flash_attention_fwd_bf16")
+    for extra in ("flash_attention_fwd_bf16", "kd_kl_fwd_bf16"):
+        if hasattr(lib, extra):
+            getattr(lib, extra).argtypes = sigs[extra]
+            getattr(lib, extra).restype = ctypes.c_int
+            have.add(extra)
     return lib, have
 
 
@@ -122,12 +145,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from chip_smoke import (BF16_FLASH, BF16_FLASH_TOL, LM_SEQ, R50_HW,
-                            RESNET8_CONVS, bf16_compare, resnet50_shapes,
-                            ssd_inputs, time_ms)
+                            RESNET8_CONVS, bf16_compare, bound_ms,
+                            resnet50_shapes, ssd_inputs, time_ms)
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.grouped_conv import ops, ref
+    from repro_torch.kernels.kd_kl import ops as kd_ops
+    from repro_torch.kernels.kd_kl import ref as kd_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
@@ -298,6 +323,45 @@ def main() -> int:
         t_old, t_new = turns(f_old, f_new)
         print(f"{line} old {t_old:.4f} ms new {t_new:.4f} ms "
               f"{t_old / t_new:.2f}x", flush=True)
+
+    kd_forms = [(torch.float32, "kd_kl_fwd_f32"),
+                (torch.bfloat16, "kd_kl_fwd_bf16")]
+    for dtype, entry in (kd_forms if "kd_kl.cu" in have else ()):
+        if not hasattr(old, entry):
+            continue
+        for rows, vocab in KD_FWD_SHAPES:
+            lt, ls = ((torch.randn(rows, vocab, device=dev, generator=gen)
+                       * 2).to(dtype) for _ in range(2))
+            outs_old = [torch.empty(rows, device=dev) for _ in range(3)]
+
+            def f_old():
+                rc = getattr(old, entry)(
+                    lt.data_ptr(), ls.data_ptr(),
+                    *(o.data_ptr() for o in outs_old), rows, vocab, 1.0, 1.0,
+                    build.stream_of(lt))
+                build.check(rc, "old " + entry)
+
+            def f_new():
+                return kd_ops.kd_kl_fwd(lt, ls, 1.0)
+
+            f_old()
+            new = f_new()
+            want = kd_ref.kd_kl_fwd_ref(lt.float(), ls.float(), 1.0)
+            e_old = e_new = 0.0
+            for name, a_old, a_new, w in zip(("kl", "lse_t", "lse_s"),
+                                             outs_old, new, want):
+                eo, en = errors(f"{entry} {(rows, vocab)} {name}", a_old,
+                                a_new, w)
+                e_old, e_new = max(e_old, eo), max(e_new, en)
+            n = rows * vocab
+            bnd, by = bound_ms(2 * lt.element_size() * n + 12 * rows, 12 * n)
+            t_old, t_new = turns(f_old, f_new)
+            print(f"{entry} ({rows}, {vocab}): old {t_old:.5f} ms (err "
+                  f"{e_old:.2e}, {bnd / t_old:.3f} of the bound) new "
+                  f"{t_new:.5f} ms (err {e_new:.2e}, {bnd / t_new:.3f} of "
+                  f"it) {t_old / t_new:.2f}x; bound {bnd:.5f} ms ({by})",
+                  flush=True)
+            del lt, ls, want, new, outs_old
     return 0
 
 
