@@ -231,6 +231,18 @@ and nothing of JAX or of the JAX package, and
         and in decode, a GQA group of 7), B1, B2 and B6 held to their
         plain versions at every shape the phase gave them, each timed
         against its bound and a PyTorch call (``check_family_kernels``);
+     in phases k., l. and m., before their rounds, the dry-run's
+     prediction held to the card (``step_peak_gate``): one FedGKD train
+     step of the phase's batch (2 x 1,024 tokens) at its cut (phi4-mini
+     depth 8, mixtral depth 2, deepseek-v3 depth 1) with params, teacher
+     and optimizer state resident, its ``torch.cuda.max_memory_allocated``
+     beyond them against ``launch.dryrun_lib``'s ``temp_size_in_bytes``
+     for the same step traced on the meta device, the ratio within
+     ``STEP_PEAK_BAND`` (0.85-1.15); its wall time beside the dry-run's
+     bound and its model FLOPs' share of the bf16 peak, for the record;
+     the bounds of every kernel check above come from
+     ``launch.roofline``'s cost functions, and ``dispatch_cost`` times the
+     host's cost of a B1 call through its ``repro_torch`` operator;
   5. profiles one steady-state round of each path (``torch.profiler``;
      FedGKD, MOON and FedGen for the baselines, an async aggregation
      pipelined and not, and a population round of the TOY and the
@@ -269,14 +281,12 @@ from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s outside the
-# tensor cores, dense TF32 FLOP/s on them.  B1, B2 and B6 are fp32 on the
-# CUDA cores; B3, B4 and B5 run their products in 3xTF32 on the tensor
-# cores, three TF32 products for each fp32 one, so their bound counts
-# 3 x FLOP at the TF32 peak (the fp32 CUDA-core bound is printed beside it)
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
-PEAK_TF32 = 495e12
+# the H100's peaks, the kernels' cost functions and their bounds are
+# repro_torch.launch.roofline's (imported where used, after the port is on
+# the path): B1, B2 and B6 are fp32 on the CUDA cores; B3, B4 and B5 run
+# their products in 3xTF32 on the tensor cores, three TF32 products for
+# each fp32 one, so their bound counts 3 x FLOP at the TF32 peak (the fp32
+# CUDA-core bound is printed beside it)
 KERNEL_TOL = 1e-5          # of max |plain|, fp32 with TF32 off
 ROUND_TOL = 1e-4           # card vs CPU params after one round, fp32
 MIN_MOVE = 10              # round 1 must move the params >= this x ROUND_TOL
@@ -458,7 +468,6 @@ SERVE_KERNELS = ["flash_attention_fwd", "ssd_scan_fwd", "row_logsumexp",
 # tokens, M = 3) and the same in fp32; round 1 of the smoke config on the
 # card against the CPU's; phi4-mini unchanged (32 layers) for inference;
 # mamba2 at depth 4 for one round; run_sharded on the card twice over
-PEAK_BF16 = 989e12
 BF16_FLASH = [(2, 1024, 24, 8, 128, None), (4, 1024, 32, 32, 64, None),
               (1, 160, 24, 8, 128, 64), (2, 1024, 32, 8, 128, 4096)]
 BF16_KD = [(2 * 1024, 200_064), (LM_BATCH * (LM_SEQ - 1), LM_VOCAB)]
@@ -519,6 +528,11 @@ FAM_PEAK_GIB = 75.0
 FAM_FL = dict(clients=2, batches=2, batch=2, seq=1024, gamma=0.2, lr=0.1)
 FAM_TOPK = 64
 DS_KERNELS = ["row_logsumexp", "kd_kl_fwd", "kd_kl_bwd"]   # MLA: no B4
+# the step-peak gates (``step_peak_gate``): one FedGKD train step of the
+# phase's own batch (BF16_FL's 2 sequences of 1,024 tokens) at the phase's
+# cut, its device memory beyond the resident params, teacher and optimizer
+# state held to the dry-run's prediction on the meta device
+STEP_PEAK_BAND = (0.85, 1.15)
 FAM_KERNELS = ["flash_attention_fwd_bf16", "row_logsumexp", "kd_kl_fwd",
                "kd_kl_bwd"]
 
@@ -557,41 +571,6 @@ def time_ms(fn, reps: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
-def taps_in_bounds(size: int, k: int, stride: int, out: int, lo: int) -> int:
-    """Filter taps along one axis that land inside the input, summed over
-    the outputs: the kernel skips the taps that fall on SAME padding."""
-    return sum(1 for o in range(out) for i in range(k)
-               if 0 <= o * stride - lo + i < size)
-
-
-def bound_ms(nbytes: float, ops: float,
-             peak: float = PEAK_FP32) -> tuple[float, str]:
-    """The least time of the work on the card: the larger of its bytes at
-    the memory rate and its operations at ``peak``."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def tf32x3_bound_ms(nbytes: float, flops: float) -> dict:
-    """B3's, B4's and B5's bounds: in 3xTF32 (3 x FLOP at the TF32 peak),
-    the arithmetic they use, with the fp32 CUDA-core bound beside it."""
-    b, by = bound_ms(nbytes, 3 * flops, PEAK_TF32)
-    return dict(bound_ms=b, bound_by=by,
-                fp32_bound_ms=bound_ms(nbytes, flops)[0])
-
-
-def bf16_flash_bound_ms(nbytes: float, flops: float) -> dict:
-    """B4's bound on bf16 inputs: Q·Kᵀ of bf16 values is exact as one bf16
-    tensor-core product (fp32 sums), and P·V with P kept in fp32 takes two
-    (P's high and low bf16 halves against V), all at the bf16 peak: 1.5 x
-    the FLOP (half of them in each product) at ``PEAK_BF16`` against the
-    bytes.  The 3xTF32 bound of the fp32 form's arithmetic goes beside
-    it."""
-    b, by = bound_ms(nbytes, 1.5 * flops, PEAK_BF16)
-    return dict(bound_ms=b, bound_by=by,
-                tf32x3_bound_ms=tf32x3_bound_ms(nbytes, flops)["bound_ms"])
-
-
 def compare(name: str, got, want) -> float:
     """Max |got - want|; raises if it exceeds KERNEL_TOL·max|want|."""
     err = float((got - want).abs().max())
@@ -619,6 +598,7 @@ def check_kd_kl(dev) -> list[dict]:
     import torch.nn.functional as F
 
     from repro_torch.kernels.kd_kl import ops, ref
+    from repro_torch.launch import roofline as rl
 
     gen = torch.Generator(device=dev).manual_seed(0)
     temp = 1.0
@@ -647,21 +627,17 @@ def check_kd_kl(dev) -> list[dict]:
                             log_target=True).sum(-1) * (temp * temp)
 
         compare(f"library kl_div{(rows, vocab)}", library_fwd(), want[0])
-        n = rows * vocab
         fwd = dict(ms=time_ms(lambda: ops.kd_kl_fwd(lt, ls, temp)),
                    plain_ms=time_ms(lambda: ref.kd_kl_fwd_ref(lt, ls, temp)),
                    library_ms=time_ms(library_fwd))
-        # bytes: both logits read once, three (rows,) outputs written;
-        # operations: ~12 per element (2 scalings, 2 exps, the running
-        # max/sum updates and the cross term)
-        fwd["bound_ms"], fwd["bound_by"] = bound_ms(8 * n + 12 * rows, 12 * n)
+        fwd["bound_ms"], fwd["bound_by"] = rl.kd_kl_fwd_cost(rows,
+                                                             vocab).bound()
         bwd = dict(ms=time_ms(lambda: ops.kd_kl_bwd(lt, ls, lse_t, lse_s, g, temp)),
                    plain_ms=time_ms(lambda: ref.kd_kl_bwd_ref(
                        lt, ls, lse_t, lse_s, g, temp)),
                    library_ms=None)
-        # bytes: both logits and three row vectors read, the gradient
-        # written; operations: ~8 per element (2 scalings, 2 exps, 4 arith)
-        bwd["bound_ms"], bwd["bound_by"] = bound_ms(12 * n + 12 * rows, 8 * n)
+        bwd["bound_ms"], bwd["bound_by"] = rl.kd_kl_bwd_cost(rows,
+                                                             vocab).bound()
         log(f"  kd_kl ({rows:4d},{vocab:3d}){f' offset {off}' if off else ''}"
             f" fwd err {err_f:.2e} "
             f"kernel {fwd['ms']:.5f} ms plain {fwd['plain_ms']:.5f} ms "
@@ -675,12 +651,48 @@ def check_kd_kl(dev) -> list[dict]:
             rec["kd_kl_bwd"].update(bwd)
             log(f"  launch floor: an empty kernel {launch_floor_ms():.5f} ms "
                 f"(CUDA-graph replays, as the kernels above)")
+    dispatch_cost(dev)
     return [
         dict(name="kd_kl_fwd", route="cuda", source="src/repro_torch/csrc/kd_kl.cu",
              replaces="src/repro/kernels/kd_kl/kernel.py:33", **rec["kd_kl_fwd"]),
         dict(name="kd_kl_bwd", route="cuda", source="src/repro_torch/csrc/kd_kl.cu",
              replaces="src/repro/kernels/kd_kl/kernel.py:113", **rec["kd_kl_bwd"]),
     ]
+
+
+def dispatch_cost(dev, calls: int = 2000) -> dict:
+    """The host's time a call of B1 at the main path's (256, 10), where the
+    host's time is the call's: through ``ops.kd_kl_fwd`` (its
+    ``repro_torch::kd_kl_fwd`` operator) and through the launch function
+    called directly, in turns (operator, direct, direct, operator), each
+    the wall time of ``calls`` calls ending in a synchronize over the
+    calls; the lower of each pair.  Returns the microseconds a call."""
+    import torch
+
+    from repro_torch.kernels.kd_kl import ops
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    lt, ls = (torch.randn(256, 10, device=dev, generator=gen)
+              for _ in range(2))
+    forms = {"operator": lambda: ops.kd_kl_fwd(lt, ls, 1.0),
+             "direct": lambda: ops._kd_kl_fwd_cuda(lt, ls, 1.0)}
+    us = {}
+    for name in ("operator", "direct", "direct", "operator"):
+        fn = forms[name]
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(dev)
+        t = (time.perf_counter() - t0) / calls * 1e6
+        us[name] = min(us.get(name, t), t)
+    log(f"  host time a call of B1 at (256, 10): {us['operator']:.2f} us "
+        f"through its operator, {us['direct']:.2f} us calling the launch "
+        f"function directly: the operator's dispatch adds "
+        f"{us['operator'] - us['direct']:.2f} us")
+    return us
 
 
 def check_conv(dev, teacher_ns: list[int], r50_teacher_ns: list[int]) -> dict:
@@ -699,6 +711,7 @@ def check_conv(dev, teacher_ns: list[int], r50_teacher_ns: list[int]) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.grouped_conv import ops, ref
+    from repro_torch.launch import roofline as rl
 
     gen = torch.Generator(device=dev).manual_seed(1)
     r8 = [c + (1,) for c in RESNET8_CONVS]
@@ -745,11 +758,9 @@ def check_conv(dev, teacher_ns: list[int], r50_teacher_ns: list[int]) -> dict:
                              x, w, s, "SAME"), **reps),
                          library_ms=time_ms(lambda: F.conv2d(
                              xg, wg, stride=s, groups=k), **reps))
-                nbytes = 4 * (x.numel() + w.numel() + k * n * oh * oh * cout)
-                # multiply-adds of the taps inside the input only
-                flops = (2 * k * n * cout * cin
-                         * taps_in_bounds(h, kk, s, oh, lo) ** 2)
-                t.update(tf32x3_bound_ms(nbytes, flops))
+                nbytes, flops, _ = rl.grouped_conv_cost(k, n, h, cin, cout,
+                                                        kk, s)
+                t.update(rl.tf32x3_bound_ms(nbytes, flops))
                 plan = ops.conv_plan(k, n, h, h, cin, cout, kk, kk, s, "SAME")
                 log(f"  conv K={k} N={n:4d} {name:13s} x{count} ({h}x{h}, "
                     f"{cin}->{cout}, {kk}x{kk} s{s}) err {err:.2e} kernel "
@@ -767,7 +778,7 @@ def check_conv(dev, teacher_ns: list[int], r50_teacher_ns: list[int]) -> dict:
                     tot["slower"].append(f"N={n} {name}")
                 del x, w, xg, wg
         # the group's bound: its bytes and FLOP summed, then bounded
-        bound = tf32x3_bound_ms(tot["nbytes"], tot["flops"])
+        bound = rl.tf32x3_bound_ms(tot["nbytes"], tot["flops"])
         n_shapes = len(calls) * len(convs)
         log(f"  conv group {group}: kernel {tot['ms']:.4f} ms cuDNN "
             f"{tot['library_ms']:.4f} ms plain {tot['plain_ms']:.4f} ms bound "
@@ -865,6 +876,7 @@ def check_flash(dev, teacher_ns: list[int]) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.launch import roofline as rl
 
     gen = torch.Generator(device=dev).manual_seed(2)
     path = [(n, 64, 4, 4, 32, True, None)
@@ -894,11 +906,8 @@ def check_flash(dev, teacher_ns: list[int]) -> dict:
                  plain_ms=time_ms(lambda: ref.attention_ref(q, k, v,
                                                             causal=causal)),
                  library_ms=time_ms(library))
-        # bytes: q, k, v read once (k, v at Hkv heads), o written once;
-        # operations: 4·D per unmasked (query, key) pair and query head
-        pairs = int(ref.causal_mask(s, s, device=dev).sum()) if causal else s * s
-        nbytes = 4 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
-        t.update(tf32x3_bound_ms(nbytes, 4 * d * pairs * b * hq))
+        t.update(rl.tf32x3_bound_ms(*rl.flash_cost(b, s, s, hq, hkv, d,
+                                                   causal)[:2]))
         log(f"  flash {shape} err {err:.2e} kernel {t['ms']:.5f} ms plain "
             f"{t['plain_ms']:.5f} ms library {t['library_ms']:.5f} ms bound "
             f"{t['bound_ms']:.5f} ms ({t['bound_by']}; fp32 "
@@ -933,23 +942,6 @@ def ssd_inputs(dev, gen, b, l, h, p, g, n):
     return x, dt, a, bm, cm
 
 
-def ssd_cost(b, l, h, p, g, n, q) -> tuple[float, float]:
-    """(bytes, FLOP) of one SSD scan: x, y, dt, A, B, C and the final state
-    once each.  Per chunk of r rows, over its r(r+1)/2 pairs i >= j:
-    2·pairs·N for C·Bᵀ once per (batch, B/C group), since every head of a
-    group shares it (the function needs it once, whatever implements it);
-    per (batch, head) 2·pairs·P for the weighted x, plus 2·r·N·P each for
-    C·Sᵀ and the state update."""
-    nbytes = 4 * (2 * b * l * h * p + b * l * h + h + 2 * b * l * g * n
-                  + b * h * p * n)
-    flops = 0.0
-    for c0 in range(0, l, q):
-        r = min(q, l - c0)
-        pairs = r * (r + 1) // 2
-        flops += g * 2 * pairs * n + h * (2 * pairs * p + 4 * r * n * p)
-    return nbytes, flops * b
-
-
 def check_ssd(dev, round_check_len: int) -> dict:
     """B5 against its plain version at the LM path's shapes (a step's batch,
     the evaluation batch, the card-vs-CPU round check's one sequence) and
@@ -960,6 +952,7 @@ def check_ssd(dev, round_check_len: int) -> dict:
     import torch
 
     from repro_torch.kernels.ssd_scan import ops, ref
+    from repro_torch.launch import roofline as rl
 
     gen = torch.Generator(device=dev).manual_seed(5)
     h, p, g, n, q = 80, 64, 1, 128, 256
@@ -1001,7 +994,7 @@ def check_ssd(dev, round_check_len: int) -> dict:
                      plain_ms=time_ms(lambda: ref.ssd_scan_ref(*args, q_),
                                       reps=5, replays=4),
                      library_ms=None)
-            t.update(tf32x3_bound_ms(*ssd_cost(*shape)))
+            t.update(rl.tf32x3_bound_ms(*rl.ssd_cost(*shape)[:2]))
             plan = ops.ssd_plan(*shape)
             line += (f"; kernel {t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms"
                      f" bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
@@ -1034,6 +1027,7 @@ def check_row_lse(dev) -> dict:
     import torch
 
     from repro_torch.kernels.kd_kl import ops, ref
+    from repro_torch.launch import roofline as rl
 
     gen = torch.Generator(device=dev).manual_seed(6)
     rows = LM_BATCH * (LM_SEQ - 1)
@@ -1057,10 +1051,8 @@ def check_row_lse(dev) -> dict:
             t = dict(ms=time_ms(lambda: ops.row_lse_fwd(logits, temp)),
                      plain_ms=time_ms(lambda: ref.row_logsumexp_ref(logits, temp)),
                      library_ms=time_ms(library))
-            # bytes: the logits read once, the row vector written; operations:
-            # ~4 per element (scale, compare, exp, add)
-            t["bound_ms"], t["bound_by"] = bound_ms(
-                4 * t_rows * vocab + 4 * t_rows, 4 * t_rows * vocab)
+            t["bound_ms"], t["bound_by"] = rl.row_lse_cost(t_rows,
+                                                           vocab).bound()
             log(f"  row_lse ({t_rows}, {vocab}) T={temp} err {err:.2e} kernel "
                 f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms library "
                 f"{t['library_ms']:.4f} ms bound {t['bound_ms']:.4f} ms "
@@ -3096,6 +3088,7 @@ def check_serve_kernels(dev, seen: dict) -> tuple[dict, list]:
     from repro_torch.kernels.kd_kl import ref as kd_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.launch import roofline as rl
 
     gen = torch.Generator(device=dev).manual_seed(11)
     err, rows = {}, []
@@ -3125,9 +3118,8 @@ def check_serve_kernels(dev, seen: dict) -> tuple[dict, list]:
                      q, k, v, causal=causal, window=window), reps=2,
                      replays=2),
                  library_ms=time_ms(library, reps=5, replays=4))
-        pairs = int(mask.sum())
-        t.update(tf32x3_bound_ms(4 * (2 * b * s * hq * d + 2 * b * s * hkv * d),
-                                 4 * d * pairs * b * hq))
+        t.update(rl.tf32x3_bound_ms(*rl.flash_cost(b, s, s, hq, hkv, d,
+                                                   causal, window)[:2]))
         log(f"  flash {qs} kv {ks} window {window}: err {e:.2e} kernel "
             f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms sdpa "
             f"{t['library_ms']:.4f} ms (err {lib_err:.2e}) bound "
@@ -3167,7 +3159,8 @@ def check_serve_kernels(dev, seen: dict) -> tuple[dict, list]:
                                 reps=5, replays=4),
                      plain_ms=time_ms(lambda: ssd_ref.ssd_scan_ref(
                          *args, chunk), reps=2, replays=2), library_ms=None)
-            t.update(tf32x3_bound_ms(*ssd_cost(b, l, h, p, g, n, chunk)))
+            t.update(rl.tf32x3_bound_ms(*rl.ssd_cost(b, l, h, p, g, n,
+                                                     chunk)[:2]))
             line += (f" kernel {t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms "
                      f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; fp32 "
                      f"{t['fp32_bound_ms']:.4f})")
@@ -3190,19 +3183,19 @@ def check_serve_kernels(dev, seen: dict) -> tuple[dict, list]:
         f"kd_kl_bwd ({rows_n}, {vocab})",
         kd_ops.kd_kl_bwd(lt, ls, lse_t, lse_s, g, 1.0),
         kd_ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g, 1.0))
-    n = rows_n * vocab
     timed = [
         ("row_logsumexp", lambda: kd_ops.row_lse_fwd(ls, 1.0),
          lambda: kd_ref.row_logsumexp_ref(ls, 1.0),
-         lambda: torch.logsumexp(ls, -1), bound_ms(4 * n + 4 * rows_n, 4 * n)),
+         lambda: torch.logsumexp(ls, -1),
+         rl.row_lse_cost(rows_n, vocab).bound()),
         ("kd_kl_fwd", lambda: kd_ops.kd_kl_fwd(lt, ls, 1.0),
          lambda: kd_ref.kd_kl_fwd_ref(lt, ls, 1.0),
          lambda: F.kl_div(F.log_softmax(ls, -1), F.log_softmax(lt, -1),
                           reduction="none", log_target=True).sum(-1),
-         bound_ms(8 * n + 12 * rows_n, 12 * n)),
+         rl.kd_kl_fwd_cost(rows_n, vocab).bound()),
         ("kd_kl_bwd", lambda: kd_ops.kd_kl_bwd(lt, ls, lse_t, lse_s, g, 1.0),
          lambda: kd_ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g, 1.0), None,
-         bound_ms(12 * n + 12 * rows_n, 8 * n))]
+         rl.kd_kl_bwd_cost(rows_n, vocab).bound())]
     for name, kern, plain, lib, (bnd, by) in timed:
         t = dict(ms=time_ms(kern, reps=5, replays=4),
                  plain_ms=time_ms(plain, reps=2, replays=2),
@@ -3493,8 +3486,8 @@ def check_bf16_kernels(dev) -> list[dict]:
     zamba2's prefill (y to one ulp, the fp32 state at the fp32 bar; its
     time is logged as the wrapper's and is no entry of the kernels line).
     Bounds count 2 bytes per bf16 element; B4's its bf16 tensor-core
-    arithmetic (``bf16_flash_bound_ms``), the wrapper's its FLOP at the
-    bf16 peak.  Returns the JSON entries, timed at the first shape of each
+    arithmetic (``roofline.bf16_flash_bound_ms``), the wrapper's its FLOP
+    at the bf16 peak.  Returns the JSON entries, timed at the first shape of each
     list."""
     import torch
     import torch.nn.functional as F
@@ -3505,6 +3498,7 @@ def check_bf16_kernels(dev) -> list[dict]:
     from repro_torch.kernels.kd_kl import ref as kd_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.launch import roofline as rl
 
     gen = torch.Generator(device=dev).manual_seed(22)
     entries = {}
@@ -3556,9 +3550,8 @@ def check_bf16_kernels(dev) -> list[dict]:
         if window is None or window >= s:      # the same function: causal
             lib["is_causal"] = time_ms(library_causal, reps=5, replays=4)
         t["library_ms"] = min(lib.values())
-        flops = 4 * d * int(mask.sum()) * b * hq
-        nbytes = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
-        t.update(bf16_flash_bound_ms(nbytes, flops))
+        t.update(rl.bf16_flash_bound_ms(*rl.flash_cost(
+            b, s, s, hq, hkv, d, True, window, elt=2)[:2]))
         lib_s = ", ".join(f"{k_} {ms:.4f}" for k_, ms in lib.items())
         log(f"  flash bf16 (B={b}, S={s}, Hq={hq}, Hkv={hkv}, D={d}, window "
             f"{window}): err {err:.2e} (bf16 plain {e_plain:.2e}) kernel "
@@ -3588,23 +3581,22 @@ def check_bf16_kernels(dev) -> list[dict]:
                 f"row_logsumexp_bf16 ({rows}, {vocab})",
                 kd_ops.row_lse_fwd(ls, 1.0),
                 kd_ref.row_logsumexp_ref(ls32, 1.0))}
-        n = rows * vocab
         timed = {
             "row_logsumexp_bf16": (
                 lambda: kd_ops.row_lse_fwd(ls, 1.0),
                 lambda: kd_ref.row_logsumexp_ref(ls, 1.0),
                 lambda: torch.logsumexp(ls, -1),
-                bound_ms(2 * n + 4 * rows, 4 * n)),
+                rl.row_lse_cost(rows, vocab, 2).bound()),
             "kd_kl_fwd_bf16": (
                 lambda: kd_ops.kd_kl_fwd(lt, ls, 1.0),
                 lambda: kd_ref.kd_kl_fwd_ref(lt, ls, 1.0),
                 lambda: F.kl_div(F.log_softmax(ls, -1), F.log_softmax(lt, -1),
                                  reduction="none", log_target=True).sum(-1),
-                bound_ms(4 * n + 12 * rows, 12 * n)),
+                rl.kd_kl_fwd_cost(rows, vocab, 2).bound()),
             "kd_kl_bwd_bf16": (
                 lambda: kd_ops.kd_kl_bwd(lt, ls, lse_t, lse_s, g, 1.0),
                 lambda: kd_ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g, 1.0),
-                None, bound_ms(6 * n + 12 * rows, 8 * n))}
+                None, rl.kd_kl_bwd_cost(rows, vocab, 2).bound())}
         for name, (kern, plain, lib, (bnd, by)) in timed.items():
             t = dict(ms=time_ms(kern, reps=5, replays=4),
                      plain_ms=time_ms(plain, reps=2, replays=2),
@@ -3631,16 +3623,14 @@ def check_bf16_kernels(dev) -> list[dict]:
             (state.double() - exact[1]).abs().max()
             <= (want[1].double() - exact[1]).abs().max()):
         raise AssertionError(f"ssd_scan wrapper, bf16: state {e_state:.3e}")
-    nbytes, flops = ssd_cost(b, l, h, p, g, n, chunk)
-    # x, B, C and y at 2 bytes, not ssd_cost's 4
-    nbytes -= 2 * (2 * b * l * h * p + 2 * b * l * g * n)
     t = dict(ms=time_ms(lambda: ssd_ops.ssd_scan(x, dt, a, bm, cm,
                                                  chunk=chunk), reps=5,
                         replays=4),
              plain_ms=time_ms(lambda: ssd_ref.ssd_scan_ref(
                  x.float(), dt, a, bm.float(), cm.float(), chunk).__getitem__(
                  0).bfloat16(), reps=2, replays=2),
-             bound=bound_ms(nbytes, flops, PEAK_BF16))
+             bound=rl.ssd_cost(b, l, h, p, g, n, chunk, elt=2).bound(
+                 rl.PEAK_BF16))
     log(f"  ssd bf16 wrapper (casts around the fp32 kernels) x{tuple(x.shape)}"
         f" B{tuple(bm.shape)} chunk {chunk}: y err {err:.2e} state err "
         f"{e_state:.2e} wrapper {t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms"
@@ -3700,6 +3690,77 @@ def smoke_round_vs_cpu(arch: str, dev, run: dict, gate: bool = True,
         f"{'' if gate else ', a reading'}; losses card {loss['card']:.6f} "
         f"CPU {loss['cpu']:.6f} fp32 {loss['cpu fp32']:.6f}")
     return worst, launches
+
+
+def step_peak_gate(label: str, cfg, dev) -> dict:
+    """One FedGKD train step on the card against the dry-run's prediction
+    of it (``launch.dryrun_lib``: the step traced on the meta device).
+    The step is the dry-run's (``dryrun_lib.make_train_step``: SGD with
+    momentum 0.9 and weight decay 1e-5, the teacher a parameter tree of its
+    own) on the phase's batch, ``BF16_FL``'s 2 x 1,024 tokens; params,
+    teacher and optimizer state drawn on the card and resident.  After a
+    warm-up step, ``torch.cuda.max_memory_allocated()`` over the step less
+    the bytes allocated before it is held to the prediction's
+    ``temp_size_in_bytes``: the ratio within ``STEP_PEAK_BAND`` or the run
+    fails.  The step's wall time is printed beside the dry-run's
+    ``bound_time_s`` and its share of the bf16 peak, model FLOPs over
+    time, for the record.  Returns the figures."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch import roofline as rl
+
+    shape = InputShape(label, BF16_FL["seq"] - 1, BF16_FL["batch"], "train")
+    step = dryrun_lib.make_train_step(cfg)
+    _, pred = dryrun_lib.trace(step, dryrun_lib.train_arguments(cfg, shape))
+    model_flops = dryrun_lib.step_model_flops(cfg, shape, "teacher")
+    report = rl.RooflineReport(label, shape.name, rl.MESH, 1, pred.flops,
+                               pred.bytes_accessed, 0.0, model_flops,
+                               dtype=dryrun_lib.dtype_name(cfg))
+    torch.cuda.empty_cache()
+    params = card_init(cfg, dev)
+    teacher = card_init(cfg, dev, seed=1)
+    opt_state = dryrun_lib.OPT.init(params)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batch = {k: torch.randint(0, cfg.vocab_size, (shape.global_batch,
+                                                  shape.seq_len),
+                              device=dev, generator=gen, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    step(params, teacher, opt_state, batch)        # warm-up, discarded
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    out = step(params, teacher, opt_state, batch)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    measured = torch.cuda.max_memory_allocated(dev) - resident
+    del out, params, teacher, opt_state, batch
+    torch.cuda.empty_cache()
+    predicted = pred.memory["temp_size_in_bytes"]
+    ratio = measured / predicted
+    rec = dict(label=label, measured_gib=measured / 2 ** 30,
+               predicted_gib=predicted / 2 ** 30, ratio=ratio,
+               resident_gib=resident / 2 ** 30,
+               predicted_args_gib=pred.memory["argument_size_in_bytes"]
+               / 2 ** 30, wall_s=wall, bound_time_s=report.bound_time_s,
+               dominant=report.dominant,
+               mfu=model_flops / (wall * rl.PEAK_BF16))
+    log(f"  step peak, {label} (one FedGKD step of {shape.global_batch} x "
+        f"{shape.seq_len} tokens): {rec['measured_gib']:.3f} GiB on the "
+        f"card beyond {rec['resident_gib']:.3f} GiB resident, the dry-run "
+        f"predicts {rec['predicted_gib']:.3f} GiB (arguments "
+        f"{rec['predicted_args_gib']:.3f} GiB): ratio {ratio:.4f} (band "
+        f"{STEP_PEAK_BAND}); the step {wall:.4f} s, dry-run bound "
+        f"{report.bound_time_s:.4f} s ({report.dominant}), model FLOPs "
+        f"{model_flops:.4e} over the time at the bf16 peak "
+        f"{rec['mfu']:.4f}")
+    if not STEP_PEAK_BAND[0] <= ratio <= STEP_PEAK_BAND[1]:
+        raise AssertionError(f"{label}: step peak {measured} bytes against "
+                             f"the dry-run's {predicted}: ratio {ratio:.4f} "
+                             f"outside {STEP_PEAK_BAND}")
+    return rec
 
 
 def bf16_config(arch: str, n_layers: int):
@@ -3799,6 +3860,7 @@ def bf16_runs(dev) -> dict:
         f"{cfg.n_kv_heads} x {cfg.head_dim}, vocab {cfg.vocab_size}, "
         f"{cfg.param_count():,} params; cuts: {serve_cuts(cfg)}; remat "
         f"{cfg.remat}; FedGKD {BF16_FL} x {BF16_ROUNDS} rounds")
+    step_peak_gate(f"phi4-mini-3.8b d{cfg.n_layers} bf16", cfg, dev)
     out, launches, peak = bf16_fl("bf16", cfg, dev, BF16_FL, BF16_ROUNDS)
     add(launches)
     missing = [k for k in BF16_KERNELS if launches[k] == 0]
@@ -4011,6 +4073,7 @@ def run_moe(dev) -> dict:
         f"{cfg.param_count():,} params ({cfg.active_param_count():,} active "
         f"a token); cuts: {serve_cuts(cfg)}; remat {cfg.remat}; FedGKD "
         f"{BF16_FL} x {BF16_ROUNDS} rounds")
+    step_peak_gate(f"{MOE_ARCH} d{cfg.n_layers} bf16", cfg, dev)
     with moe_reads() as seen:
         out, launches, peak = bf16_fl(f"bf16 {MOE_ARCH}", cfg, dev, BF16_FL,
                                       BF16_ROUNDS)
@@ -4167,6 +4230,7 @@ def check_family_kernels(dev, seen) -> tuple[dict, list]:
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.kd_kl import ops as kd_ops
     from repro_torch.kernels.kd_kl import ref as kd_ref
+    from repro_torch.launch import roofline as rl
 
     gen = torch.Generator(device=dev).manual_seed(25)
     err, rows = {}, []
@@ -4216,17 +4280,15 @@ def check_family_kernels(dev, seen) -> tuple[dict, list]:
         def library(lib_kw=lib_kw):
             return F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
 
-        pairs = int(mask.sum()) if causal else sq * skv
-        elt = 2 if bf16 else 4
-        nbytes = elt * (2 * b * sq * hq * d + 2 * b * skv * hkv * d)
         t = dict(ms=time_ms(lambda: fa_ops.flash_attention_fwd(
                      q, k, v, causal, window), reps=5, replays=4),
                  plain_ms=time_ms(lambda: fa_ref.attention_ref(
                      q, k, v, causal=causal, window=window), reps=2,
                      replays=2),
                  library_ms=time_ms(library, reps=5, replays=4))
-        t.update((bf16_flash_bound_ms if bf16 else tf32x3_bound_ms)(
-            nbytes, 4 * d * pairs * b * hq))
+        t.update((rl.bf16_flash_bound_ms if bf16 else rl.tf32x3_bound_ms)(
+            *rl.flash_cost(b, sq, skv, hq, hkv, d, causal, window,
+                           elt=2 if bf16 else 4)[:2]))
         row = dict(name=counter, shape=[list(qs), list(ks), causal, window],
                    launches=seen[key], max_abs_err=e, library=lib_form, **t)
         rows.append(row)
@@ -4253,19 +4315,18 @@ def check_family_kernels(dev, seen) -> tuple[dict, list]:
             kd_ops.kd_kl_bwd(lt, ls, lse_t, lse_s, g, temp),
             kd_ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g, temp)))
         if vocab >= 10_000:
-            n = rows_n * vocab
             for name, kern, plain, lib, (bnd, by) in (
                     ("kd_kl_fwd", lambda: kd_ops.kd_kl_fwd(lt, ls, temp),
                      lambda: kd_ref.kd_kl_fwd_ref(lt, ls, temp),
                      lambda: F.kl_div(F.log_softmax(ls, -1),
                                       F.log_softmax(lt, -1), reduction="none",
                                       log_target=True).sum(-1),
-                     bound_ms(8 * n + 12 * rows_n, 12 * n)),
+                     rl.kd_kl_fwd_cost(rows_n, vocab).bound()),
                     ("kd_kl_bwd",
                      lambda: kd_ops.kd_kl_bwd(lt, ls, lse_t, lse_s, g, temp),
                      lambda: kd_ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g,
                                                   temp), None,
-                     bound_ms(12 * n + 12 * rows_n, 8 * n))):
+                     rl.kd_kl_bwd_cost(rows_n, vocab).bound())):
                 t = dict(ms=time_ms(kern, reps=5, replays=4),
                          plain_ms=time_ms(plain, reps=2, replays=2),
                          library_ms=(time_ms(lib, reps=2, replays=2) if lib
@@ -4287,8 +4348,7 @@ def check_family_kernels(dev, seen) -> tuple[dict, list]:
                     kd_ref.row_logsumexp_ref(ls, temp))
         note("row_logsumexp", e)
         if vocab >= 10_000:
-            n = rows_n * vocab
-            bnd, by = bound_ms(4 * n + 4 * rows_n, 4 * n)
+            bnd, by = rl.row_lse_cost(rows_n, vocab).bound()
             t = dict(ms=time_ms(lambda: kd_ops.row_lse_fwd(ls, temp), reps=5,
                                 replays=4),
                      plain_ms=time_ms(lambda: kd_ref.row_logsumexp_ref(
@@ -4518,6 +4578,7 @@ def family_runs(dev) -> dict:
         f"{serve_cuts(cfg)}, first_k_dense 3 -> {cfg.first_k_dense} (a MoE "
         f"layer alone holds {m.n_experts * 3 * cfg.d_model * m.d_ff:,}); "
         f"FedGKD {BF16_FL} x {BF16_ROUNDS} rounds")
+    step_peak_gate(f"{DS_ARCH} d{cfg.n_layers} bf16", cfg, dev)
     out, launches, peak = bf16_fl(f"bf16 {DS_ARCH}", cfg, dev, BF16_FL,
                                   BF16_ROUNDS)
     add(launches)

@@ -9,8 +9,8 @@ seamless-m4t-large-v2 (audio encoder-decoder) and llava-next-34b (VLM).
 ``configs.paper`` holds the paper's tasks.
 """
 from repro_torch.configs.base import (  # noqa: F401
-    ALL_ARCHS, SHAPES, InputShape, get_config, get_smoke_config, list_archs,
-    register,
+    ALL_ARCHS, SHAPES, InputShape, decode_input_specs, get_config,
+    get_smoke_config, input_specs, list_archs, register, train_input_specs,
 )
 
 # imported for their registration

@@ -1,23 +1,33 @@
-"""The architecture registry, the input shapes and the smoke reduction.
+"""The architecture registry, the input shapes, the input specs and the
+smoke reduction.
 
 The port of ``repro.configs.base`` without JAX: ``InputShape``,
 ``SHAPES``, the registry (``register``, ``get_config``,
-``get_smoke_config``, ``list_archs``) and ``reduce_for_smoke``.  Every
+``get_smoke_config``, ``list_archs``), the input specs
+(``train_input_specs``, ``decode_input_specs``, ``input_specs``) and
+``reduce_for_smoke``.  Every
 name of ``ALL_ARCHS`` is registered: the dense phi4-mini-3.8b,
 minitron-4b, granite-34b and internlm2-20b, the MoE mixtral-8x7b and
 deepseek-v3-671b (MLA), the SSM mamba2-2.7b, the hybrid zamba2-1.2b, the
 audio encoder-decoder seamless-m4t-large-v2 and the VLM llava-next-34b.
-The reference's ``train_input_specs``, ``decode_input_specs`` and
-``input_specs`` build ``jax.ShapeDtypeStruct``s for the dry-run tooling
-and stay with A16.
+The input specs are the reference's ``jax.ShapeDtypeStruct`` stand-ins as
+tensors on the meta device (by default): the shapes and dtypes of a
+step's inputs at a ``SHAPES`` entry, allocating nothing, for the dry-run
+(``launch.dryrun_lib``).  The FULL configs run at full depth only there;
+the functional tests run the smoke configs.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, NamedTuple
 
+import torch
+
+from repro_torch.models import frontends, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.frontends import SMOKE_FRONTEND_SEQ
+
+META = torch.device("meta")
 
 
 class InputShape(NamedTuple):
@@ -60,6 +70,67 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 def list_archs() -> list[str]:
     return sorted(_REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# input specs: meta tensors of the inputs' shapes and dtypes, no allocation
+# ---------------------------------------------------------------------------
+
+def _frontend_len(cfg: ModelConfig) -> int:
+    return cfg.frontend_seq or (frontends.frontend_seq(cfg.frontend)
+                                if cfg.frontend else 0)
+
+
+def train_input_specs(cfg: ModelConfig, shape: InputShape,
+                      device=META) -> dict:
+    """Inputs for train_step / prefill: {tokens, labels[, frontend/enc emb]}
+    (int32 tokens and labels, embeddings in ``cfg.adtype``)."""
+    b, s = shape.global_batch, shape.seq_len
+    adt = cfg.adtype
+    ids = dict(dtype=torch.int32, device=device)
+    specs: dict = {}
+    if cfg.enc_layers:
+        # enc-dec: encoder consumes frontend frame embeddings, decoder `s` toks
+        specs["enc_embeddings"] = torch.empty(
+            (b, _frontend_len(cfg), cfg.d_model), dtype=adt, device=device)
+        specs["tokens"] = torch.empty((b, s), **ids)
+        specs["labels"] = torch.empty((b, s), **ids)
+        return specs
+    if cfg.frontend:
+        fl = _frontend_len(cfg)
+        specs["frontend_embeddings"] = torch.empty((b, fl, cfg.d_model),
+                                                   dtype=adt, device=device)
+        s_text = s - fl
+        assert s_text > 0, f"{cfg.name}: seq {s} too short for frontend {fl}"
+        specs["tokens"] = torch.empty((b, s_text), **ids)
+        specs["labels"] = torch.empty((b, s_text), **ids)
+        return specs
+    specs["tokens"] = torch.empty((b, s), **ids)
+    specs["labels"] = torch.empty((b, s), **ids)
+    return specs
+
+
+def decode_input_specs(cfg: ModelConfig, shape: InputShape,
+                       cache_dtype: torch.dtype = torch.bfloat16,
+                       device=META) -> dict:
+    """Inputs for serve_step: one new token + a seq_len KV/SSM cache
+    (``transformer.init_cache`` on ``device``)."""
+    b, s = shape.global_batch, shape.seq_len
+    specs: dict = {"tokens": torch.empty((b, 1), dtype=torch.int32,
+                                         device=device)}
+    specs["cache"] = transformer.init_cache(cfg, b, s, cache_dtype,
+                                            device=device)
+    if cfg.enc_layers:
+        specs["enc_out"] = torch.empty((b, _frontend_len(cfg), cfg.d_model),
+                                       dtype=cfg.adtype, device=device)
+    return specs
+
+
+def input_specs(cfg: ModelConfig, shape_name: str, device=META) -> dict:
+    shape = SHAPES[shape_name]
+    if shape.mode == "decode":
+        return decode_input_specs(cfg, shape, device=device)
+    return train_input_specs(cfg, shape, device=device)
 
 
 def reduce_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:

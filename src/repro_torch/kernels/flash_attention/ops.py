@@ -5,10 +5,12 @@ reference's layout, q (B, Sq, Hq, D) and k/v (B, Skv, Hkv, D) with Hq a
 multiple of Hkv, and returns (B, Sq, Hq, D).  A ``window`` takes effect
 with ``causal`` only, as in the reference's ``attention_ref``.
 
-Forward: on a CUDA tensor ``flash_attention_fwd`` launches a kernel
+Forward: ``flash_attention_fwd`` is one operator of the ``repro_torch``
+library (``kernels.define_op``).  On a CUDA tensor it launches a kernel
 (built at first use; a failed launch raises) and counts the launch; on a
-CPU tensor it takes ``ref.attention_ref``.  Nothing falls back from one to
-the other.  fp32 inputs take the fp32 form, ``csrc/flash_attention.cu``
+CPU tensor it takes ``ref.attention_ref``; on a meta tensor it gives o's
+shape only, counted by ``launch.roofline.flash_cost``.  Nothing falls back
+from one to another.  fp32 inputs take the fp32 form, ``csrc/flash_attention.cu``
 (3xTF32 ``mma.sync``; ``flash_attention_fwd``'s count), bf16 inputs the
 bf16 form, ``csrc/flash_attention_bf16.cu`` (bf16 ``wgmma`` on bf16
 tiles that a copying warp brings in by TMA; fp32 softmax and P, P·V as
@@ -43,8 +45,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, define_op
 from repro_torch.kernels.flash_attention import ref
+from repro_torch.launch import roofline
 
 MAX_HEAD_DIM = 128
 BLOCK_Q = 64            # query rows per thread block (csrc kBlockQ)
@@ -105,13 +108,14 @@ def _validate(q, k, v, window) -> None:
         raise ValueError(f"window must be >= 1 or None, got {window}")
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True,
-                        window: Optional[int] = None) -> torch.Tensor:
-    """The forward: kernel on CUDA tensors, plain version on CPU tensors."""
-    _validate(q, k, v, window)
-    if not q.is_cuda:
-        return ref.attention_ref(q, k, v, causal=causal, window=window)
+def _flash_cpu(q, k, v, causal: bool, window: Optional[int]):
+    # contiguous, as the kernel writes o (the plain version's einsum may
+    # leave it permuted)
+    return ref.attention_ref(q, k, v, causal=causal,
+                             window=window).contiguous()
+
+
+def _flash_cuda(q, k, v, causal: bool, window: Optional[int]):
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
     if q.dtype not in _FORMS or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -150,6 +154,32 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(rc, counter)
     LAUNCHES[counter] += 1
     return o if dk == d else o[..., :d].contiguous()
+
+
+def _flash_cost(q, k, v, causal: bool, window: Optional[int], out=None):
+    b, sq, hq, d = q.shape
+    return roofline.flash_cost(b, sq, k.shape[1], hq, k.shape[2], d, causal,
+                               window if causal else None,
+                               q.element_size())
+
+
+_FLASH_FWD = define_op(
+    "flash_attention_fwd", "(Tensor q, Tensor k, Tensor v, bool causal, "
+    "int? window) -> Tensor",
+    cpu=_flash_cpu, cuda=_flash_cuda,
+    fake=lambda q, k, v, causal, window: torch.empty_like(
+        q, memory_format=torch.contiguous_format),
+    cost=_flash_cost)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """The forward, one ``repro_torch::flash_attention_fwd``: the kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    _validate(q, k, v, window)
+    return _FLASH_FWD(q, k, v, bool(causal),
+                      None if window is None else int(window))
 
 
 def attention_bwd(q, k, v, o, do, causal: bool, window: Optional[int]):

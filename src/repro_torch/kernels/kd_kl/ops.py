@@ -10,9 +10,13 @@ logsumexp(l / T), for every T and V (the reference's Pallas kernel covers
 whole blocks only); its backward is elementwise PyTorch,
 g·softmax(l / T) / T.
 
-On a CUDA tensor the wrappers launch the kernels of ``csrc/kd_kl.cu``
-(built at first use) and raise if a launch fails; on a CPU tensor they take
-the plain versions in ``ref.py``.  Nothing falls back from one to the other.
+Each launch function (``kd_kl_fwd``, ``kd_kl_bwd``, ``row_lse_fwd``) is
+one operator of the ``repro_torch`` library (``kernels.define_op``): on a
+CUDA tensor it launches the kernels of ``csrc/kd_kl.cu`` (built at first
+use) and raises if a launch fails; on a CPU tensor it takes the plain
+versions in ``ref.py``; on a meta tensor it gives the outputs' shapes
+only, counted by ``launch.roofline``'s cost functions.  Nothing falls back
+from one to another.
 The kernels read fp32 or bf16 logits (their bf16 forms count under
 ``*_bf16``) and compute in fp32, as the reference's Pallas kernels do: kl
 and the logsumexps are fp32, B2's ``dls`` is written in the student's
@@ -29,8 +33,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, define_op
 from repro_torch.kernels.kd_kl import ref
+from repro_torch.launch import roofline
 
 
 # logits type -> the C entry points' suffix and the counters' suffix
@@ -54,14 +59,7 @@ def _logits(lt: torch.Tensor, ls: torch.Tensor):
     return lt, ls, _FORMS[lt.dtype]
 
 
-def kd_kl_fwd(lt: torch.Tensor, ls: torch.Tensor, temperature: float):
-    """(T, V) x (T, V), fp32 or bf16 -> (kl (T,), lse_t (T,), lse_s
-    (T,)), fp32."""
-    if lt.shape != ls.shape or lt.ndim != 2:
-        raise ValueError(f"kd_kl_fwd wants two (T, V) tensors, got "
-                         f"{tuple(lt.shape)} and {tuple(ls.shape)}")
-    if not lt.is_cuda:
-        return ref.kd_kl_fwd_ref(lt, ls, temperature)
+def _kd_kl_fwd_cuda(lt: torch.Tensor, ls: torch.Tensor, temperature: float):
     if ls.device != lt.device:
         raise ValueError(f"teacher on {lt.device}, student on {ls.device}")
     lt, ls, (entry, counter) = _logits(lt, ls)
@@ -76,17 +74,37 @@ def kd_kl_fwd(lt: torch.Tensor, ls: torch.Tensor, temperature: float):
     return kl, lse_t, lse_s
 
 
-def kd_kl_bwd(lt, ls, lse_t, lse_s, g, temperature: float) -> torch.Tensor:
-    """Student gradient g·(p_S − p_T)·temp, (T, V) in the student's type;
-    lse_t, lse_s and g (T,) fp32."""
-    if (lt.ndim != 2 or lt.shape != ls.shape
-            or any(t.shape != lt.shape[:1] for t in (lse_t, lse_s, g))):
-        raise ValueError(
-            f"kd_kl_bwd wants (T, V) logits and (T,) rows, got "
-            f"{[tuple(t.shape) for t in (lt, ls, lse_t, lse_s, g)]}")
-    if not lt.is_cuda:
-        return ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g,
-                                 temperature).to(ls.dtype)
+def _elt(*ts: torch.Tensor) -> int:
+    """Bytes an element of the logits the kernels read: 2 where every
+    tensor is bf16, else 4 (two types meet in fp32)."""
+    return 2 if all(t.dtype == torch.bfloat16 for t in ts) else 4
+
+
+_KD_KL_FWD = define_op(
+    "kd_kl_fwd", "(Tensor lt, Tensor ls, float temperature) -> "
+    "(Tensor, Tensor, Tensor)",
+    cpu=ref.kd_kl_fwd_ref, cuda=_kd_kl_fwd_cuda,
+    fake=lambda lt, ls, temperature: tuple(
+        lt.new_empty(lt.shape[:1], dtype=torch.float32) for _ in range(3)),
+    cost=lambda lt, ls, temperature, out=None: roofline.kd_kl_fwd_cost(
+        *lt.shape, _elt(lt, ls)))
+
+
+def kd_kl_fwd(lt: torch.Tensor, ls: torch.Tensor, temperature: float):
+    """(T, V) x (T, V), fp32 or bf16 -> (kl (T,), lse_t (T,), lse_s
+    (T,)), fp32: one ``repro_torch::kd_kl_fwd``."""
+    if lt.shape != ls.shape or lt.ndim != 2:
+        raise ValueError(f"kd_kl_fwd wants two (T, V) tensors, got "
+                         f"{tuple(lt.shape)} and {tuple(ls.shape)}")
+    return _KD_KL_FWD(lt, ls, float(temperature))
+
+
+def _kd_kl_bwd_cpu(lt, ls, lse_t, lse_s, g, temperature: float):
+    return ref.kd_kl_bwd_ref(lt, ls, lse_t, lse_s, g,
+                             temperature).to(ls.dtype)
+
+
+def _kd_kl_bwd_cuda(lt, ls, lse_t, lse_s, g, temperature: float):
     if any(t.device != lt.device for t in (ls, lse_t, lse_s, g)):
         raise ValueError(f"kd_kl_bwd inputs on several devices, teacher on "
                          f"{lt.device}")
@@ -103,6 +121,26 @@ def kd_kl_bwd(lt, ls, lse_t, lse_s, g, temperature: float) -> torch.Tensor:
     build.check(rc, "kd_kl_bwd" + counter)
     LAUNCHES["kd_kl_bwd" + counter] += 1
     return dls.to(student)
+
+
+_KD_KL_BWD = define_op(
+    "kd_kl_bwd", "(Tensor lt, Tensor ls, Tensor lse_t, Tensor lse_s, "
+    "Tensor g, float temperature) -> Tensor",
+    cpu=_kd_kl_bwd_cpu, cuda=_kd_kl_bwd_cuda,
+    fake=lambda lt, ls, lse_t, lse_s, g, temperature: torch.empty_like(ls),
+    cost=lambda lt, ls, lse_t, lse_s, g, temperature, out=None:
+    roofline.kd_kl_bwd_cost(*lt.shape, _elt(lt, ls)))
+
+
+def kd_kl_bwd(lt, ls, lse_t, lse_s, g, temperature: float) -> torch.Tensor:
+    """Student gradient g·(p_S − p_T)·temp, (T, V) in the student's type;
+    lse_t, lse_s and g (T,) fp32: one ``repro_torch::kd_kl_bwd``."""
+    if (lt.ndim != 2 or lt.shape != ls.shape
+            or any(t.shape != lt.shape[:1] for t in (lse_t, lse_s, g))):
+        raise ValueError(
+            f"kd_kl_bwd wants (T, V) logits and (T,) rows, got "
+            f"{[tuple(t.shape) for t in (lt, ls, lse_t, lse_s, g)]}")
+    return _KD_KL_BWD(lt, ls, lse_t, lse_s, g, float(temperature))
 
 
 def _fold_rows(info, in_dims, *args):
@@ -182,12 +220,7 @@ def kd_kl_loss(teacher_logits: torch.Tensor, student_logits: torch.Tensor,
     return _KdKlRows.apply(lt, ls, float(temperature))[0].reshape(shape[:-1])
 
 
-def row_lse_fwd(logits: torch.Tensor, temperature: float) -> torch.Tensor:
-    """(T, V) fp32 or bf16 -> (T,) logsumexp(l / temperature), fp32."""
-    if logits.ndim != 2:
-        raise ValueError(f"row_logsumexp wants (T, V), got {tuple(logits.shape)}")
-    if not logits.is_cuda:
-        return ref.row_logsumexp_ref(logits, temperature)
+def _row_lse_cuda(logits: torch.Tensor, temperature: float) -> torch.Tensor:
     logits = _check(logits, "logits", tuple(_FORMS))
     entry, counter = _FORMS[logits.dtype]
     rows, vocab = logits.shape
@@ -198,6 +231,23 @@ def row_lse_fwd(logits: torch.Tensor, temperature: float) -> torch.Tensor:
     build.check(rc, "row_logsumexp" + counter)
     LAUNCHES["row_logsumexp" + counter] += 1
     return out
+
+
+_ROW_LSE = define_op(
+    "row_lse_fwd", "(Tensor logits, float temperature) -> Tensor",
+    cpu=ref.row_logsumexp_ref, cuda=_row_lse_cuda,
+    fake=lambda logits, temperature: logits.new_empty(
+        logits.shape[:1], dtype=torch.float32),
+    cost=lambda logits, temperature, out=None: roofline.row_lse_cost(
+        *logits.shape, _elt(logits)))
+
+
+def row_lse_fwd(logits: torch.Tensor, temperature: float) -> torch.Tensor:
+    """(T, V) fp32 or bf16 -> (T,) logsumexp(l / temperature), fp32: one
+    ``repro_torch::row_lse_fwd``."""
+    if logits.ndim != 2:
+        raise ValueError(f"row_logsumexp wants (T, V), got {tuple(logits.shape)}")
+    return _ROW_LSE(logits, float(temperature))
 
 
 class _RowLogsumexp(torch.autograd.Function):

@@ -10,10 +10,13 @@ reference's wrapper does, it casts its inputs to fp32 around the kernels
 (fp32 or bf16 x); the kernels themselves take fp32 only, and their
 launches count as ``ssd_scan_fwd`` whatever x's dtype.
 
-Forward: on a CUDA tensor ``ssd_scan_fwd`` launches the kernels of
-``csrc/ssd_scan.cu`` (built at first use; a failed launch raises) and
-counts one launch per call; on a CPU tensor it takes ``ref.ssd_scan_ref``.
-Nothing falls back from one to the other.  The kernels split the scan as
+Forward: ``ssd_scan_fwd`` is one operator of the ``repro_torch`` library
+(``kernels.define_op``).  On a CUDA tensor it launches the kernels of
+``csrc/ssd_scan.cu`` (``ssd_scan_launch``; built at first use; a failed
+launch raises) and counts one launch per call; on a CPU tensor it takes
+``ref.ssd_scan_ref``; on a meta tensor it gives the outputs' shapes only,
+counted by ``launch.roofline.ssd_cost`` with the plan's scratch.  Nothing
+falls back from one to another.  The kernels split the scan as
 the SSD algorithm does: the chunk states and C·Bᵀ (once per B/C group) in
 parallel over chunks, a pass over the chunks for the state entering each
 (starting from ``init_state`` where one is given), then every chunk's
@@ -33,12 +36,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, define_op
 from repro_torch.kernels.ssd_scan import ref
+from repro_torch.launch import roofline
 
 MAX_HEAD_DIM = 128      # P (csrc kMaxP)
 MAX_STATE = 256         # N (csrc kMaxN)
@@ -195,13 +200,46 @@ def ssd_scan_launch(x, dt, A, B, C, chunk: int, init_state=None):
     return y, state, states
 
 
-def ssd_scan_fwd(x, dt, A, B, C, chunk: int, init_state=None):
-    """The forward: kernels on CUDA tensors, plain version on CPU tensors."""
-    _validate(x, dt, A, B, C, init_state)
-    if not x.is_cuda:
-        return ref.ssd_scan_ref(x, dt, A, B, C, chunk, init_state)
+def _ssd_cpu(x, dt, A, B, C, chunk: int, init_state=None):
+    return ref.ssd_scan_ref(x, dt, A, B, C, chunk, init_state)
+
+
+def _ssd_cuda(x, dt, A, B, C, chunk: int, init_state=None):
     y, state, _ = ssd_scan_launch(x, dt, A, B, C, chunk, init_state)
     return y, state
+
+
+def _ssd_fake(x, dt, A, B, C, chunk: int, init_state=None):
+    b, l, h, p = x.shape
+    return (x.new_empty((b, l, h, p), dtype=torch.float32),
+            x.new_empty((b, h, p, B.shape[3]), dtype=torch.float32))
+
+
+def _ssd_cost(x, dt, A, B, C, chunk: int, init_state=None, out=None):
+    """``roofline.ssd_cost``, with the scratch the launch allocates for its
+    duration (the plan's chunk states, C·Bᵀ tiles and decays)."""
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    plan = ssd_plan(b, l, h, p, g, n, chunk)
+    scratch = 4 * sum(math.prod(s) for s in (plan.states_shape,
+                                              plan.cb_shape,
+                                              plan.decay_shape))
+    return roofline.ssd_cost(b, l, h, p, g, n, chunk,
+                             init_state=init_state is not None)._replace(
+        scratch=scratch)
+
+
+_SSD_FWD = define_op(
+    "ssd_scan_fwd", "(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, "
+    "int chunk, Tensor? init_state=None) -> (Tensor, Tensor)",
+    cpu=_ssd_cpu, cuda=_ssd_cuda, fake=_ssd_fake, cost=_ssd_cost)
+
+
+def ssd_scan_fwd(x, dt, A, B, C, chunk: int, init_state=None):
+    """The forward, one ``repro_torch::ssd_scan_fwd``: the kernels on CUDA
+    tensors (``ssd_scan_launch``), the plain version on CPU tensors."""
+    _validate(x, dt, A, B, C, init_state)
+    return _SSD_FWD(x, dt, A, B, C, int(chunk), init_state)
 
 
 class _SSDScan(torch.autograd.Function):

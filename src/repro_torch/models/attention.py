@@ -41,9 +41,9 @@ from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
 from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
     dot_product_attention)
 from repro_torch.kernels.flash_attention.ref import NEG_INF
-from repro_torch.models.layers import (Params, apply_rope, dense,
-                                       dense_bias_init, dense_init, rmsnorm,
-                                       rmsnorm_init)
+from repro_torch.models.layers import (Params, apply_rope, const_device,
+                                       dense, dense_bias_init, dense_init,
+                                       rmsnorm, rmsnorm_init)
 
 
 def gqa_init(generator: torch.Generator, d_model: int, n_heads: int,
@@ -179,11 +179,13 @@ def mla_init(generator: torch.Generator, cfg: MLAConfig,
                      cfg.v_head_dim)
     return {
         "wq_a": dense_init(generator, cfg.d_model, cfg.q_lora_rank, dtype),
-        "q_norm": rmsnorm_init(cfg.q_lora_rank, dtype),
+        "q_norm": rmsnorm_init(cfg.q_lora_rank, dtype,
+                               const_device(generator)),
         "wq_b": dense_init(generator, cfg.q_lora_rank, h * (dn + dr), dtype),
         "wkv_a": dense_init(generator, cfg.d_model, cfg.kv_lora_rank + dr,
                             dtype),
-        "kv_norm": rmsnorm_init(cfg.kv_lora_rank, dtype),
+        "kv_norm": rmsnorm_init(cfg.kv_lora_rank, dtype,
+                                const_device(generator)),
         "wkv_b": dense_init(generator, cfg.kv_lora_rank, h * (dn + dv), dtype),
         "wo": dense_init(generator, h * dv, cfg.d_model, dtype),
     }

@@ -5,7 +5,9 @@ SwiGLU MLPs.
 The port of the parts of ``repro.models.layers`` that ResNet-8/50, the
 TOY MLP, the DistilBERT-class text encoder and the LMs use.  The
 initializers draw on ``generator``'s device, in fp32, and cast to their
-``dtype`` (float32 unless the caller asks), as the reference's do.  The
+``dtype`` (float32 unless the caller asks), as the reference's do;
+without a generator they give meta tensors of the shapes and dtypes
+(``const_device``), the dry-run's shape-only init.  The
 layers round where the reference's round: ``dense`` and ``unembed`` cast
 the weight to x's dtype, the norms and RoPE compute in fp32 and return
 x's dtype.  A model whose parameters are fp32 and activations bf16 (the
@@ -46,6 +48,15 @@ def trunc_normal(generator: torch.Generator, shape: Sequence[int],
     return t.to(dtype)
 
 
+def const_device(generator: torch.Generator):
+    """Where an initializer makes the leaves it does not draw (zeros, ones,
+    fixed ranges): the CPU beside weights drawn on ``generator`` (the
+    caller moves the tree where it runs), the meta device without a
+    generator, where ``trunc_normal`` draws nothing either: a shape-only
+    init."""
+    return None if generator is not None else "meta"
+
+
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
                dtype: torch.dtype = torch.float32) -> Params:
     """A bias-free dense layer, trunc-normal at std 1/sqrt(d_in)."""
@@ -56,7 +67,8 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
 def dense_bias_init(generator: torch.Generator, d_in: int, d_out: int,
                     dtype: torch.dtype = torch.float32) -> Params:
     return {**dense_init(generator, d_in, d_out, dtype),
-            "b": torch.zeros((d_out,), dtype=dtype)}
+            "b": torch.zeros((d_out,), dtype=dtype,
+                             device=const_device(generator))}
 
 
 def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -112,9 +124,10 @@ def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
     return y.reshape(tuple(lead) + tuple(y.shape[-3:])).movedim(-3, -1)
 
 
-def layernorm_init(d: int, dtype: torch.dtype = torch.float32) -> Params:
-    return {"scale": torch.ones((d,), dtype=dtype),
-            "bias": torch.zeros((d,), dtype=dtype)}
+def layernorm_init(d: int, dtype: torch.dtype = torch.float32,
+                   device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
 
 
 def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -129,8 +142,9 @@ def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     return y.to(dtype)
 
 
-def rmsnorm_init(d: int, dtype: torch.dtype = torch.float32) -> Params:
-    return {"scale": torch.ones((d,), dtype=dtype)}
+def rmsnorm_init(d: int, dtype: torch.dtype = torch.float32,
+                 device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -81,6 +81,17 @@ def moe_init(generator: torch.Generator, cfg: MoEConfig,
     return p
 
 
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` as its CPU and CUDA kernels compute it, int64
+    zeros with ones scattered in, on every device alike: on meta tensors
+    ``F.one_hot`` compares against an ``arange`` instead, which a dry-run
+    would count in place of the card's operations, and on the CPU it reads
+    the indices' range on the host first."""
+    out = torch.zeros(tuple(idx.shape) + (n,), dtype=torch.int64,
+                      device=idx.device)
+    return out.scatter_(-1, idx.unsqueeze(-1).to(torch.int64), 1)
+
+
 def _top_k(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The k largest of the last axis, ties to the lower index (a stable
     descending sort; ``torch.topk`` does not promise an order for ties)."""
@@ -119,7 +130,7 @@ def dispatch_plan(top_idx: torch.Tensor, cap: int, n_experts: int):
     flat = top_idx.reshape(n, g * k)
     # the scan runs along the last axis: a CUDA scan over the G·k entries
     # of each expert's row, not down E columns
-    onehot = F.one_hot(flat, n_experts).transpose(1, 2).contiguous()
+    onehot = one_hot(flat, n_experts).transpose(1, 2).contiguous()
     before = onehot.cumsum(2) - onehot                        # (N, E, G·k)
     pos = before.gather(1, flat[:, None, :])[:, 0]            # (N, G·k)
     keep = pos < cap
@@ -160,7 +171,7 @@ def _dispatch(params: Params, xg: torch.Tensor, cfg: MoEConfig):
     out = (w[..., None] * rows.to(torch.float32)).sum(2).to(dt)
 
     # Switch-style load balance: E · Σ_e f_e · p_e / k, f_e of kept entries
-    kept = F.one_hot(top_idx, e) * keep[..., None]            # (N, G, k, E)
+    kept = one_hot(top_idx, e) * keep[..., None]            # (N, G, k, E)
     f_e = kept.sum(2).to(torch.float32).mean(1)               # (N, E)
     p_e = probs.mean(1)
     aux = e * (f_e * p_e).sum(-1) / k

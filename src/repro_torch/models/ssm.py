@@ -47,26 +47,31 @@ def mamba2_init(generator: torch.Generator, cfg: SSMConfig,
                 dtype: torch.dtype = torch.float32) -> Params:
     """Parameters with the reference's keys and shapes, in ``dtype`` but
     for ``dt_bias``, ``A_log`` and ``D``, which stay fp32 as the
-    reference's do."""
+    reference's do; meta tensors without a generator."""
     di, n, h = cfg.d_inner, cfg.d_state, cfg.n_heads
     g = cfg.n_groups
     d_in_proj = 2 * di + 2 * g * n + h     # z, x, B, C, dt
     conv_dim = di + 2 * g * n              # conv over x, B, C
-    # dt bias initialised so that softplus(dt_bias) spans [1e-3, 1e-1]
-    dt = torch.exp(torch.rand((h,), generator=generator,
-                              device=generator.device)
-                   * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
-    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    const = layers.const_device(generator)
+    if generator is None:                  # shape only: nothing drawn
+        dt_bias = torch.empty((h,), dtype=torch.float32, device=const)
+    else:
+        # dt bias initialised so that softplus(dt_bias) spans [1e-3, 1e-1]
+        dt = torch.exp(torch.rand((h,), generator=generator,
+                                  device=generator.device)
+                       * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+        dt_bias = dt + torch.log(-torch.expm1(-dt))
     return {
         "in_proj": dense_init(generator, cfg.d_model, d_in_proj, dtype),
         "conv_w": layers.trunc_normal(generator, (cfg.d_conv, conv_dim),
                                       std=1.0 / math.sqrt(cfg.d_conv),
                                       dtype=dtype),
-        "conv_b": torch.zeros((conv_dim,), dtype=dtype),
+        "conv_b": torch.zeros((conv_dim,), dtype=dtype, device=const),
         "dt_bias": dt_bias.to(torch.float32),
-        "A_log": torch.log(torch.arange(1, h + 1, dtype=torch.float32)),
-        "D": torch.ones((h,)),
-        "norm": layers.rmsnorm_init(di, dtype),
+        "A_log": torch.log(torch.arange(1, h + 1, dtype=torch.float32,
+                                        device=const)),
+        "D": torch.ones((h,), device=const),
+        "norm": layers.rmsnorm_init(di, dtype, const),
         "out_proj": dense_init(generator, di, cfg.d_model, dtype),
     }
 

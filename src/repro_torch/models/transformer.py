@@ -76,9 +76,11 @@ from repro_torch.models.layers import Params
 from repro_torch.tree import tree_flatten, tree_map
 
 
-def _norm_init(cfg: ModelConfig, d: int) -> Params:
-    return layers.rmsnorm_init(d, cfg.pdtype) if cfg.norm == "rms" \
-        else layers.layernorm_init(d, cfg.pdtype)
+def _norm_init(cfg: ModelConfig, d: int,
+               generator: Optional[torch.Generator]) -> Params:
+    device = layers.const_device(generator)
+    return layers.rmsnorm_init(d, cfg.pdtype, device) if cfg.norm == "rms" \
+        else layers.layernorm_init(d, cfg.pdtype, device)
 
 
 def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -126,9 +128,9 @@ def _attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def _dense_layer_init(cfg: ModelConfig, generator: torch.Generator) -> Params:
-    return {"norm1": _norm_init(cfg, cfg.d_model),
+    return {"norm1": _norm_init(cfg, cfg.d_model, generator),
             "attn": _attn_init(cfg, generator),
-            "norm2": _norm_init(cfg, cfg.d_model),
+            "norm2": _norm_init(cfg, cfg.d_model, generator),
             "mlp": _mlp_init(cfg, generator, cfg.d_ff)}
 
 
@@ -144,9 +146,9 @@ def _moe_cfg(cfg: ModelConfig) -> moe_lib.MoEConfig:
 
 
 def _moe_layer_init(cfg: ModelConfig, generator: torch.Generator) -> Params:
-    return {"norm1": _norm_init(cfg, cfg.d_model),
+    return {"norm1": _norm_init(cfg, cfg.d_model, generator),
             "attn": _attn_init(cfg, generator),
-            "norm2": _norm_init(cfg, cfg.d_model),
+            "norm2": _norm_init(cfg, cfg.d_model, generator),
             "moe": moe_lib.moe_init(generator, cfg.moe, cfg.pdtype)}
 
 
@@ -162,7 +164,7 @@ def _moe_layer(cfg: ModelConfig, p: Params, h: torch.Tensor,
 
 
 def _mamba_layer_init(cfg: ModelConfig, generator: torch.Generator) -> Params:
-    return {"norm": _norm_init(cfg, cfg.d_model),
+    return {"norm": _norm_init(cfg, cfg.d_model, generator),
             "mixer": ssm_lib.mamba2_init(generator, cfg.ssm, cfg.pdtype)}
 
 
@@ -190,9 +192,9 @@ def _hybrid(cfg: ModelConfig) -> bool:
 def _shared_block_init(cfg: ModelConfig, generator: torch.Generator) -> Params:
     return {"in_proj": layers.dense_init(generator, 2 * cfg.d_model,
                                          cfg.d_model, cfg.pdtype),
-            "norm1": _norm_init(cfg, cfg.d_model),
+            "norm1": _norm_init(cfg, cfg.d_model, generator),
             "attn": _attn_init(cfg, generator),
-            "norm2": _norm_init(cfg, cfg.d_model),
+            "norm2": _norm_init(cfg, cfg.d_model, generator),
             "mlp": _mlp_init(cfg, generator, cfg.d_ff)}
 
 
@@ -226,7 +228,7 @@ def _enc_layer(cfg: ModelConfig, p: Params, h: torch.Tensor,
 
 def _xattn_layer_init(cfg: ModelConfig, generator: torch.Generator) -> Params:
     p = _dense_layer_init(cfg, generator)
-    p["norm_x"] = _norm_init(cfg, cfg.d_model)
+    p["norm_x"] = _norm_init(cfg, cfg.d_model, generator)
     p["xattn"] = attn_lib.gqa_init(generator, cfg.d_model, cfg.n_heads,
                                    cfg.n_kv_heads, cfg.head_dim_, False,
                                    cfg.pdtype)
@@ -264,7 +266,8 @@ def _stack_init(fn, cfg: ModelConfig, generator: torch.Generator,
     gives them."""
     if count == 0:
         return tree_map(lambda x: torch.empty(
-            (0,) + tuple(x.shape), dtype=x.dtype, device=generator.device),
+            (0,) + tuple(x.shape), dtype=x.dtype,
+            device=generator.device if generator is not None else "meta"),
             fn(cfg, None))
     per_layer = [fn(cfg, generator) for _ in range(count)]
     return tree_map(lambda *xs: torch.stack(xs), *per_layer)
@@ -279,11 +282,13 @@ def init(generator: torch.Generator, cfg: ModelConfig) -> Params:
     dense ``block`` and ``final_norm``) where the config has them.  The
     weights are drawn on ``generator``'s device, the norms made on the CPU;
     every leaf is ``cfg.pdtype`` but the Mamba-2 layers' ``dt_bias``,
-    ``A_log`` and ``D`` and the MoE routers, which are fp32."""
+    ``A_log`` and ``D`` and the MoE routers, which are fp32.  With
+    ``generator=None`` every leaf is a meta tensor of its shape and dtype,
+    holding no data and drawing nothing (the dry-run's parameters)."""
     params: Params = {
         "embed": layers.embedding_init(generator, cfg.vocab_size, cfg.d_model,
                                        cfg.pdtype),
-        "final_norm": _norm_init(cfg, cfg.d_model),
+        "final_norm": _norm_init(cfg, cfg.d_model, generator),
     }
     if not cfg.tie_embeddings:
         params["head"] = layers.dense_init(generator, cfg.d_model,
@@ -296,18 +301,18 @@ def init(generator: torch.Generator, cfg: ModelConfig) -> Params:
     if _hybrid(cfg):
         params["shared_block"] = _shared_block_init(cfg, generator)
     if cfg.enc_layers:
-        params["enc_embed_norm"] = _norm_init(cfg, cfg.d_model)
+        params["enc_embed_norm"] = _norm_init(cfg, cfg.d_model, generator)
         params["enc"] = _stack_init(_dense_layer_init, cfg, generator,
                                     cfg.enc_layers)
-        params["enc_final_norm"] = _norm_init(cfg, cfg.d_model)
+        params["enc_final_norm"] = _norm_init(cfg, cfg.d_model, generator)
     if cfg.mtp_depth:
         params["mtp"] = {
             "proj": layers.dense_init(generator, 2 * cfg.d_model, cfg.d_model,
                                       cfg.pdtype),
-            "norm_h": _norm_init(cfg, cfg.d_model),
-            "norm_e": _norm_init(cfg, cfg.d_model),
+            "norm_h": _norm_init(cfg, cfg.d_model, generator),
+            "norm_e": _norm_init(cfg, cfg.d_model, generator),
             "block": _dense_layer_init(cfg, generator),
-            "final_norm": _norm_init(cfg, cfg.d_model),
+            "final_norm": _norm_init(cfg, cfg.d_model, generator),
         }
     return params
 

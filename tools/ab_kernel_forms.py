@@ -44,9 +44,9 @@ for B1 (``kd_kl_fwd_f32`` and ``kd_kl_fwd_bf16``) at ``KD_FWD_SHAPES``:
 2,048 rows at every LM vocabulary of the port (phi4-mini, seamless-m4t,
 deepseek-v3, llava-next, mixtral), mamba2's (4,092, 50,280) and the main
 path's (256, 10), (256, 200) and (1,024, 10), each form's share of its
-bound beside its time (bytes: both logits read once, three (rows,) fp32
-outputs written; 12 operations an element at the fp32 rate, as
-``chip_smoke.check_kd_kl`` counts them).
+bound beside its time (``launch.roofline.kd_kl_fwd_cost``: both logits
+read once, three (rows,) fp32 outputs written; 12 operations an element
+at the fp32 rate).
 Each form's largest error against the plain version is printed beside its
 time; the run fails if the new form is further than 1e-5 of max|plain|
 from it (for the SSD scan, where the fp32 plain version is itself further
@@ -145,8 +145,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from chip_smoke import (BF16_FLASH, BF16_FLASH_TOL, LM_SEQ, R50_HW,
-                            RESNET8_CONVS, bf16_compare, bound_ms,
-                            resnet50_shapes, ssd_inputs, time_ms)
+                            RESNET8_CONVS, bf16_compare, resnet50_shapes,
+                            ssd_inputs, time_ms)
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -155,6 +155,7 @@ def main() -> int:
     from repro_torch.kernels.kd_kl import ref as kd_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.launch import roofline
 
     old, have = build_old(args.old, args.interface)
     dev = torch.device("cuda", 0)
@@ -353,8 +354,8 @@ def main() -> int:
                 eo, en = errors(f"{entry} {(rows, vocab)} {name}", a_old,
                                 a_new, w)
                 e_old, e_new = max(e_old, eo), max(e_new, en)
-            n = rows * vocab
-            bnd, by = bound_ms(2 * lt.element_size() * n + 12 * rows, 12 * n)
+            bnd, by = roofline.kd_kl_fwd_cost(rows, vocab,
+                                              lt.element_size()).bound()
             t_old, t_new = turns(f_old, f_new)
             print(f"{entry} ({rows}, {vocab}): old {t_old:.5f} ms (err "
                   f"{e_old:.2e}, {bnd / t_old:.3f} of the bound) new "
