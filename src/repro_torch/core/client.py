@@ -32,6 +32,7 @@ from typing import Any, Callable
 import torch
 from torch.func import grad_and_value
 
+from repro_torch import trace
 from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.tree import tree_flatten, tree_map
 
@@ -51,16 +52,20 @@ def make_step(loss_fn: Callable, opt: Optimizer) -> Callable:
     def step(params, opt_state, payload, client_state, x, y, mask, aux, lr):
         leaves, rebuild = tree_flatten(params)
         live_leaves = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            loss, metrics = loss_fn(rebuild(live_leaves), payload,
-                                    client_state, x, y, mask,
-                                    _aux_or_none(aux))
-            grads = torch.autograd.grad(loss, live_leaves)
-        with torch.no_grad():
-            updates, opt_state = opt.update(rebuild(list(grads)), opt_state,
-                                            params, lr)
-            return (apply_updates(params, updates), opt_state, loss.detach(),
-                    tree_map(torch.Tensor.detach, metrics))
+        with trace.span("step"):
+            with torch.enable_grad():
+                with trace.span("step_forward"):
+                    loss, metrics = loss_fn(rebuild(live_leaves), payload,
+                                            client_state, x, y, mask,
+                                            _aux_or_none(aux))
+                with trace.span("step_backward"):
+                    grads = torch.autograd.grad(loss, live_leaves)
+            with torch.no_grad(), trace.span("step_optimizer"):
+                updates, opt_state = opt.update(rebuild(list(grads)),
+                                                opt_state, params, lr)
+                new_params = apply_updates(params, updates)
+        return (new_params, opt_state, loss.detach(),
+                tree_map(torch.Tensor.detach, metrics))
 
     return step
 

@@ -69,6 +69,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import client as client_lib
 from repro_torch.core.algorithms import Algorithm
 from repro_torch.core.modelzoo import ModelBundle
@@ -435,20 +436,24 @@ class VmapExecutor:
         k = len(client_data)
         full = aux_full = None
         if ctx.has_precompute or ctx.has_finalize:
-            full = _pad_full_data(client_data, dev, ctx.deferred)
+            with trace.span("data"):
+                full = _pad_full_data(client_data, dev, ctx.deferred)
         if ctx.has_precompute:
             # the teacher forward needs no batch picks: it goes first, as in
             # the reference, so the device works while the host pads below
             parts_spec = (ctx.algo.precompute_parts(payload)
                           if client_ids is not None else None)
-            aux_full = (self._incremental_aux(ctx, payload, parts_spec,
-                                              client_ids, client_data, full)
-                        if parts_spec is not None
-                        else self._precompute(ctx, payload, *full))
-        mats = _client_mats(ctx, client_data, rng, picks)
-        host = _pad_and_stack(mats)
-        xs, ys, ex_mask, picks, step_mask = (_upload(t, dev, ctx.deferred)
-                                             for t in host)
+            with trace.span("teacher"):
+                aux_full = (self._incremental_aux(ctx, payload, parts_spec,
+                                                  client_ids, client_data,
+                                                  full)
+                            if parts_spec is not None
+                            else self._precompute(ctx, payload, *full))
+        with trace.span("data"):
+            mats = _client_mats(ctx, client_data, rng, picks)
+            host = _pad_and_stack(mats)
+            xs, ys, ex_mask, picks, step_mask = (
+                _upload(t, dev, ctx.deferred) for t in host)
         aux = {}
         if ctx.has_precompute:
             rows = torch.arange(k, device=dev)[:, None, None]

@@ -286,7 +286,7 @@ def run_federated(task: PaperTask, algo: Algorithm,
                              {"algo": algo.name})
 
     for t in range(start_round, rounds):
-        t0 = time.time()
+        t0 = time.perf_counter()
         sampled = data.sample_cohort(rng, n_sample)
         payload = algo.round_payload(server)
         cids = [int(k) for k in sampled]
@@ -345,7 +345,7 @@ def run_federated(task: PaperTask, algo: Algorithm,
         records.append(RoundRecord(
             t + 1, acc, loss,
             float(np.mean(local_losses)) if local_losses else 0.0,
-            time.time() - t0, sampled=tuple(cids)))
+            time.perf_counter() - t0, sampled=tuple(cids)))
         if checkpoint_dir is not None and (
                 (t + 1) % checkpoint_every == 0 or t == rounds - 1):
             _save_checkpoint(checkpoint_dir, t + 1, algo, server, rng,
@@ -1077,7 +1077,7 @@ def _run_async(algo: Algorithm, data: FederatedData,
     if start_round == 0:
         dispatch_wave(n_sample)
     for t in range(start_round, rounds):
-        t0 = time.time()
+        t0 = time.perf_counter()
         if injector is None:
             completions = sim.pop_batch(b)
         else:
@@ -1091,7 +1091,7 @@ def _run_async(algo: Algorithm, data: FederatedData,
                              evaluate(model, server["global"], data.test_x,
                                       data.test_y))
                 records.append(RoundRecord(
-                    t + 1, acc, loss, 0.0, time.time() - t0,
+                    t + 1, acc, loss, 0.0, time.perf_counter() - t0,
                     sim_time=sim.now, version=version))
                 if wants_refill(t):
                     dispatch_wave(min(b, data.n_clients - len(in_flight)))
@@ -1149,7 +1149,7 @@ def _run_async(algo: Algorithm, data: FederatedData,
         # aggregation starts, so ``seconds`` is the host's time
         records.append(RoundRecord(
             t + 1, acc, loss, float(np.mean(local_losses)),
-            time.time() - t0, sim_time=sim.now, version=version,
+            time.perf_counter() - t0, sim_time=sim.now, version=version,
             mean_staleness=float(np.mean(staleness)),
             sampled=tuple(c.client for c in completions)))
         save_ckpt(t + 1)

@@ -27,6 +27,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import LAUNCHES, build
 from repro_torch.kernels.grouped_conv import ref
 
@@ -189,11 +190,11 @@ class _ClientBatchedConv(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            with torch.profiler.record_function("grouped_conv_dx"):
+            with trace.span("grouped_conv_dx"):
                 dx = ref.grouped_conv_dx(dy, w, ctx.stride, x.shape[2],
                                          x.shape[3], ctx.padding)
         if ctx.needs_input_grad[1]:
-            with torch.profiler.record_function("grouped_conv_dw"):
+            with trace.span("grouped_conv_dw"):
                 dw = ref.shift_gemm_dw(x, dy, ctx.stride, w.shape[1],
                                        w.shape[2], ctx.padding)
         return dx, dw, None, None

@@ -41,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import LAUNCHES, build, define_op
 from repro_torch.kernels.ssd_scan import ref
 from repro_torch.launch import roofline
@@ -257,8 +258,7 @@ class _SSDScan(torch.autograd.Function):
         inputs = [t.detach().to(torch.float32).requires_grad_(True)
                   for t in live]
         # named for the profiler: its device time is the backward's cost
-        with torch.enable_grad(), torch.profiler.record_function(
-                "ssd_scan_backward"):
+        with torch.enable_grad(), trace.span("ssd_scan_backward"):
             y, state = ref.ssd_chunked(
                 *inputs[:5], chunk=ctx.chunk,
                 init_state=inputs[5] if len(inputs) == 6 else None)

@@ -42,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import distillation as D
 from repro_torch.core.server import weighted_average
 from repro_torch.kernels.kd_kl.ops import row_logsumexp
@@ -143,7 +144,7 @@ def make_loss_fn(cfg: ModelConfig, *, kd_mode: str = "teacher",
             loss = loss + mtp_weight * mtp_ce
             metrics["mtp_ce"] = mtp_ce
         if kd_mode == "teacher":
-            with torch.no_grad():
+            with torch.no_grad(), trace.span("teacher"):
                 t_logits, _ = _forward(teacher_params, cfg, batch)
             kl = D.kl_divergence(t_logits, logits, kd_temperature)
             kd = 0.5 * gamma * torch.mean(kl)
@@ -175,17 +176,22 @@ def make_train_step(cfg: ModelConfig, opt: Optional[Optimizer] = None, *,
     def step(params, teacher_params, opt_state, batch):
         leaves, rebuild = tree_flatten(params)
         live = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            loss, metrics = loss_fn(rebuild(live), teacher_params, batch)
-            # a leaf the loss never reads (a run of no layers) gets a zero
-            # gradient, as under jax.grad
-            grads = torch.autograd.grad(loss, live, allow_unused=True,
-                                        materialize_grads=True)
-        with torch.no_grad():
-            updates, opt_state = opt.update(rebuild(list(grads)), opt_state,
-                                            params, lr)
-            metrics = tree_map(torch.Tensor.detach, {**metrics, "loss": loss})
-            return apply_updates(params, updates), opt_state, metrics
+        with trace.span("step"):
+            with torch.enable_grad():
+                with trace.span("step_forward"):
+                    loss, metrics = loss_fn(rebuild(live), teacher_params,
+                                            batch)
+                # a leaf the loss never reads (a run of no layers) gets a
+                # zero gradient, as under jax.grad
+                with trace.span("step_backward"):
+                    grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                                materialize_grads=True)
+            with torch.no_grad(), trace.span("step_optimizer"):
+                updates, opt_state = opt.update(rebuild(list(grads)),
+                                                opt_state, params, lr)
+                new_params = apply_updates(params, updates)
+        metrics = tree_map(torch.Tensor.detach, {**metrics, "loss": loss})
+        return new_params, opt_state, metrics
 
     return step
 

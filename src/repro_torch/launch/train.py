@@ -44,6 +44,7 @@ from typing import Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import systemsim
 from repro_torch.core.distillation import ensemble_average
@@ -123,8 +124,9 @@ def _run_rounds(cfg, train_round, *, dev, sync, label: str, rounds: int,
     history = []
     for t in range(rounds):
         t0 = time.perf_counter()
-        data = torch.from_numpy(client_batches(
-            cfg, n_clients, batches_per_round, batch, seq, seed=seed + t))
+        with trace.span("data"):
+            data = torch.from_numpy(client_batches(
+                cfg, n_clients, batches_per_round, batch, seq, seed=seed + t))
         teacher = ensemble_average(buf.models) if algo == "fedgkd" else ()
         global_params, metrics = train_round(global_params, teacher, data)
         del teacher
@@ -174,7 +176,8 @@ def run_serial(cfg, *, rounds: int, n_clients: int, batches_per_round: int,
             p = global_params
             o = opt.init(p)
             for b in range(batches_per_round):
-                bt = data[k, b].to(dev)
+                with trace.span("data"):
+                    bt = data[k, b].to(dev)
                 p, o, metrics = step(p, teacher, o,
                                      {"tokens": bt[:, :-1], "labels": bt[:, 1:]})
             new_params.append(p)
