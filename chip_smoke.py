@@ -23,7 +23,9 @@ and nothing of JAX or of the JAX package, and
      subsets), at K=1, N=256 and at K=1
      with the teacher precompute's chunk sizes, and at ResNet-50's 23
      distinct shapes at 64x64 (53 convs) at K=4, N=64 and at K=1 with
-     N=256 and the teacher's chunk sizes; flash attention at the text
+     N=256 and the teacher's chunk sizes; the conv's weight gradient at
+     ResNet-8's convs at K = 1-4, N = 64 and at ResNet-50's shapes at K=4,
+     N=64, against cuDNN's as well (``check_conv_dw``); flash attention at the text
      path's (B, S, Hq, Hkv, D) = (64, 64, 4, 4, 32) of a local step and
      a teacher forward, (256, ...) of an evaluation batch, and for
      coverage at the row counts a per-shard teacher pass would take, GQA
@@ -36,9 +38,10 @@ and nothing of JAX or of the JAX package, and
      (4092, 50280), (8184, 50280), (2048, 32000), one and two rows and
      ragged shapes —
      to 1e-5 of the plain version's largest magnitude (fp32, TF32 off;
-     for the SSD scan, where its fp32 plain version is itself further than
-     that from float64, to being no further from float64 than the plain
-     version), and times the kernel,
+     for the SSD scan and the conv's weight gradient, where the fp32 plain
+     version is itself further than that from float64, to being no further
+     from float64 than the plain version, ``nearer_float64``), and times
+     the kernel,
      the plain version and, where one exists, one library call (cuDNN's
      grouped ``conv2d``; ``kl_div`` of ``log_softmax``;
      ``scaled_dot_product_attention``; ``torch.logsumexp``) on the device:
@@ -52,7 +55,7 @@ and nothing of JAX or of the JAX package, and
      beside them.  Then the vmap rules: B1/B2 under ``torch.func.vmap`` of
      ``grad`` over 8 clients, and B3 over K=4 single-client convs (output,
      input and weight gradients), against the plain versions, one launch
-     for all the vmapped clients;
+     (of the forward, of the weight gradient) for all the vmapped clients;
   4. drives the paths, each with every launch count set to 0 just before
      and read just after, and fails if a kernel of the path was not
      launched:
@@ -271,6 +274,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -418,7 +422,7 @@ LM_CHECK = dict(LM_RUN, n_clients=2, batch=1, seq=513)
 LM_KERNELS = ["ssd_scan_fwd", "row_logsumexp", "kd_kl_fwd", "kd_kl_bwd"]
 # the CUDA kernels' names in csrc/*.cu, for the profile's device time by
 # kernel, and the port's named ranges (the SSD scan's autograd backward)
-PORT_KERNELS = ["kd_kl_", "conv_fwd_kernel", "flash_fwd_kernel",
+PORT_KERNELS = ["kd_kl_", "conv_fwd_kernel", "conv_dw_", "flash_fwd_kernel",
                 "flash_fwd_bf16_kernel", "row_lse_",
                 "ssd_chunk_kernel", "ssd_pass_kernel", "ssd_out_kernel"]
 PORT_RANGES = ["ssd_scan_backward", "grouped_conv_dw", "grouped_conv_dx"]
@@ -579,6 +583,28 @@ def compare(name: str, got, want) -> float:
         raise AssertionError(f"{name}: max abs err {err:.3e} exceeds "
                              f"{KERNEL_TOL} x max|plain| = {scale:.3e}")
     return err
+
+
+def nearer_float64(name: str, got, plain, exact, always: bool = False):
+    """``got`` against the fp32 plain version ``plain``: within KERNEL_TOL
+    of max|plain|, or, where it is not, no further from the float64 result
+    (``exact()``) than the plain version is (its own fp32 rounding can pass
+    the bar).  Returns max|got - plain| and, where float64 was read (past
+    the bar, or with ``always``), the two distances from it; raises where
+    neither holds."""
+    err = float((got - plain).abs().max())
+    near = math.isfinite(err) and err <= KERNEL_TOL * max(
+        float(plain.abs().max()), 1e-30)
+    if near and not always:
+        return err, None
+    e = exact()
+    ek, ep = (float((t.double() - e).abs().max()) for t in (got, plain))
+    if not near and not ek <= ep:
+        raise AssertionError(
+            f"{name}: {err:.3e} from the plain version exceeds {KERNEL_TOL} "
+            f"x max|plain| and it is further from float64 ({ek:.3e}) than "
+            f"the fp32 plain version ({ep:.3e})")
+    return err, (ek, ep)
 
 
 def launch_floor_ms() -> float:
@@ -798,6 +824,133 @@ def check_conv(dev, teacher_ns: list[int], r50_teacher_ns: list[int]) -> dict:
                 replaces="src/repro/kernels/grouped_conv/kernel.py:36", **rec)
 
 
+def check_conv_dw(dev) -> dict:
+    """B3's weight gradient (``grouped_conv_dw``) in five groups: ResNet-8's
+    nine convs at K = 4, 3, 2 and 1, N = 64 (the client-batched route's
+    step, the async waves and retried subsets, the sequential route's
+    step) and ResNet-50's 23 distinct shapes at K=4, N=64 (its step, each
+    shape as often as the network has it).  At each conv the kernel is
+    held to ``shift_gemm_dw``, its first form and plain version, by
+    ``nearer_float64`` (the plain version sums up to 65,536 terms a client
+    in one fp32 chain: 1.5e-5 of max from float64 at the stem), launches
+    once a call and gives the same bits twice.  The library yardstick is
+    cuDNN's weight gradient (``torch.nn.grad.conv2d_weight``, ``groups=K``,
+    on the inputs packed channel-wise and padded as JAX pads SAME, the
+    packing not timed); it is timed, not held: the algorithm cuDNN picks at
+    some 3x3 shapes lands 4x further from float64 than the plain version
+    (its distance is printed).  Prints each conv's kernel, plain
+    and cuDNN ms, its 3xTF32 bound from ``grouped_conv_dw_cost`` and its
+    plan, and each group's totals with the shapes where the kernel is
+    slower than the plain version or cuDNN; the record's times are the
+    ResNet-8 K=4 step's, with the groups beside them."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.grouped_conv import ops, ref
+    from repro_torch.launch import roofline as rl
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    r8 = [c + (1,) for c in RESNET8_CONVS]
+    groups = {f"K={k} step": (k, r8) for k in (4, 3, 2, 1)}
+    groups["R50 K=4 step"] = (4, resnet50_shapes(R50_HW))
+    slow = dict(reps=3, replays=2)      # the plain version: ms a call
+    n = 64
+    rec = dict(max_abs_err=0.0, groups={})
+    for group, (k, convs) in groups.items():
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0,
+                   flops=0.0, slower=[], slower_than_library=[])
+        for name, h, cin, cout, kk, s, count in convs:
+            oh, lo, hi = ref.same_pads(h, kk, s)
+            x = torch.randn(k, n, h, h, cin, device=dev, generator=gen)
+            dy = torch.randn(k, n, oh, oh, cout, device=dev, generator=gen)
+
+            def kernel():
+                return ops.grouped_conv_dw(x, dy, s, kk, kk, "SAME")
+
+            def plain():
+                return ref.shift_gemm_dw(x, dy, s, kk, kk, "SAME")
+
+            exact = functools.cache(lambda: ref.shift_gemm_dw(
+                x.double(), dy.double(), s, kk, kk, "SAME"))
+            before = LAUNCHES["grouped_conv_dw"]
+            got, again = kernel(), kernel()
+            if LAUNCHES["grouped_conv_dw"] - before != 2:
+                raise AssertionError(f"dw K={k} {name}: one launch a call "
+                                     f"expected, got "
+                                     f"{LAUNCHES['grouped_conv_dw'] - before}"
+                                     f" for 2")
+            if not torch.equal(got, again):
+                raise AssertionError(f"dw K={k} {name}: two calls differ")
+            want = plain()
+            err, far = nearer_float64(f"grouped_conv_dw K={k} {name}", got,
+                                      want, exact, always=name == "stem")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            xg = F.pad(x.permute(1, 0, 4, 2, 3).reshape(n, k * cin, h, h),
+                       (lo, hi, lo, hi))
+            dyg = dy.permute(1, 0, 4, 2, 3).reshape(n, k * cout, oh, oh)
+
+            def library():
+                return torch.nn.grad.conv2d_weight(
+                    xg, (k * cout, cin, kk, kk), dyg, stride=s, groups=k)
+
+            lib = library().reshape(k, cout, cin, kk, kk).permute(0, 3, 4, 2, 1)
+            lib_err = float((lib - want).abs().max())
+            lib64 = (float((lib.double() - exact()).abs().max()) if far
+                     else None)
+            del got, again, want, lib
+            t = dict(ms=time_ms(kernel), plain_ms=time_ms(plain, **slow),
+                     library_ms=time_ms(library, **slow))
+            nbytes, flops, _ = rl.grouped_conv_dw_cost(k, n, h, h, cin, cout,
+                                                       kk, kk, s)
+            t.update(rl.tf32x3_bound_ms(nbytes, flops))
+            plan = ops.conv_dw_plan(k, n, h, h, cin, cout, kk, kk, s, "SAME")
+            f64 = (f"; from float64 kernel {far[0]:.3e} plain {far[1]:.3e} "
+                   f"cuDNN {lib64:.3e}" if far else "")
+            log(f"  dw K={k} N={n} {name:13s} x{count} ({h}x{h}, {cin}->"
+                f"{cout}, {kk}x{kk} s{s}) err {err:.2e} (cuDNN "
+                f"{lib_err:.2e}){f64} kernel "
+                f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms library "
+                f"{t['library_ms']:.4f} ms bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}; fp32 {t['fp32_bound_ms']:.4f}) tile "
+                f"{plan.tile_imgs}x{plan.tile_rows}x{plan.tile_cols} chunk "
+                f"{plan.chunk} bn {plan.bn} splits {plan.splits} stages "
+                f"{plan.stages} smem {plan.smem_bytes} grid {plan.grid}")
+            for key in ("ms", "plain_ms", "library_ms"):
+                tot[key] += count * t[key]
+            tot["nbytes"] += count * nbytes
+            tot["flops"] += count * flops
+            if t["ms"] > t["plain_ms"]:
+                tot["slower"].append(f"{name} {t['ms']:.4f} against "
+                                     f"{t['plain_ms']:.4f}")
+            if t["ms"] > t["library_ms"]:
+                tot["slower_than_library"].append(name)
+            del x, dy, xg, dyg
+        bound = rl.tf32x3_bound_ms(tot["nbytes"], tot["flops"])
+        log(f"  dw group {group}: kernel {tot['ms']:.4f} ms plain "
+            f"{tot['plain_ms']:.4f} ms cuDNN {tot['library_ms']:.4f} ms "
+            f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+            f"3xTF32; fp32 {bound['fp32_bound_ms']:.4f}); slower than the "
+            f"plain version at {len(tot['slower'])} of {len(convs)} shapes "
+            f"{tot['slower']}, than cuDNN at "
+            f"{len(tot['slower_than_library'])} {tot['slower_than_library']}")
+        rec["groups"][group] = dict(
+            ms=tot["ms"], plain_ms=tot["plain_ms"],
+            library_ms=tot["library_ms"], **bound,
+            slower_than_plain=len(tot["slower"]),
+            slower_than_library=len(tot["slower_than_library"]),
+            shapes=len(convs))
+        if group == "K=4 step":                # the FedGKD cell's step
+            rec.update(ms=tot["ms"], plain_ms=tot["plain_ms"],
+                       library_ms=tot["library_ms"], **bound)
+        torch.cuda.empty_cache()
+    return dict(name="grouped_conv_dw", route="cuda",
+                source="src/repro_torch/csrc/grouped_conv.cu",
+                replaces="none (the reference's weight gradient is outside "
+                         "Pallas: src/repro/kernels/grouped_conv/ref.py)",
+                **rec)
+
+
 def check_vmap_rules(dev) -> None:
     """The kernels' ``torch.func`` vmap rules on the card, against the plain
     versions on the same inputs: B1/B2 under ``vmap(grad)`` over 8 clients
@@ -846,23 +999,26 @@ def check_vmap_rules(dev) -> None:
             return torch.sum(conv_ops.client_batched_conv(
                 xi[None], wi[None], stride=s)[0] * dyi)
 
-        before = LAUNCHES["grouped_conv_fwd"]
+        before = dict(LAUNCHES)
         y = vmap(lambda xi, wi: conv_ops.client_batched_conv(
             xi[None], wi[None], stride=s)[0])(x, w)
         dx, dw = vmap(grad(one, argnums=(0, 1)))(x, w, dy)
-        launched = LAUNCHES["grouped_conv_fwd"] - before
+        launched = LAUNCHES["grouped_conv_fwd"] - before["grouped_conv_fwd"]
+        launched_dw = (LAUNCHES["grouped_conv_dw"]
+                       - before["grouped_conv_dw"])
         errs = [compare(f"vmap conv {name}", y,
                         conv_ref.grouped_conv_ref(x, w, s, "SAME")),
                 compare(f"vmap(grad) conv dx {name}", dx,
                         conv_ref.grouped_conv_dx(dy, w, s, h, h, "SAME")),
                 compare(f"vmap(grad) conv dw {name}", dw,
                         conv_ref.shift_gemm_dw(x, dy, s, kk, kk, "SAME"))]
-        if launched != 2:
+        if (launched, launched_dw) != (2, 1):
             raise AssertionError(f"B3 under vmap {name}: one K=4 launch a "
-                                 f"call expected, got {launched} for 2")
+                                 f"call expected, got {launched} for 2 and "
+                                 f"{launched_dw} weight gradients for 1")
         log(f"  vmap rules: B3 under vmap over K=4 at {name} err y "
             f"{errs[0]:.2e} dx {errs[1]:.2e} dw {errs[2]:.2e}, launches "
-            f"{launched}")
+            f"{launched} and {launched_dw}")
 
 
 def check_flash(dev, teacher_ns: list[int]) -> dict:
@@ -965,28 +1121,20 @@ def check_ssd(dev, round_check_len: int) -> dict:
         args = ssd_inputs(dev, gen, b, l, h_, p_, g_, n_)
         got = ops.ssd_scan_fwd(*args, q_)
         want = ref.ssd_scan_ref(*args, q_)
-        errs, gate = [], "plain"
-        for name, a, w in zip(("y", "state"), got, want):
-            err = float((a - w).abs().max())
-            scale = float(w.abs().max())
-            if not err <= KERNEL_TOL * max(scale, 1e-30):
-                gate = "float64"
+        exact = functools.cache(lambda: ref.ssd_chunked(
+            *(t.double() for t in args), chunk=q_))
+        errs, line = [], ""
+        for i, name in enumerate(("y", "state")):
+            err, far = nearer_float64(f"ssd_scan_fwd {shape}: {name}", got[i],
+                                      want[i], lambda: exact()[i],
+                                      always=shape in path[:1])
             errs.append(err)
+            if far:
+                line += (f"; {name} vs float64: kernel {far[0]:.3e} plain "
+                         f"{far[1]:.3e}")
         line = (f"  ssd {shape} err y {errs[0]:.3e} state {errs[1]:.3e} "
                 f"(max|plain| {float(want[0].abs().max()):.3e}, "
-                f"{float(want[1].abs().max()):.3e})")
-        if gate == "float64" or shape in path[:1]:
-            exact = ref.ssd_chunked(*(t.double() for t in args), chunk=q_)
-            for name, a, w, e in zip(("y", "state"), got, want, exact):
-                ek = float((a.double() - e).abs().max())
-                ep = float((w.double() - e).abs().max())
-                line += f"; {name} vs float64: kernel {ek:.3e} plain {ep:.3e}"
-                if gate == "float64" and not ek <= ep:
-                    raise AssertionError(
-                        f"ssd_scan_fwd {shape}: {name} exceeds {KERNEL_TOL} x "
-                        f"max|plain| and is further from float64 ({ek:.3e}) "
-                        f"than the fp32 plain version ({ep:.3e})")
-            line += f"; gate {gate}"
+                f"{float(want[1].abs().max()):.3e})" + line)
         rec["max_abs_err"] = max(rec["max_abs_err"], *errs)
         if shape == path[0]:
             t = dict(ms=time_ms(lambda: ops.ssd_scan_fwd(*args, q_), reps=5,
@@ -1439,8 +1587,8 @@ def run_resnet50(dev, task, data, kw) -> dict:
     losses = [v for r in hist.records for v in (r.test_loss, r.mean_local_loss)]
     if not (all(map(math.isfinite, losses)) and all_finite(hist.final_params)):
         raise AssertionError(f"{label}: non-finite loss or params {losses}")
-    missing = [k for k in ("grouped_conv_fwd", "kd_kl_fwd", "kd_kl_bwd")
-               if launches[k] == 0]
+    missing = [k for k in ("grouped_conv_fwd", "grouped_conv_dw",
+                           "kd_kl_fwd", "kd_kl_bwd") if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {label} path: "
                              f"{missing}")
@@ -1524,8 +1672,8 @@ def run_vmap_body(dev) -> dict:
         if hist.telemetry["round_body"] != body:
             raise AssertionError(f"ResNet-8 client_batched={flag}: "
                                  f"{hist.telemetry}")
-        missing = [k for k in ("grouped_conv_fwd", "kd_kl_fwd", "kd_kl_bwd")
-                   if launches[k] == 0]
+        missing = [k for k in ("grouped_conv_fwd", "grouped_conv_dw",
+                               "kd_kl_fwd", "kd_kl_bwd") if launches[k] == 0]
         if missing:
             raise AssertionError(f"ResNet-8 {body} body: not launched "
                                  f"{missing}")
@@ -4891,13 +5039,15 @@ def main() -> int:
         f"{conv_chunks}, ResNet-50 {r50_chunks}; text (a per-shard pass, "
         f"for coverage) {text_chunks}")
     kernels = (check_kd_kl(dev) + [check_conv(dev, conv_chunks, r50_chunks),
+                                   check_conv_dw(dev),
                                    check_flash(dev, text_chunks),
                                    check_ssd(dev, LM_CHECK["seq"] - 1),
                                    check_row_lse(dev)])
     check_vmap_rules(dev)
     launches = [
         run_path(dev, "ResNet-8", *resnet,
-                 ["kd_kl_fwd", "kd_kl_bwd", "grouped_conv_fwd"]),
+                 ["kd_kl_fwd", "kd_kl_bwd", "grouped_conv_fwd",
+                  "grouped_conv_dw"]),
         run_path(dev, "AG News text", *text,
                  ["flash_attention_fwd", "kd_kl_fwd", "kd_kl_bwd"],
                  check_lr=TEXT_CHECK_LR),

@@ -7,13 +7,13 @@ went through the kernels.  A kernel's bf16 form counts under its name
 with ``_bf16``; B5 has none (its wrapper casts a bf16 caller's inputs to
 fp32, and the fp32 kernels count as ``ssd_scan_fwd``).
 
-Each launch function of B1, B2, B4, B5 and B6 is one operator of the
-``repro_torch`` library (``define_op``): its CUDA kernel launches the
-kernel, its CPU kernel is the plain version, and its fake (meta) kernel
-gives the outputs' shapes and types without computing anything, so a step
-traced on the meta device (``launch.dryrun_lib``) sees one operation a
-launch, counted by its cost function (``launch.roofline``), where it would
-otherwise see the plain version's intermediates.
+Each launch function of B1, B2, B4, B5, B6 and B3's weight gradient is
+one operator of the ``repro_torch`` library (``define_op``): its CUDA
+kernel launches the kernel, its CPU kernel is the plain version, and its
+fake (meta) kernel gives the outputs' shapes and types without computing
+anything, so a step traced on the meta device (``launch.dryrun_lib``) sees
+one operation a launch, counted by its cost function (``launch.roofline``),
+where it would otherwise see the plain version's intermediates.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from typing import Callable
 import torch
 
 LAUNCHES = {"kd_kl_fwd": 0, "kd_kl_bwd": 0, "grouped_conv_fwd": 0,
+            "grouped_conv_dw": 0,
             "flash_attention_fwd": 0, "ssd_scan_fwd": 0, "row_logsumexp": 0,
             "kd_kl_fwd_bf16": 0, "kd_kl_bwd_bf16": 0,
             "flash_attention_fwd_bf16": 0, "row_logsumexp_bf16": 0}

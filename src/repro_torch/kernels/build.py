@@ -45,6 +45,11 @@ SIGNATURES = {
     # shared-memory bytes); stream
     "grouped_conv_fwd_f32": [_P, _P, _P] + [_I64] * 8 + [_I32] * 5
                             + [_I32] * 7 + [_P],
+    # x, dy, dw, the splits' scratch (or NULL); K, N, H, W, Cin, OH, OW,
+    # Cout; kh, kw, stride, pad_top, pad_left; the plan (images, rows, cols,
+    # Cin chunk, bn, stages, splits, shared-memory bytes); stream
+    "grouped_conv_dw_f32": [_P, _P, _P, _P] + [_I64] * 8 + [_I32] * 5
+                           + [_I32] * 8 + [_P],
     # q, k, v, o; B, Sq, Skv, Hq, Hkv, D; the (batch, seq, head) strides of
     # q, k, v and o; causal, window; scale; stream
     "flash_attention_fwd_f32": [_P, _P, _P, _P] + [_I64] * 6 + [_I64] * 12

@@ -12,9 +12,9 @@ HBM3) in place of the reference's TPU v5e pod:
 step, a teacher forward adding 2·N·D, an MTP head 5%.
 
 This module is also the one home of the port's kernels' cost functions:
-for each of B1-B6 the bytes it must move (each input read once, each
-output written once) and the operations it must do at a shape and element
-size, and the least time of that work on the card (``bound_ms``; B3, B4
+for each of B1-B6 and B3's weight gradient the bytes it must move (each
+input read once, each output written once) and the operations it must do
+at a shape and element size, and the least time of that work on the card (``bound_ms``; B3, B4
 and B5 in the 3xTF32 arithmetic their fp32 forms use,
 ``tf32x3_bound_ms``; B4's bf16 form on the bf16 tensor cores,
 ``bf16_flash_bound_ms``).  ``chip_smoke.py`` prints its bounds from them
@@ -30,7 +30,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 
-from repro_torch.kernels.grouped_conv.ref import same_pads
+from repro_torch.kernels.grouped_conv.ref import resolve_pads, same_pads
 
 # NVIDIA H100 SXM peaks (data sheet): HBM3 bytes/s; fp32 FLOP/s on the CUDA
 # cores; dense TF32 and bf16 FLOP/s on the tensor cores.  TF32 is off in
@@ -206,6 +206,22 @@ def grouped_conv_cost(k: int, n: int, h: int, cin: int, cout: int, kk: int,
     nbytes = 4 * (k * n * h * h * cin + k * kk * kk * cin * cout
                   + k * n * oh * oh * cout)
     flops = 2 * k * n * cout * cin * taps_in_bounds(h, kk, stride, oh, lo) ** 2
+    return Cost(nbytes, flops)
+
+
+def grouped_conv_dw_cost(k: int, n: int, h: int, w: int, cin: int,
+                         cout: int, kh: int, kw: int, stride: int,
+                         padding: str = "SAME") -> Cost:
+    """B3's weight gradient of x (K, N, H, W, Cin) fp32 against dy (K, N,
+    OH, OW, Cout): x and dy read once, the (K, kh, kw, Cin, Cout) filter
+    gradient written once; the multiply-adds of the taps inside the input
+    only, the forward's."""
+    oh, lo_h, _ = resolve_pads(h, kh, stride, padding)
+    ow, lo_w, _ = resolve_pads(w, kw, stride, padding)
+    nbytes = 4 * (k * n * h * w * cin + k * n * oh * ow * cout
+                  + k * kh * kw * cin * cout)
+    flops = (2 * k * n * cout * cin * taps_in_bounds(h, kh, stride, oh, lo_h)
+             * taps_in_bounds(w, kw, stride, ow, lo_w))
     return Cost(nbytes, flops)
 
 

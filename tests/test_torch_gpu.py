@@ -13,7 +13,10 @@ difference of O(|logit|) terms and keeps a rounding residue of ~1e-7.
 The SSD scan at the LM path's width is held to that, or, where the fp32
 plain version is itself further than that from the float64 result (its
 in-chunk decays reach ~-2000, and it forms them as differences of fp32
-cumsums), to being no further from float64 than the plain version is.
+cumsums), to being no further from float64 than the plain version is; so
+is the conv's weight gradient (both by ``_close_or_nearer``), whose plain
+version sums up to 65,536 terms a client in one fp32 chain (cuBLAS does not
+split them) and lands ~1.5e-5 of max|plain| from float64 at ResNet-8's stem.
 
 The kernels' bf16 forms read bf16 and compute in fp32: their fp32 outputs
 (B1's kl and logsumexps, B6) are held to the plain version on the same
@@ -76,6 +79,19 @@ def cuda(monkeypatch):
 def _close(got, want):
     torch.testing.assert_close(got, want, rtol=0,
                                atol=TOL * max(1.0, float(want.abs().max())))
+
+
+def _close_or_nearer(got, plain, exact):
+    """``_close`` to the fp32 plain version, or no further from the float64
+    result ``exact`` than that version is."""
+    err = float((got - plain).abs().max())
+    if err <= TOL * max(1.0, float(plain.abs().max())):
+        return
+    e_got, e_plain = (float((t.double() - exact).abs().max())
+                      for t in (got, plain))
+    assert e_got <= e_plain, (
+        f"{err:.3e} from the plain version and {e_got:.3e} from float64, "
+        f"where the plain version is {e_plain:.3e} from it")
 
 
 @pytest.mark.parametrize("t,v", [(256, 10), (256, 100), (256, 200),
@@ -165,8 +181,9 @@ def test_kd_kl_under_vmap_of_grad(cuda):
                          ids=str)
 def test_grouped_conv_under_vmap_of_grad(cuda, shape):
     """B3 under ``torch.func.vmap`` of ``grad`` of a single-client conv over
-    K=4 clients: the rule folds the vmapped axis into K (one launch), and
-    the output and both gradients agree with the plain versions."""
+    K=4 clients: the rules fold the vmapped axis into K (one launch of the
+    forward, one of the weight gradient), and the output and both
+    gradients agree with the plain versions."""
     from torch.func import grad, vmap
 
     h, cin, cout, kk, s = shape
@@ -181,10 +198,11 @@ def test_grouped_conv_under_vmap_of_grad(cuda, shape):
         return torch.sum(conv_ops.client_batched_conv(
             xi[None], wi[None], stride=s)[0] * dyi)
 
-    before = LAUNCHES["grouped_conv_fwd"]
+    before = dict(LAUNCHES)
     dx, dw = vmap(grad(one, argnums=(0, 1)))(x, w, dy)
     torch.cuda.synchronize()
-    assert LAUNCHES["grouped_conv_fwd"] == before + 1
+    assert LAUNCHES["grouped_conv_fwd"] == before["grouped_conv_fwd"] + 1
+    assert LAUNCHES["grouped_conv_dw"] == before["grouped_conv_dw"] + 1
     _close(dx, conv_ref.grouped_conv_dx(dy, w, s, h, h, "SAME"))
     _close(dw, conv_ref.shift_gemm_dw(x, dy, s, kk, kk, "SAME"))
 
@@ -224,6 +242,44 @@ def test_grouped_conv_kernel_at_wave_sizes(cuda, k, shape):
     torch.cuda.synchronize()
     assert LAUNCHES["grouped_conv_fwd"] == before + 1
     _close(got, conv_ref.grouped_conv_ref(x, w, s, "SAME"))
+
+
+# (K, N, H, Cin, Cout, k, stride, padding) for the weight-gradient kernel:
+# ResNet-8's convs at every cohort size the port trains (K = 1-4, N = 64;
+# the stem's Cin = 3 among them), ResNet-50's distinct shapes at the local
+# step's K=4, N=64 (its 7x7 stride-2 stem, Cin = 3), VALID with strides that
+# do not divide, Cout and Cin past a tile and a chunk, 1x1 chunks past 32
+# channels (one of 256 and a partial 4, odd Cout) and a 3x3 tile of fewer
+# images
+CONV_DW = ([(k, 64) + g + ("SAME",) for k in (1, 2, 3, 4)
+            for g in RESNET8_CONVS]
+           + [(4, 64) + g + ("SAME",) for g in R50_CONVS]
+           + [(2, 3, 11, 4, 4, 3, 2, "VALID"), (3, 5, 9, 8, 24, 3, 1, "VALID"),
+              (1, 2, 64, 3, 64, 7, 2, "VALID"), (2, 4, 16, 40, 100, 3, 1, "SAME"),
+              (3, 5, 7, 8, 24, 3, 1, "SAME"),
+              (1, 8, 7, 260, 40, 1, 2, "SAME"), (2, 2, 9, 72, 33, 1, 1, "SAME"),
+              (1, 40, 4, 64, 32, 3, 2, "SAME")])
+
+
+@pytest.mark.parametrize("case", CONV_DW, ids=str)
+def test_grouped_conv_dw_kernel_matches_plain(cuda, case):
+    """The weight-gradient kernel against ``shift_gemm_dw`` (the per-tap
+    fp32 bmm): one launch a call, and the same bits on every call (the
+    splits' partials are summed in a fixed order)."""
+    k, n, h, cin, cout, kk, s, pad = case
+    gen = torch.Generator(device=cuda).manual_seed(sum(case[:7]))
+    oh = conv_ref.resolve_pads(h, kk, s, pad)[0]
+    x = torch.randn(k, n, h, h, cin, device=cuda, generator=gen)
+    dy = torch.randn(k, n, oh, oh, cout, device=cuda, generator=gen)
+    before = LAUNCHES["grouped_conv_dw"]
+    got = conv_ops.grouped_conv_dw(x, dy, s, kk, kk, pad)
+    again = conv_ops.grouped_conv_dw(x, dy, s, kk, kk, pad)
+    torch.cuda.synchronize()
+    assert LAUNCHES["grouped_conv_dw"] == before + 2
+    assert torch.equal(got, again)
+    _close_or_nearer(got, conv_ref.shift_gemm_dw(x, dy, s, kk, kk, pad),
+                     conv_ref.shift_gemm_dw(x.double(), dy.double(), s, kk, kk,
+                                            pad))
 
 
 def test_dp_noise_is_the_same_on_card_and_cpu(cuda):
@@ -278,7 +334,8 @@ def test_short_fedgkd_run_launches_every_kernel(cuda):
     reset_launches()
     hist = fl_loop.run_federated(task, algorithms.make("fedgkd"), data,
                                  max_batches_per_client=2)
-    for name in ("kd_kl_fwd", "kd_kl_bwd", "grouped_conv_fwd"):
+    for name in ("kd_kl_fwd", "kd_kl_bwd", "grouped_conv_fwd",
+                 "grouped_conv_dw"):
         assert LAUNCHES[name] > 0, LAUNCHES
     assert math.isfinite(hist.records[0].mean_local_loss)
 
@@ -352,15 +409,6 @@ def _ssd_inputs(dev, shape, seed):
     return x, dt, A, B, C
 
 
-def _ssd_close(got, want, exact):
-    """Within TOL of the plain version, or no further from float64."""
-    err = float((got - want).abs().max())
-    if err <= TOL * max(1.0, float(want.abs().max())):
-        return
-    assert (float((got.double() - exact).abs().max())
-            <= float((want.double() - exact).abs().max())), err
-
-
 # (B, L, H, P, G, N, chunk): the LM path's step, the smoke config's layer,
 # two groups at a ragged length, one token, one sequence at train_4k's
 # published length (16 chunks through the state pass), one chunk at full
@@ -384,7 +432,7 @@ def test_ssd_scan_kernel_matches_plain(cuda, case):
     want = ssd_ref.ssd_scan_ref(*args, chunk)
     exact = ssd_ref.ssd_chunked(*(t.double() for t in args), chunk=chunk)
     for got, w, e in zip((y, state), want, exact):
-        _ssd_close(got, w, e)
+        _close_or_nearer(got, w, e)
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "path slices", "offset"])
@@ -745,7 +793,7 @@ def test_ssd_scan_kernel_from_an_entering_state(cuda, case):
     exact = ssd_ref.ssd_chunked(*(t.double() for t in args), chunk=chunk,
                                 init_state=init.double())
     for got, w, e in zip((y, state), want, exact):
-        _ssd_close(got, w, e)
+        _close_or_nearer(got, w, e)
     _close(entering, ssd_ref.entering_states(*args, chunk, init)[0])
 
 
@@ -998,7 +1046,7 @@ def test_ssd_scan_casting_wrapper_in_bf16(cuda):
     args = (x.float(), dt, A, B.float(), C.float())
     want = ssd_ref.ssd_scan_ref(*args, 256)
     exact = ssd_ref.ssd_chunked(*(t.double() for t in args), chunk=256)
-    _ssd_close(state, want[1], exact[1])
+    _close_or_nearer(state, want[1], exact[1])
     _bf16_close(y, want[0])
 
 
